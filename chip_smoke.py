@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases (any failure raises and the script exits non-zero):
+
+1. device: the card's name and power limit; TF32 off for f32 products.
+2. build: compile the Hopper kernels from ``src/repro_torch/csrc``.
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes (PAPER_1M) and at ragged shapes, with times, the
+   least time the card could take, and one PyTorch library call's time.
+4. main path: the PAPER_1M memory lifecycle (build, queries, concurrent
+   inserts, deletes, a delta-replay rebuild under inserts, queries again)
+   through ``repro_torch.api.MemoryService`` on a synthetic clustered
+   corpus made from ``--seed``; launch counters show it ran the kernels.
+
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
+and the port (never jax, never the JAX package).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+# H100 SXM published peaks (dense): bf16 tensor cores, f32 outside the tensor
+# cores, device memory rate
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+
+N_ROWS = 1_000_000       # PAPER_1M's corpus: HotpotQA's 1 M passages
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of fn() in ms over `reps` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+class tf32_on:
+    """TF32 tensor-core products inside the block, f32 outside (the script
+    runs with TF32 off)."""
+
+    def __enter__(self):
+        torch.backends.cuda.matmul.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def check_scan(got, want, tol=2e-2) -> float:
+    """Masked slots identical, finite scores within rtol = atol = tol."""
+    if got.shape != want.shape:
+        raise AssertionError(f"scan shape {got.shape} != {want.shape}")
+    if not torch.equal(torch.isinf(got), torch.isinf(want)) or not \
+            torch.equal(got[torch.isinf(got)], want[torch.isinf(want)]):
+        raise AssertionError("scan_scores masks disagree with the plain version")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    bad = err > tol + tol * want[fin].abs()
+    if bool(bad.any()) or not bool(torch.isfinite(got[fin]).all()):
+        raise AssertionError(f"scan_scores off by {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_assign(x, cent, idx, dist, tol=3e-2, fused=True) -> float:
+    """dist within tol of the plain version; idx equal wherever the plain
+    version's best-vs-second margin exceeds tol."""
+    from repro_torch.kernels import ref
+    ridx, rdist = ref.kmeans_assign_ref(x, cent, fused_conversion=fused)
+    err = (dist - rdist).abs()
+    if bool((err > tol + tol * rdist.abs()).any()):
+        raise AssertionError(f"kmeans_assign dist off by {float(err.max())}")
+    if cent.shape[0] == 1:
+        sure = torch.ones_like(ridx, dtype=torch.bool)
+    else:
+        rnd = ref.round_bf16 if fused else (lambda t: t)
+        d = (rnd(x) @ rnd(cent).T).mul_(-2.0)
+        d += (cent ** 2).sum(1)[None, :]
+        two = torch.topk(d, 2, dim=1, largest=False).values
+        sure = (two[:, 1] - two[:, 0]) > tol
+        del d
+    if not torch.equal(idx[sure], ridx[sure]):
+        n = int((idx[sure] != ridx[sure]).sum())
+        raise AssertionError(f"kmeans_assign idx differs on {n} rows with "
+                             f"a margin above {tol}")
+    if bool(((idx < 0) | (idx >= cent.shape[0])).any()):
+        raise AssertionError("kmeans_assign idx out of [0, C)")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_segsum(got, want, rtol=1e-4, atol=1e-3) -> float:
+    (s, c), (rs, rc) = got, want
+    if not torch.equal(c, rc):
+        raise AssertionError("segsum_gemm counts are not exact")
+    err = (s - rs).abs()
+    if bool((err > atol + rtol * rs.abs()).any()):
+        raise AssertionError(f"segsum_gemm sums off by {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_kernels(seed: int, cfg) -> dict:
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def ids_with_holes(n, frac=0.1):
+        ids = torch.arange(n, dtype=torch.int32, device=dev)
+        holes = torch.rand(n, generator=g, device=dev) < frac
+        return torch.where(holes, torch.full_like(ids, -1), ids)
+
+    d = cfg.dim
+    c = cfg.n_clusters
+    n_full = c * cfg.list_capacity + 4096          # lists + spill slots
+    n_probe = cfg.nprobe * cfg.list_capacity + 4096
+    m_build = N_ROWS
+    out = {}
+
+    # -- scan_scores ------------------------------------------------------
+    err = 0.0
+    for (b, n, dd, metric) in [(33, 777, 192, "l2"), (5, 1000, 130, "ip"),
+                               (17, 129, d, "l2"), (1, c, d, "ip"),
+                               (64, 3000, d, "ip"), (2, 4099, 68, "l2"),
+                               (97, 3001, d, "l2")]:
+        q, db, ids = randn(b, dd), randn(n, dd), ids_with_holes(n)
+        norms = (db ** 2).sum(1) if metric == "l2" else None
+        err = max(err, check_scan(ss.scan_scores(q, db, ids, norms,
+                                                 metric=metric),
+                                  ref.scan_scores_ref(q, db, ids, norms,
+                                                      metric=metric)))
+    # probed slab (B = 1) and full scan (B = 64) at PAPER_1M
+    q1, dbp, idsp = randn(1, d), randn(n_probe, d), ids_with_holes(n_probe)
+    err = max(err, check_scan(ss.scan_scores(q1, dbp, idsp),
+                              ref.scan_scores_ref(q1, dbp, idsp)))
+    probe_ms = cuda_ms(lambda: ss.scan_scores(q1, dbp, idsp), reps=50)
+    probe_plain = cuda_ms(lambda: ref.scan_scores_ref(q1, dbp, idsp), reps=10)
+    with tf32_on():
+        probe_lib = cuda_ms(lambda: torch.mm(q1, dbp.T), reps=50)
+    probe_f32 = cuda_ms(lambda: torch.mm(q1, dbp.T), reps=50)
+    probe_bound = bound_ms(4 * (n_probe * d + n_probe + d + n_probe),
+                           2 * n_probe * d, PEAK_BF16)
+    del dbp, idsp
+    q64, dbf, idsf = randn(64, d), randn(n_full, d), ids_with_holes(n_full)
+    err = max(err, check_scan(ss.scan_scores(q64, dbf, idsf),
+                              ref.scan_scores_ref(q64, dbf, idsf)))
+    full_ms = cuda_ms(lambda: ss.scan_scores(q64, dbf, idsf), reps=10)
+    full_plain = cuda_ms(lambda: ref.scan_scores_ref(q64, dbf, idsf), reps=3)
+    with tf32_on():
+        full_lib = cuda_ms(lambda: torch.mm(q64, dbf.T), reps=10)
+    full_f32 = cuda_ms(lambda: torch.mm(q64, dbf.T), reps=10)
+    fb, fby = bound_ms(4 * (n_full * d + n_full + 64 * d + 64 * n_full),
+                       2 * 64 * n_full * d, PEAK_BF16)
+    del dbf, idsf
+    torch.cuda.empty_cache()
+    out["scan_scores"] = {
+        "name": "scan_scores", "route": "cuda",
+        "source": "src/repro_torch/csrc/scan_scores.cu",
+        "replaces": "src/repro/kernels/scan_scores.py:203",
+        "shape": f"full scan B=64 N={n_full} D={d} ip",
+        "max_abs_err": err, "ms": full_ms, "plain_ms": full_plain,
+        "bound_ms": fb, "bound_by": fby, "library_ms": full_lib,
+        # TF32 reads the same f32 bytes on the tensor cores; the f32 mm
+        # without TF32 runs on the CUDA cores and is bound by operations
+        "library_call": "torch.mm(q, db.T) f32 inputs, TF32 on",
+        "library_f32_ms": full_f32,
+        "probed": {"shape": f"B=1 N={n_probe} D={d} ip", "ms": probe_ms,
+                   "plain_ms": probe_plain, "bound_ms": probe_bound[0],
+                   "bound_by": probe_bound[1], "library_ms": probe_lib,
+                   "library_f32_ms": probe_f32},
+    }
+
+    # -- kmeans_assign ----------------------------------------------------
+    err = 0.0
+    err_f32 = 0.0
+    for (m, cc, dd) in [(1000, 96, 128), (777, 200, 130), (300, 1, 64),
+                        (4097, c, d)]:
+        x, cent = randn(m, dd), randn(cc, dd)
+        idx, dist = ka.kmeans_assign(x, cent)
+        err = max(err, check_assign(x, cent, idx, dist))
+        # the f32-product variant (ablation rung fused_conversion=False)
+        idx, dist = ka.kmeans_assign(x, cent, fused_conversion=False)
+        err_f32 = max(err_f32, check_assign(x, cent, idx, dist, fused=False))
+    x, cent = randn(m_build, d), randn(c, d)
+    idx, dist = ka.kmeans_assign(x, cent)
+    err = max(err, check_assign(x, cent, idx, dist))
+    ms = cuda_ms(lambda: ka.kmeans_assign(x, cent), reps=10)
+    plain = cuda_ms(lambda: ref.kmeans_assign_ref(x, cent), reps=3)
+    f32_ms = cuda_ms(lambda: ka.kmeans_assign(x, cent,
+                                              fused_conversion=False), reps=3)
+    f32_bound = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
+                         2 * m_build * c * d, PEAK_F32)
+    kb, kby = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
+                       2 * m_build * c * d, PEAK_BF16)
+    out["kmeans_assign"] = {
+        "name": "kmeans_assign", "route": "cuda",
+        "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "replaces": "src/repro/kernels/kmeans_assign.py:84",
+        "shape": f"M={m_build} C={c} D={d}", "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": kb, "bound_by": kby,
+        "library_ms": None,
+        "library_call": None,  # no single PyTorch call computes an argmin GEMM
+        "f32_variant": {"max_abs_err": err_f32, "ms": f32_ms,
+                        "bound_ms": f32_bound[0], "bound_by": f32_bound[1]},
+    }
+
+    # -- segsum_gemm ------------------------------------------------------
+    err = 0.0
+    for (m, cc, dd, lo, hi) in [(999, 64, 128, 0, 64), (100, 8, 130, -1, 8),
+                                (513, 100, 64, -3, 110), (0, 4, 32, 0, 4),
+                                (5000, c, d, -1, c)]:
+        x = randn(m, dd)
+        a = torch.randint(lo, hi, (m,), generator=g, device=dev,
+                          dtype=torch.int32)
+        got = sg.segsum_gemm(x, a, n_clusters=cc)
+        err = max(err, check_segsum(got, sg.segsum_gemm_plain(
+            x, a, n_clusters=cc)))
+        if not torch.equal(got[0], sg.segsum_gemm(x, a, n_clusters=cc)[0]):
+            raise AssertionError("segsum_gemm is not deterministic")
+    x = randn(m_build, d)
+    a = torch.randint(0, c, (m_build,), generator=g, device=dev,
+                      dtype=torch.int32)
+    got = sg.segsum_gemm(x, a, n_clusters=c)
+    err = max(err, check_segsum(got, sg.segsum_gemm_plain(x, a,
+                                                          n_clusters=c)))
+    ms = cuda_ms(lambda: sg.segsum_gemm(x, a, n_clusters=c), reps=10)
+    plain = cuda_ms(lambda: sg.segsum_gemm_plain(x, a, n_clusters=c), reps=3)
+    acc = torch.zeros(c, d, device=dev)
+    a64 = a.long()
+    lib = cuda_ms(lambda: acc.index_add_(0, a64, x), reps=10)
+    sb, sby = bound_ms(4 * (m_build * d + m_build + c * d + c),
+                       m_build * d, PEAK_F32)
+    out["segsum_gemm"] = {
+        "name": "segsum_gemm", "route": "cuda",
+        "source": "src/repro_torch/csrc/segsum_gemm.cu",
+        "replaces": "src/repro/kernels/segsum_gemm.py:69",
+        "shape": f"M={m_build} C={c} D={d}", "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": sb, "bound_by": sby,
+        "library_ms": lib,
+        "library_call": "Tensor.index_add_ (f32 rows, atomics)",
+    }
+    del x, a, a64, acc, got
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the PAPER_1M memory lifecycle through MemoryService
+# ---------------------------------------------------------------------------
+
+def make_corpus(n: int, d: int, g: torch.Generator) -> torch.Tensor:
+    """Unit rows around n/25 random topic directions (about 25 rows a
+    topic): clustered, yet spread over enough topics that 1024 k-means
+    lists stay under their 1.5x-mean capacity."""
+    dev = g.device
+    n_topics = max(1, n // 25)
+    centers = torch.nn.functional.normalize(
+        torch.randn(n_topics, d, generator=g, device=dev), dim=1)
+    topic = torch.randint(0, n_topics, (n,), generator=g, device=dev)
+    x = centers[topic]
+    del centers
+    x += torch.randn(n, d, generator=g, device=dev).div_(math.sqrt(d))
+    return torch.nn.functional.normalize(x, dim=1, out=x)
+
+
+def perturb(rows: torch.Tensor, g: torch.Generator) -> torch.Tensor:
+    noise = torch.randn(rows.shape, generator=g, device=rows.device)
+    return torch.nn.functional.normalize(
+        rows + 0.3 * noise / math.sqrt(rows.shape[1]), dim=1)
+
+
+def phase_main(seed: int, cfg) -> dict:
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import segsum_gemm as sg
+
+    n, dev = N_ROWS, torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = make_corpus(n, cfg.dim, g)
+    live = np.zeros(n + 200_000, dtype=bool)    # the host-side id set
+    live[:n] = True
+    next_id = n
+    out = {}
+
+    def check_live(coll, what):
+        st = coll.snapshot()
+        ids = torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+        got = torch.sort(ids[ids >= 0]).values
+        want = torch.from_numpy(np.nonzero(live)[0].astype(np.int32)).to(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"live ids after {what}: {got.numel()} in the index vs "
+                f"{want.numel()} acknowledged")
+
+    def fresh_rows(b):
+        nonlocal next_id
+        rows = torch.nn.functional.normalize(
+            torch.randn(b, cfg.dim, generator=g, device=dev), dim=1)
+        ids = np.arange(next_id, next_id + b, dtype=np.int32)
+        next_id += b
+        return rows, ids
+
+    def targets(b):
+        cand = np.nonzero(live[:n])[0]
+        pick = torch.randint(0, len(cand), (b,), generator=g, device=dev)
+        return cand[pick.cpu().numpy()]
+
+    def hit_rate(svc, b, reps, path):
+        hits = tot = 0
+        lat = []
+        for _ in range(reps):
+            t = targets(b)
+            q = perturb(x[torch.from_numpy(t).to(dev)], g)
+            t0 = time.perf_counter()
+            ids, _ = svc.query("mem", q)
+            lat.append(time.perf_counter() - t0)
+            hits += int((ids[:, 0] == t).sum())
+            tot += b
+        rate = hits / tot
+        if rate < 0.99:
+            raise AssertionError(f"{path} queries found their row first on "
+                                 f"{rate:.4f} < 0.99 of queries")
+        return rate, lat
+
+    for mod in (ss, ka, sg):
+        mod.launches.reset()
+    torch.cuda.reset_peak_memory_stats()
+    with MemoryService() as svc:
+        coll = svc.create_collection("mem", cfg, seed=seed,
+                                     spill_capacity=4096)
+        if svc.device.type != "cuda":
+            raise AssertionError(f"service runs on {svc.device}")
+        t0 = time.perf_counter()
+        r = svc.build("mem", x, ids=np.arange(n, dtype=np.int32))
+        out["build_s"] = time.perf_counter() - t0
+        out["build_spilled"] = r["spilled"]
+        check_live(coll, "build")
+
+        # queries: the router sends B=1 down the probed path, B=64 full scan
+        if coll.resolve_query(1, None, None, None)[2] != "probed" or \
+                coll.resolve_query(64, None, None, None)[2] != "full_scan":
+            raise AssertionError("PAPER_1M routing changed")
+        hit_rate(svc, 1, 3, "probed")                # warm-up
+        out["probed_hit"], lat = hit_rate(svc, 1, 50, "probed")
+        out["probed_p50_ms"] = 1e3 * float(np.median(lat))
+        hit_rate(svc, 64, 1, "full scan")            # warm-up
+        out["full_hit"], lat = hit_rate(svc, 64, 8, "full scan")
+        out["full_scan_qps"] = 64 * len(lat) / sum(lat)
+
+        # 8 insert batches as futures while probed queries run
+        batches = [fresh_rows(1024) for _ in range(8)]
+        t0 = time.perf_counter()
+        futs = [svc.submit(MemoryOp("insert", "mem", rows, ids=ids,
+                                    concurrent=True))
+                for rows, ids in batches]
+        hit_rate(svc, 1, 10, "probed (during inserts)")
+        for f in futs:
+            f.result(timeout=300)
+        out["insert_rows_per_s"] = 8 * 1024 / (time.perf_counter() - t0)
+        for _, ids in batches:
+            live[ids] = True
+        check_live(coll, "inserts")
+
+        # delete 10,000 live corpus ids
+        gone = np.random.default_rng(seed).choice(n, 10_000, replace=False)
+        n_hit = svc.delete("mem", gone.astype(np.int32))
+        if n_hit != 10_000:
+            raise AssertionError(f"delete tombstoned {n_hit} of 10000")
+        live[gone] = False
+        check_live(coll, "delete")
+
+        # rebuild while inserts keep landing: they go to the delta log and
+        # are replayed onto the rebuilt index before it is published
+        t0 = time.perf_counter()
+        fut = svc.submit(MemoryOp("rebuild", "mem"))
+        landed = 0
+        while not fut.done() and landed < 400:
+            rows, ids = fresh_rows(256)
+            svc.insert("mem", rows, ids=ids)
+            live[ids] = True
+            landed += 1
+        rb = fut.result(timeout=600)
+        out["rebuild_s"] = time.perf_counter() - t0
+        out["rebuild_replayed_rows"] = rb["replayed"]
+        out["inserts_during_rebuild"] = landed
+        if rb["aborted"] or rb["replayed"] == 0:
+            raise AssertionError(f"rebuild did not replay a delta: {rb}")
+        check_live(coll, "rebuild")
+
+        out["probed_hit_after"], _ = hit_rate(svc, 1, 30, "probed")
+        out["full_hit_after"], _ = hit_rate(svc, 64, 4, "full scan")
+        st = coll.stats()
+        out["live"] = st["live"]
+        out["spill"] = st["spill"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["launches"] = {"scan_scores": ss.launches.value,
+                       "kmeans_assign": ka.launches.value,
+                       "segsum_gemm": sg.launches.value}
+    for k, v in out["launches"].items():
+        if v <= 0:
+            raise AssertionError(f"main path never launched {k}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.kernels import build
+
+    # 1. device
+    card = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {card} | torch {torch.__version__} cuda "
+          f"{torch.version.cuda} | {name}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 2. build
+    t0 = time.perf_counter()
+    secs = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()), flush=True)
+    for k, log in build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {k}: {line.strip()}")
+
+    # 3. kernels vs plain versions
+    t0 = time.perf_counter()
+    kernels = phase_kernels(args.seed, PAPER_1M)
+    print(f"kernels checked in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 4. main path
+    t0 = time.perf_counter()
+    main_path = phase_main(args.seed, PAPER_1M)
+    print(f"main path PAPER_1M in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(main_path), flush=True)
+    for kernel, n in main_path["launches"].items():
+        kernels[kernel]["launches"] = n
+
+    print(card)                  # nvidia-smi name, power.limit
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,458 @@
+"""A named memory collection — one tenant's IVF state, id-space, counters.
+
+Port of ``src/repro/api/collection.py`` for one unsharded collection whose
+f32 state lives on the device (the reference's HOT tier).  The mesh-sharded
+tier, residency tiers, the HNSW graph and recall-adaptive routing,
+replication shipping and save/load are later slices of the port; they raise
+NotImplementedError naming their ROADMAP item.
+
+Concurrency model (lost-update-safe writes, wait-free reads), as in the
+reference:
+
+* Queries never block on writers.  They read `self._state` — an atomically
+  swapped snapshot — under `_lock`, a tiny critical section that only ever
+  guards pointer reads/swaps and host counters, never device compute.
+* Writers (build / insert / delete / rebuild-swap) serialize on a dedicated
+  `_writer_lock`.  Insert/delete compute on copies (`insert_shared` /
+  `delete_shared`) while holding *only* the writer lock, wait for the
+  device, then swap the fresh state in under `_lock`.
+* `rebuild()` is delta-replay based: it snapshots the state, recomputes
+  off-lock while concurrent writers append their ops to a bounded delta
+  log, then re-acquires the writer lock, replays the log onto the rebuilt
+  state (`ivf.replay`, in place: the rebuilt state has no other owner) and
+  swaps.  No write that lands during a rebuild is ever lost.  If the log
+  overflows, the rebuild restarts from a fresh snapshot; the final attempt
+  runs with the writer lock held (writers briefly blocked, queries still
+  served).  A bulk `build()` bumps `_epoch`, so a rebuild racing it
+  detects that its snapshot is obsolete and aborts.
+* Every swap bumps `_version`; `version()` lets callers assert freshness.
+
+The per-shard bookkeeping (`_delta_logs`, `_shard_pressure`, ...) keeps the
+reference's one-entry-per-shard shape; an unsharded collection has one.
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import EngineConfig
+from repro_torch.core import index as ivf
+from repro_torch.core import locking
+from repro_torch.core import templates
+from repro_torch.device import DeviceLike, as_tensor, resolve_device
+
+
+def later_slice(feature: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{feature} is not ported to repro_torch yet (ROADMAP.md §1: {item})")
+
+
+class Collection:
+    def __init__(self, name: str, cfg: EngineConfig, *, seed: int = 0,
+                 spill_capacity: int = 4096,
+                 thresholds: Optional[templates.TemplateThresholds] = None,
+                 delta_log_capacity: int = 1024, mesh=None,
+                 device: DeviceLike = None):
+        if cfg.shard_db or mesh is not None:
+            raise later_slice("the mesh-sharded tier (shard_db / mesh)",
+                              "the sharded tier")
+        if cfg.index_policy not in ("ivf", "flat"):
+            raise later_slice(f"index_policy={cfg.index_policy!r}",
+                              "adaptive routing / HNSW")
+        if cfg.target_recall > 0:
+            raise later_slice("target_recall (recall probe + tuner)",
+                              "adaptive routing / HNSW")
+        if cfg.quantized:
+            raise later_slice("store_dtype='int8'", "the int8 slice")
+        self.name = name
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.seed = seed
+        self.spill_capacity = spill_capacity
+        self.delta_log_capacity = delta_log_capacity
+        self.thresholds = thresholds or templates.TemplateThresholds.from_profile(cfg)
+        self._built = False
+        # _lock: snapshot swap + counters + id allocator (tiny sections only)
+        self._lock = locking.make_rlock("_lock")
+        # _writer_lock: serializes mutators; the query path never takes it
+        self._writer_lock = locking.make_rlock("_writer_lock")
+        self._version = 0          # bumped on every state swap
+        self._epoch = 0            # bumped on bulk build (obsoletes snapshots)
+        self._next_id = 0
+        self._n_draws = 0          # random streams handed out (see _split)
+        self.counters = {"queries": 0, "inserts": 0, "deletes": 0,
+                         "rebuilds": 0, "spilled": 0}
+        #   _rebuild_locks   at most one delta-replay rebuild at a time
+        #   _delta_logs      write log while a rebuild recomputes
+        #   _shard_pressure  host-side tombstone/spill counters since the
+        #                    last (re)build — what the MaintenanceController
+        #                    polls (no device sync)
+        #   _spill_floors    residual spill the last rebuild could not drain:
+        #                    pressure below the floor is irreducible, so
+        #                    maintenance_due ignores it
+        self._rebuild_locks = [locking.make_lock("_rebuild_locks")]
+        self._delta_logs: List[Optional[List[ivf.DeltaOp]]] = [None]
+        self._delta_overflow = [False]
+        self._shard_pressure = [{"tombstones": 0, "spilled": 0}]
+        self._spill_floors = [0]
+        self._state = ivf.empty_state(cfg, spill_capacity, device=self.device)
+
+    @property
+    def _spill_floor(self) -> int:
+        with self._lock:
+            return sum(self._spill_floors)
+
+    def demote(self, tier: str = "warm", **_) -> dict:
+        raise later_slice("residency tiers (demote)", "residency")
+
+    def promote(self) -> dict:
+        raise later_slice("residency tiers (promote)", "residency")
+
+    def set_ship_hook(self, hook) -> None:
+        raise later_slice("replication shipping", "replication")
+
+    def attach_shipper(self, hook) -> dict:
+        raise later_slice("replication shipping", "replication")
+
+    def apply_delta_batch(self, ops) -> dict:
+        raise later_slice("replication shipping", "replication")
+
+    def recall_probe(self, sample=None, k=None) -> dict:
+        raise later_slice("the recall probe", "adaptive routing / HNSW")
+
+    def save_into(self, directory: str, step: int = 0) -> None:
+        raise later_slice("collection save/load", "checkpoint save/load")
+
+    @classmethod
+    def load_from(cls, directory: str, name: str, cfg: EngineConfig, **_):
+        raise later_slice("collection save/load", "checkpoint save/load")
+
+    # ------------------------------------------------------------------
+    # Versioned state snapshot
+    # ------------------------------------------------------------------
+    def snapshot(self) -> ivf.IVFState:
+        """Wait-free versioned read of the current state pointer.  A writer
+        or rebuild swaps the pointer rather than mutating a published state,
+        so a snapshot stays internally consistent while it is read."""
+        with self._lock:
+            return self._state
+
+    def version(self) -> int:
+        with self._lock:
+            return self._version
+
+    def _swap(self, state: ivf.IVFState, **counter_deltas) -> int:
+        """Atomically publish a new state; returns the new version."""
+        with self._lock:
+            self._state = state
+            self._version += 1
+            for key, d in counter_deltas.items():
+                self.counters[key] += d
+            return self._version
+
+    # ------------------------------------------------------------------
+    def _split(self) -> torch.Generator:
+        """A fresh random stream for one build/rebuild (the reference
+        splits its PRNG key here): seeded from (seed, draw number)."""
+        with self._lock:
+            n = self._n_draws
+            self._n_draws += 1
+        seed = int(np.random.SeedSequence([self.seed, n]).generate_state(
+            1, np.uint64)[0] >> 1)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _ids_for(self, n: int, ids) -> torch.Tensor:
+        if ids is not None:
+            ids = as_tensor(ids, torch.int32, self.device).reshape(-1)
+            if ids.shape[0] != n:
+                raise ValueError(f"{ids.shape[0]} ids for {n} rows")
+            top = int(ids.max()) + 1 if n else 0
+        with self._lock:
+            if ids is None:
+                ids = torch.arange(self._next_id, self._next_id + n,
+                                   dtype=torch.int32, device=self.device)
+                self._next_id += n
+            else:
+                self._next_id = max(self._next_id, top)
+        return ids
+
+    def _rows(self, vectors) -> torch.Tensor:
+        x = as_tensor(vectors, torch.float32, self.device)
+        if x.dim() != 2 or x.shape[1] != self.cfg.dim:
+            raise ValueError(f"collection {self.name!r} takes rows of "
+                             f"dim {self.cfg.dim}, got {tuple(x.shape)}")
+        return x
+
+    def _bump(self, **deltas) -> None:
+        with self._lock:
+            for key, d in deltas.items():
+                self.counters[key] += d
+
+    def _log_delta(self, kind: str, rows, ids) -> None:
+        """Record a write for an in-flight rebuild.  Caller holds
+        `_writer_lock`, so log order == state application order."""
+        with self._lock:
+            log = self._delta_logs[0]
+            if log is None:
+                return
+            if len(log) >= self.delta_log_capacity:
+                self._delta_overflow[0] = True
+            else:
+                log.append(ivf.DeltaOp(kind, rows, ids))
+
+    # ------------------------------------------------------------------
+    # Raw ops (paper templates); the service routes these via the scheduler.
+    # ------------------------------------------------------------------
+    def build(self, vectors, ids=None) -> dict:
+        """Bulk build (paper 'index template').  Blocks until the index is
+        live (device compute synced before return).  Runs under the writer
+        lock; queries keep reading the old snapshot throughout."""
+        x = self._rows(vectors)
+        ids = self._ids_for(x.shape[0], ids)
+        t0 = time.perf_counter()
+        with self._writer_lock:
+            # analyze: ok(LO002) ivf.build is the index module (takes no locks), not Collection.build
+            state, spilled = ivf.build(self._split(), x, ids, self.cfg,
+                                       spill_capacity=self.spill_capacity)
+            spilled = int(spilled)      # sync: compute done before publish
+            with self._lock:
+                self._built = True
+                self._epoch += 1        # obsoletes in-flight rebuild snapshots
+                self._shard_pressure = [{"tombstones": 0, "spilled": spilled}]
+                self._spill_floors = [spilled]
+            self._swap(state, rebuilds=1, spilled=spilled)
+        return {"build_s": time.perf_counter() - t0, "spilled": spilled}
+
+    def insert(self, vectors, ids=None) -> int:
+        """Insert rows (paper 'update template').  Returns #spilled.
+        Blocks until the rows are queryable (compute synced, then swapped).
+
+        Device compute runs under the writer lock only — concurrent queries
+        keep reading the previous snapshot.  Uses the copying
+        `insert_shared`, never the in-place `insert`: queries on other
+        threads may still hold the current snapshot.
+        """
+        if not self._built:
+            raise RuntimeError(f"build() collection {self.name!r} before "
+                               "inserting")
+        x = self._rows(vectors)
+        n = int(x.shape[0])
+        ids = self._ids_for(n, ids)
+        with self._writer_lock:
+            state, spilled = ivf.insert_shared(self._state, x, ids, self.cfg)
+            spilled = int(spilled)      # sync: compute done before publish
+            with self._lock:
+                self._shard_pressure[0]["spilled"] += spilled
+            self._swap(state, inserts=n, spilled=spilled)
+            self._log_delta("insert", x, ids)
+        return spilled
+
+    def delete(self, ids) -> int:
+        """Tombstone `ids`; returns the number of slots actually tombstoned
+        (ids not present contribute nothing).  Blocks until the tombstones
+        are visible to new queries."""
+        ids = as_tensor(ids, torch.int32, self.device).reshape(-1)
+        with self._writer_lock:
+            state, n_hit = ivf.delete_shared(self._state, ids)
+            n_hit = int(n_hit)          # sync: compute done before publish
+            with self._lock:
+                self._shard_pressure[0]["tombstones"] += n_hit
+            self._swap(state, deletes=n_hit)
+            self._log_delta("delete", None, ids)
+        return n_hit
+
+    def query(self, queries, k: Optional[int] = None,
+              nprobe: Optional[int] = None,
+              path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Returns host (ids i32[B, k], scores f32[B, k]).  Template-routed;
+        `path` ("probed" | "full_scan") overrides the router.  Wait-free
+        w.r.t. writers: reads the current snapshot under the pointer lock
+        and never takes the writer lock."""
+        q = as_tensor(queries, torch.float32, self.device)
+        if q.dim() == 1:
+            q = q[None]
+        k, nprobe, path = self.resolve_query(q.shape[0], k, nprobe, path)
+        with self._lock:
+            state = self._state
+        self._bump(queries=int(q.shape[0]))
+        if path == "full_scan":
+            ids, scores = ivf.query_full_scan(state, q, self.cfg, k)
+        elif path == "probed":
+            ids, scores = ivf.query_probed(state, q, self.cfg, k, nprobe)
+        elif path == "hnsw":
+            raise later_slice("the HNSW graph path", "adaptive routing / HNSW")
+        else:
+            raise ValueError(f"unknown query path {path!r}")
+        return ids.cpu().numpy(), scores.cpu().numpy()
+
+    def rebuild(self, shard: Optional[int] = None, *,
+                max_restarts: int = 2) -> dict:
+        """Reclaim tombstones + drain spill (paper 'index template') without
+        losing concurrent writes.  Blocks until the rebuilt state is live.
+
+        Snapshot -> recompute off-lock (writers log their ops to the bounded
+        delta log) -> reacquire the writer lock -> replay the delta onto the
+        rebuilt state -> swap.  On delta-log overflow the rebuild restarts
+        from a fresh snapshot; the final attempt holds the writer lock for
+        the whole recompute.  If a bulk `build()` lands mid-rebuild the
+        snapshot is obsolete and the rebuild aborts.
+        """
+        if shard not in (None, 0):
+            raise ValueError(
+                f"collection {self.name!r} is unsharded; rebuild(shard="
+                f"{shard}) is only meaningful with shard_db=True")
+        return self._rebuild_single(max_restarts)
+
+    def _rebuild_single(self, max_restarts: int) -> dict:
+        """Unsharded delta-replay rebuild (full re-cluster)."""
+        t0 = time.perf_counter()
+        with self._rebuild_locks[0]:
+            restarts = 0
+            while True:
+                exclusive = restarts >= max_restarts
+                self._writer_lock.acquire()
+                snap = self._state
+                epoch = self._epoch
+                if not exclusive:
+                    with self._lock:
+                        self._delta_logs[0] = []
+                        self._delta_overflow[0] = False
+                    self._writer_lock.release()
+                try:
+                    new, spilled = ivf.rebuild(self._split(), snap, self.cfg)
+                    spilled = int(spilled)   # sync: the recompute is done
+                except BaseException:
+                    # stop logging and release cleanly; writes stay applied
+                    if not exclusive:
+                        self._writer_lock.acquire()
+                    try:
+                        with self._lock:
+                            self._delta_logs[0] = None
+                            self._delta_overflow[0] = False
+                    finally:
+                        self._writer_lock.release()
+                    raise
+                if not exclusive:
+                    self._writer_lock.acquire()
+                try:
+                    with self._lock:
+                        log = self._delta_logs[0] or []
+                        overflow = self._delta_overflow[0]
+                        self._delta_logs[0] = None
+                        self._delta_overflow[0] = False
+                    if self._epoch != epoch:
+                        # a bulk build replaced the index mid-rebuild; our
+                        # snapshot (and its tombstones) no longer exist
+                        return {"rebuild_s": time.perf_counter() - t0,
+                                "spilled": 0, "replayed": 0,
+                                "restarts": restarts, "aborted": True}
+                    if overflow:
+                        restarts += 1
+                        continue
+                    replayed = sum(int(op.ids.shape[0]) for op in log)
+                    tombstoned = 0
+                    extra = 0
+                    if log:
+                        new, extra, tombstoned = ivf.replay(new, log, self.cfg)
+                    # replayed deletes leave real tombstones in the swapped
+                    # state — pressure must reflect them.  Only the
+                    # recompute's own leftover spill becomes the floor; replay
+                    # spill stays live pressure for the next rebuild.
+                    with self._lock:
+                        self._shard_pressure[0] = {"tombstones": tombstoned,
+                                                   "spilled": spilled + extra}
+                        self._spill_floors[0] = spilled
+                    spilled += extra
+                    self._swap(new, rebuilds=1)
+                    return {"rebuild_s": time.perf_counter() - t0,
+                            "spilled": spilled, "replayed": replayed,
+                            "restarts": restarts, "aborted": False}
+                finally:
+                    self._writer_lock.release()
+
+    # ------------------------------------------------------------------
+    # Maintenance pressure (consumed by the service's MaintenanceController)
+    # ------------------------------------------------------------------
+    def maintenance_pressure(self) -> dict:
+        """Host-side pressure since the last (re)build — poll-cheap."""
+        with self._lock:
+            shards = [dict(p) for p in self._shard_pressure]
+            for s, log in enumerate(self._delta_logs):
+                shards[s]["delta_backlog"] = len(log) if log is not None else 0
+        return {"tombstones": sum(s["tombstones"] for s in shards),
+                "spilled": sum(s["spilled"] for s in shards),
+                "delta_backlog": max(s["delta_backlog"] for s in shards),
+                "shards": shards}
+
+    def _maintenance_limits(self) -> Tuple[int, int]:
+        """(tombstone, spill) rebuild trigger limits."""
+        return self.thresholds.maintenance_limits(self.cfg.capacity,
+                                                  self.spill_capacity,
+                                                  per_shard=False)
+
+    def maintenance_due_shards(self) -> List[int]:
+        """`[0]` when the tombstone/spill pressure crosses the thresholds."""
+        if not self._built:
+            return []
+        tomb_limit, spill_limit = self._maintenance_limits()
+        with self._lock:
+            press = [dict(p) for p in self._shard_pressure]
+            floors = list(self._spill_floors)
+        # only spill above the irreducible floor counts — residual spill the
+        # last rebuild failed to place must not re-trigger it forever
+        return [s for s in range(len(press))
+                if press[s]["tombstones"] >= tomb_limit
+                or press[s]["spilled"] - floors[s] >= spill_limit]
+
+    def maintenance_due(self) -> bool:
+        """True when the pressure crosses the thresholds and a background
+        rebuild would pay for itself."""
+        return bool(self.maintenance_due_shards())
+
+    # ------------------------------------------------------------------
+    def index_policy(self) -> str:
+        """The collection's index policy ("ivf" or "flat")."""
+        return self.cfg.index_policy
+
+    def resolve_query(self, batch: int, k, nprobe, path) -> Tuple[int, int, str]:
+        """Resolve query params against collection defaults + the router.
+
+        nprobe is clamped exactly like `ivf.query_probed` clamps it, so the
+        resolved value is the executed value; off the probe path it is
+        pinned to 0.  "flat" always full-scans; "ivf" takes the template
+        route.
+        """
+        k = k or self.cfg.k
+        if not nprobe:
+            nprobe = self.cfg.nprobe
+        nprobe = max(1, min(int(nprobe), self.cfg.n_clusters))
+        if path is None:
+            if self.index_policy() == "flat":
+                path = "full_scan"
+            else:
+                path = templates.route("query", batch, self.cfg,
+                                       self.thresholds).path
+        if path != "probed":
+            nprobe = 0
+        return k, nprobe, path
+
+    def stats(self) -> dict:
+        """Counters + index occupancy snapshot.  Syncs device scalars —
+        cheap but not free; poll `maintenance_pressure()` on hot paths."""
+        with self._lock:
+            state = self._state
+            counters = dict(self.counters)
+            version = self._version
+            pressure = [dict(p) for p in self._shard_pressure]
+        s = ivf.stats(state)
+        s.update(counters)
+        s["version"] = version
+        s["residency"] = "hot"
+        s["pressure"] = {"tombstones": sum(p["tombstones"] for p in pressure),
+                         "spilled": sum(p["spilled"] for p in pressure),
+                         "shards": pressure}
+        s["index_policy"] = self.index_policy()
+        return s

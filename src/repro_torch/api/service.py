@@ -1,0 +1,374 @@
+"""MemoryService — the multi-tenant agentic-memory front door; port of
+``src/repro/api/service.py`` for unsharded collections on one device.
+
+Owns named `Collection`s and one `WindowedScheduler`.  Every operation —
+build, insert, delete, query, rebuild — lowers to a `MemoryOp`, is routed
+through `templates.route` for its execution path / backend class /
+priority, and runs on the scheduler; synchronous calls are thin `.result()`
+wrappers over the same path.
+
+Maintenance: `MaintenanceController` (started lazily with the first
+collection unless `maintenance=False`) polls each collection's host-side
+tombstone/spill pressure counters and, past the thresholds in its
+`templates.TemplateThresholds`, submits a background-class rebuild through
+the scheduler — the delta-replay rebuild in `Collection` makes that safe
+under concurrent inserts/deletes.
+
+Cross-collection batching (`batch=True`, `flush`, `query_many`), residency
+tiers and save/load are later slices of the port and raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+import re
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.api.collection import Collection, later_slice
+from repro_torch.api.ops import MemoryOp, OpFuture
+from repro_torch.configs.base import EngineConfig
+from repro_torch.core import locking
+from repro_torch.core import templates
+from repro_torch.core.scheduler import AdmissionControl, Overloaded, Task, \
+    WindowedScheduler
+from repro_torch.device import DeviceLike, resolve_device
+
+_NAME_RE = re.compile(r"^[A-Za-z0-9._-]+$")
+
+
+class MaintenanceController:
+    """Workload-triggered background maintenance for a `MemoryService`.
+
+    A daemon thread polls every collection's `maintenance_due_shards()`
+    (pure host counters — no device sync) and schedules at most one
+    in-flight rebuild per collection through the service's scheduler, on
+    the background backend class the rebuild template routes to.  Queries
+    are isolated from the rebuild both by the scheduler (latency workers
+    never take index work) and by the collection (delta-replay rebuilds
+    never hold the state lock through device compute).
+    """
+
+    def __init__(self, service: "MemoryService", *,
+                 poll_interval_s: float = 0.05,
+                 failure_backoff_s: float = 5.0):
+        self._service = service
+        self.poll_interval_s = poll_interval_s
+        self.failure_backoff_s = failure_backoff_s
+        self._stop = threading.Event()
+        self._lock = locking.make_lock("_lock")
+        # keyed by (collection, slot); the slot of an unsharded rebuild is
+        # None — each slot has at most one op in flight
+        self._inflight: Dict[Tuple[str, object], Optional[OpFuture]] = {}
+        # persistent rebuild failures must not re-submit every poll
+        self._backoff_until: Dict[Tuple[str, object], float] = {}
+        self.triggered = 0
+        self.failed = 0
+        self.shed = 0
+        self.last_error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run,
+                                        name="ame-maintenance", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll_interval_s):
+            try:
+                self.poll_once()
+            except BaseException as e:   # noqa: BLE001 — keep the loop alive
+                with self._lock:
+                    self.failed += 1
+                    self.last_error = e
+
+    def _try_submit(self, key: Tuple[str, object], op: MemoryOp) -> bool:
+        """Reserve slot `key` and submit `op` through the service.
+
+        At most one in-flight op per slot; a finished-with-error slot backs
+        off before re-submitting.  Safe to race with other pollers: the
+        slot is reserved (value None) under the lock before the submit, so
+        a slot never gets two concurrent ops.  Returns True iff submitted.
+        """
+        with self._lock:
+            if key in self._inflight:
+                fut = self._inflight[key]
+                # None = another poller reserved the slot mid-submit
+                if fut is None or not fut.done():
+                    return False          # one in-flight op per slot
+                self._inflight.pop(key)
+                if fut._error is not None:
+                    self.failed += 1
+                    self.last_error = fut._error
+                    self._backoff_until[key] = (
+                        time.monotonic() + self.failure_backoff_s)
+            if time.monotonic() < self._backoff_until.get(key, 0.0):
+                return False              # failing slot: wait out backoff
+            self._inflight[key] = None
+        try:
+            fut = self._service.submit(op)
+        except BaseException as e:  # noqa: BLE001 — release the slot
+            with self._lock:
+                self._inflight.pop(key, None)
+                if isinstance(e, Overloaded):
+                    # admission control shed this background op — by
+                    # design, maintenance yields to serving traffic under
+                    # overload.  Not a failure: re-offer after one poll.
+                    self.shed += 1
+                    self._backoff_until[key] = (
+                        time.monotonic() + self.poll_interval_s)
+                elif not isinstance(e, KeyError):
+                    self.failed += 1
+                    self.last_error = e
+                    self._backoff_until[key] = (
+                        time.monotonic() + self.failure_backoff_s)
+            return False
+        with self._lock:
+            self._inflight[key] = fut
+        return True
+
+    def poll_once(self) -> int:
+        """One maintenance sweep; returns the number of rebuilds scheduled.
+        Also callable directly; safe to race with the daemon poll."""
+        n = 0
+        for name in self._service.list_collections():
+            try:
+                coll = self._service.collection(name)
+            except KeyError:
+                continue                  # dropped between list and poll
+            for _shard in coll.maintenance_due_shards():
+                if self._try_submit((name, None), MemoryOp("rebuild", name)):
+                    with self._lock:
+                        self.triggered += 1
+                    n += 1
+        return n
+
+    def stop(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout=timeout)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {"triggered": self.triggered, "failed": self.failed,
+                    "shed": self.shed,
+                    "inflight": sorted(
+                        name for (name, _), f in self._inflight.items()
+                        if f is None or not f.done()),
+                    "last_error": repr(self.last_error)
+                                  if self.last_error else None}
+
+
+class MemoryService:
+    """Multi-tenant front door over named `Collection`s (see module doc).
+
+    Thread-safety: every public method is safe to call from any thread.
+    The registry lock only guards the collection dict; per-collection
+    consistency is the collection's own concern (writer lock + snapshot
+    reads — see `repro_torch.api.collection`).
+
+    Blocking behavior: `submit()` returns an `OpFuture` immediately (it
+    blocks only while the scheduler's submission window is full — the
+    paper's windowed batch submission); the sync conveniences
+    (`build`/`insert`/`delete`/`query`/`rebuild`) are `.result()` wrappers
+    and block until the op lands.  `shutdown()` blocks until the
+    maintenance thread and (owned) scheduler workers exit; the service is
+    also a context manager that shuts down on exit.
+
+    Collections live on `device` (the CUDA card unless the caller names
+    another; with no card and no device named, construction raises).
+    """
+
+    def __init__(self, *, scheduler: Optional[WindowedScheduler] = None,
+                 maintenance: bool = True,
+                 maintenance_poll_interval_s: float = 0.05,
+                 device_budget_bytes: Optional[int] = None,
+                 residency_dir: Optional[str] = None,
+                 idle_demote_s: Optional[float] = None,
+                 cold_after_s: Optional[float] = None,
+                 admission: Optional[AdmissionControl] = None,
+                 device: DeviceLike = None):
+        if any(v is not None for v in (device_budget_bytes, residency_dir,
+                                       idle_demote_s, cold_after_s)):
+            raise later_slice("device residency tiers", "residency")
+        self.device = resolve_device(device)
+        self._admission = admission
+        self._scheduler = scheduler
+        self._own_scheduler = scheduler is None
+        self._collections: Dict[str, Collection] = {}
+        self._lock = locking.make_rlock("_lock")
+        self._maintenance_enabled = maintenance
+        self._maintenance_poll_interval_s = maintenance_poll_interval_s
+        self._maintenance: Optional[MaintenanceController] = None
+
+    @property
+    def maintenance(self) -> Optional[MaintenanceController]:
+        with self._lock:
+            return self._maintenance
+
+    def _ensure_maintenance(self) -> None:
+        """Started lazily with the first collection: idle services hold
+        neither worker threads nor a poll thread."""
+        with self._lock:
+            if self._maintenance_enabled and self._maintenance is None:
+                self._maintenance = MaintenanceController(
+                    self, poll_interval_s=self._maintenance_poll_interval_s)
+
+    @property
+    def scheduler(self) -> WindowedScheduler:
+        """Lazily started so idle services don't hold worker threads."""
+        with self._lock:
+            if self._scheduler is None:
+                self._scheduler = WindowedScheduler(admission=self._admission)
+            return self._scheduler
+
+    # ------------------------------------------------------------------
+    # Collection registry
+    # ------------------------------------------------------------------
+    def create_collection(self, name: str, cfg: EngineConfig, *,
+                          seed: int = 0, spill_capacity: int = 4096,
+                          thresholds=None, mesh=None) -> Collection:
+        if not _NAME_RE.match(name) or name in (".", ".."):
+            raise ValueError(f"invalid collection name {name!r} "
+                             "(allowed: letters, digits, . _ -)")
+        with self._lock:
+            if name in self._collections:
+                raise ValueError(f"collection {name!r} already exists")
+            coll = Collection(name, cfg, seed=seed,
+                              spill_capacity=spill_capacity,
+                              thresholds=thresholds, mesh=mesh,
+                              device=self.device)
+            self._collections[name] = coll
+        self._ensure_maintenance()
+        return coll
+
+    def collection(self, name: str) -> Collection:
+        with self._lock:
+            try:
+                return self._collections[name]
+            except KeyError:
+                raise KeyError(f"no collection {name!r}; have "
+                               f"{sorted(self._collections)}") from None
+
+    def drop_collection(self, name: str) -> None:
+        with self._lock:
+            self._collections.pop(name, None)
+
+    def list_collections(self) -> List[str]:
+        with self._lock:
+            return sorted(self._collections)
+
+    def __contains__(self, name: str) -> bool:
+        with self._lock:
+            return name in self._collections
+
+    # ------------------------------------------------------------------
+    # Async op API — everything goes through the scheduler.
+    # ------------------------------------------------------------------
+    def submit(self, op: MemoryOp) -> OpFuture:
+        coll = self.collection(op.collection)     # missing tenant fails fast
+        if op.batch:
+            raise later_slice("cross-collection batched queries (batch=True)",
+                              "batch fusion")
+        if op.kind not in ("build", "insert", "delete", "query", "rebuild"):
+            raise later_slice(f"the {op.kind!r} op",
+                              "residency / adaptive routing")
+        fut = OpFuture(op)
+        plan = templates.route(op.kind, op.batch_size, coll.cfg,
+                               coll.thresholds,
+                               concurrent_queries=op.concurrent)
+
+        def fn():
+            try:
+                out = self._execute(coll, op)
+            except BaseException as e:    # noqa: BLE001 — owed to the future
+                fut._set_error(e)
+                raise
+            fut._set_result(out)
+            return out
+
+        nbytes = getattr(op.payload, "nbytes", 0)
+        task = Task(fn=fn, kind=op.kind, backend=plan.backend,
+                    priority=plan.priority, size_bytes=int(nbytes),
+                    shard=op.shard)
+        fut.task = self.scheduler.submit(task)
+        return fut
+
+    def _execute(self, coll: Collection, op: MemoryOp):
+        if op.kind == "build":
+            return coll.build(op.payload, ids=op.ids)
+        if op.kind == "insert":
+            return coll.insert(op.payload, ids=op.ids)
+        if op.kind == "delete":
+            return coll.delete(op.payload if op.ids is None else op.ids)
+        if op.kind == "query":
+            return coll.query(op.payload, k=op.k, nprobe=op.nprobe,
+                              path=op.path)
+        if op.kind == "rebuild":
+            return coll.rebuild(shard=op.shard)
+        raise ValueError(f"unknown op kind {op.kind!r}")
+
+    def flush(self) -> int:
+        raise later_slice("cross-collection batched queries (flush)",
+                          "batch fusion")
+
+    def query_many(self, requests, k=None, nprobe=None, path=None):
+        raise later_slice("cross-collection batched queries (query_many)",
+                          "batch fusion")
+
+    # ------------------------------------------------------------------
+    # Synchronous conveniences — thin .result() wrappers.
+    # ------------------------------------------------------------------
+    def build(self, collection: str, vectors, ids=None) -> dict:
+        return self.submit(MemoryOp("build", collection, vectors,
+                                    ids=ids)).result()
+
+    def insert(self, collection: str, vectors, ids=None,
+               concurrent: bool = False) -> int:
+        return self.submit(MemoryOp("insert", collection, vectors, ids=ids,
+                                    concurrent=concurrent)).result()
+
+    def delete(self, collection: str, ids) -> int:
+        """Returns the number of slots actually tombstoned."""
+        return self.submit(MemoryOp("delete", collection, ids)).result()
+
+    def query(self, collection: str, queries, k=None, nprobe=None,
+              path=None) -> tuple:
+        return self.submit(MemoryOp("query", collection, queries, k=k,
+                                    nprobe=nprobe, path=path)).result()
+
+    def rebuild(self, collection: str, shard: Optional[int] = None) -> dict:
+        """Rebuild a collection (blocks)."""
+        return self.submit(MemoryOp("rebuild", collection,
+                                    shard=shard)).result()
+
+    # ------------------------------------------------------------------
+    def stats(self) -> dict:
+        with self._lock:
+            colls = dict(self._collections)
+            sched = self._scheduler
+            maint = self._maintenance
+        return {"collections": {n: c.stats() for n, c in colls.items()},
+                "scheduler": sched.stats() if sched is not None else {},
+                "maintenance": maint.stats() if maint is not None else {}}
+
+    def shutdown(self) -> None:
+        with self._lock:
+            maint, self._maintenance = self._maintenance, None
+        if maint is not None:
+            maint.stop()
+        if self._own_scheduler:
+            with self._lock:
+                sched, self._scheduler = self._scheduler, None
+            if sched is not None:
+                sched.shutdown()
+
+    def __enter__(self) -> "MemoryService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+
+    # ------------------------------------------------------------------
+    def save(self, directory: str, step: int = 0) -> None:
+        raise later_slice("service save/load", "checkpoint save/load")
+
+    @classmethod
+    def load(cls, directory: str, **_) -> "MemoryService":
+        raise later_slice("service save/load", "checkpoint save/load")

@@ -1,0 +1,66 @@
+"""Retrieval quality metrics (paper: Recall@K vs ground-truth neighbors);
+port of ``src/repro/core/metrics.py``."""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, as_tensor, resolve_device
+
+
+def brute_force_topk(queries, rows, ids, k: int, metric: str = "ip", *,
+                     device: DeviceLike = None) -> np.ndarray:
+    """Exact fp32 ground truth (the paper's Flat baseline), as host int64.
+
+    Tombstoned / empty slots (ids < 0) are masked out.  When k exceeds the
+    number of rows the result is right-padded with -1, so the oracle stays
+    total on tiny or heavily-deleted collections.  Ties go to the lower row
+    index, as ``lax.top_k`` breaks them in the reference.
+    """
+    dev = resolve_device(device)
+    q = as_tensor(queries, torch.float32, dev)
+    r = as_tensor(rows, torch.float32, dev)
+    ids = as_tensor(ids, torch.int64, dev)
+    n = int(r.shape[0])
+    if n == 0:
+        return np.full((int(q.shape[0]), k), -1, dtype=np.int64)
+    scores = q @ r.T
+    if metric == "l2":
+        scores = -((r * r).sum(1)[None, :] - 2.0 * scores)
+    scores = torch.where((ids >= 0)[None, :], scores, float("-inf"))
+    kk = min(k, n)
+    # stable descending sort: equal scores keep ascending row order
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    idx = order[:, :kk]
+    top = torch.gather(scores, 1, idx)
+    got = torch.where(torch.isfinite(top), ids[idx], -1)
+    out = got.cpu().numpy()
+    if kk < k:
+        out = np.concatenate(
+            [out, np.full((out.shape[0], k - kk), -1, dtype=out.dtype)], axis=1)
+    return out
+
+
+def recall_at_k(got_ids: np.ndarray, true_ids: np.ndarray) -> float:
+    """Fraction of ground-truth neighbors returned (Recall@K).
+
+    Padding / tombstone slots (ids < 0) never count: they are dropped from
+    both sides, and each row's denominator is its count of *distinct* valid
+    ground-truth ids — so `k > live rows`, duplicate ids, and all-tombstoned
+    lists are all well-defined.  A query set with no valid ground truth at
+    all (empty collection) vacuously has recall 1.0.
+    """
+    got_ids = np.asarray(got_ids)
+    true_ids = np.asarray(true_ids)
+    if got_ids.ndim != 2 or true_ids.ndim != 2:
+        raise ValueError("recall_at_k takes 2-D id arrays")
+    if got_ids.shape[0] != true_ids.shape[0]:
+        raise ValueError(f"batch mismatch {got_ids.shape} vs {true_ids.shape}")
+    hits = 0
+    denom = 0
+    for g, t in zip(got_ids, true_ids):
+        tset = {int(i) for i in t.tolist() if i >= 0}
+        gset = {int(i) for i in g.tolist() if i >= 0}
+        hits += len(gset & tset)
+        denom += len(tset)
+    return 1.0 if denom == 0 else hits / denom

@@ -1,0 +1,48 @@
+"""Dispatch that `core.index` and `core.kmeans` call (port of
+``src/repro/kernels/ops.py``).
+
+Keeps the reference's contracts: slots with id < 0 score -inf (ip) or +inf
+(l2); the returned centroid index is always in [0, C); rows with assign < 0
+drop out of sums and counts; ``fused_conversion=False`` materialises a
+bf16-rounded copy before the scan.  The kernels handle ragged edges
+themselves, so nothing is padded here.  ``use_kernel=False`` is the
+reference's ablation switch: the plain version, explicitly asked for.
+Otherwise each wrapper takes the plain version for a CPU tensor and launches
+its Hopper kernel for a CUDA tensor.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import kmeans_assign as _assign
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import scan_scores as _scan
+from repro_torch.kernels import segsum_gemm as _segsum
+
+
+def scan_scores(q, db, ids, db_norms=None, *, metric="ip", use_kernel=True,
+                fused_conversion=True):
+    """Similarity scores f32[B, N] between queries and database rows."""
+    if not fused_conversion:
+        # ablation baseline "C": materialise the converted copy first (an
+        # extra full-matrix round trip), then an exact product
+        q = _ref.round_bf16(q)
+        db = _ref.round_bf16(db)
+    if not use_kernel:
+        return _ref.scan_scores_ref(q, db, ids, db_norms, metric=metric,
+                                    fused_conversion=fused_conversion)
+    return _scan.scan_scores(q, db, ids, db_norms, metric=metric)
+
+
+def kmeans_assign(x, centroids, *, use_kernel=True, fused_conversion=True):
+    """(idx int32[M], dist fp32[M]) nearest centroid per row (L2, mod ||x||^2)."""
+    if not use_kernel:
+        return _ref.kmeans_assign_ref(x, centroids,
+                                      fused_conversion=fused_conversion)
+    return _assign.kmeans_assign(x, centroids,
+                                 fused_conversion=fused_conversion)
+
+
+def segsum_gemm(x, assign, *, n_clusters, use_kernel=True):
+    """(sums fp32[C, D], counts fp32[C]); assign < 0 rows are ignored."""
+    if not use_kernel:
+        return _ref.segsum_gemm_ref(x, assign, n_clusters=n_clusters)
+    return _segsum.segsum_gemm(x, assign, n_clusters=n_clusters)

@@ -1,0 +1,61 @@
+"""Plain PyTorch versions of the Hopper kernels (the correctness contracts).
+
+Counterparts of ``src/repro/kernels/ref.py``.  JAX's bf16 dot with
+``preferred_element_type=f32`` multiplies bf16 operands exactly and sums in
+f32; PyTorch's ``bf16 @ bf16`` would return bf16.  So operands are rounded to
+bf16, upcast, and multiplied in f32, which reproduces the reference's
+arithmetic up to summation order.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+POS_INF = float("inf")
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """`x` rounded to bf16 (nearest even) and held as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def scan_scores_ref(q, db, ids, db_norms=None, *, metric="ip",
+                    fused_conversion=True):
+    """Scores f32[B, N]: bf16(q) . bf16(db)^T (l2: norms - 2 q.db); slots
+    with id < 0 score -inf (ip) or +inf (l2)."""
+    if fused_conversion:
+        q = round_bf16(q)
+        db = round_bf16(db)
+    scores = q.float() @ db.float().T
+    if metric == "l2":
+        if db_norms is None:
+            db_norms = (db.float() ** 2).sum(1)
+        scores = db_norms[None, :] - 2.0 * scores
+    mask_val = POS_INF if metric == "l2" else NEG_INF
+    return torch.where((ids >= 0)[None, :], scores, mask_val)
+
+
+def kmeans_assign_ref(x, centroids, *, fused_conversion=True):
+    """(idx i32[M], dist f32[M]): argmin_c ||c||^2 - 2 x.c, lowest index on
+    a tie; ||c||^2 from the f32 centroids."""
+    xc, cc = x, centroids
+    if fused_conversion:
+        xc = round_bf16(x)
+        cc = round_bf16(centroids)
+    dots = xc.float() @ cc.float().T
+    cnorms = (centroids.float() ** 2).sum(1)
+    d = cnorms[None, :] - 2.0 * dots
+    idx = torch.argmin(d, dim=1)
+    return idx.to(torch.int32), d.gather(1, idx[:, None])[:, 0]
+
+
+def segsum_gemm_ref(x, assign, *, n_clusters):
+    """(sums f32[C, D], counts f32[C]) over rows with assign in [0, C); the
+    rest drop out, as one_hot(assign) drops them in the reference."""
+    valid = (assign >= 0) & (assign < n_clusters)
+    a = assign[valid].long()
+    sums = torch.zeros((n_clusters, x.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    sums.index_add_(0, a, x[valid].float())
+    counts = torch.bincount(a, minlength=n_clusters).to(torch.float32)
+    return sums, counts

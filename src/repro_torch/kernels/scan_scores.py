@@ -1,0 +1,65 @@
+"""Fused similarity scan: wrapper of the Hopper kernel ``csrc/scan_scores.cu``.
+
+Port of ``src/repro/kernels/scan_scores.py::scan_scores`` (the Pallas TPU
+kernel).  A CPU tensor takes the plain version (`ref.scan_scores_ref`); a
+CUDA tensor launches the kernel, or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+launches = build.LaunchCounter()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+
+
+def scan_scores(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
+                db_norms: torch.Tensor | None = None, *,
+                metric: str = "ip") -> torch.Tensor:
+    """Scores f32[B, N] of queries q f32[B, D] against rows db f32[N, D].
+
+    ip: bf16(q) . bf16(db)^T with f32 accumulation; l2: db_norms - 2 x that
+    (db_norms defaults to the rows' norms).  Slots with ids < 0 score -inf
+    (ip) or +inf (l2).
+    """
+    if metric not in ("ip", "l2"):
+        raise ValueError(f"metric must be 'ip' or 'l2', got {metric!r}")
+    if q.device.type == "cpu":
+        return ref.scan_scores_ref(q, db, ids, db_norms, metric=metric)
+    if q.device.type != "cuda":
+        raise TypeError(f"scan_scores runs on cpu or cuda, not {q.device}")
+    b, d = q.shape
+    n = db.shape[0]
+    if db.shape != (n, d) or ids.shape != (n,):
+        raise ValueError(f"shapes q{tuple(q.shape)} db{tuple(db.shape)} "
+                         f"ids{tuple(ids.shape)} do not match")
+    if metric == "l2" and db_norms is None:
+        db_norms = (ref.round_bf16(db) ** 2).sum(1)
+    for name, t, dt in (("q", q, torch.float32), ("db", db, torch.float32),
+                        ("ids", ids, torch.int32),
+                        ("db_norms", db_norms, torch.float32)):
+        if t is None:
+            continue
+        if t.device != q.device or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"scan_scores: {name} must be a contiguous "
+                             f"{dt} tensor on {q.device}")
+    if db_norms is not None and db_norms.shape != (n,):
+        raise ValueError(f"db_norms{tuple(db_norms.shape)} != ({n},)")
+    out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    vec4 = int(d % 4 == 0 and q.data_ptr() % 16 == 0
+               and db.data_ptr() % 16 == 0)
+    fn = build.entry("scan_scores", "scan_scores_launch", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), db.data_ptr(), ids.data_ptr(),
+                 None if db_norms is None else db_norms.data_ptr(),
+                 out.data_ptr(), b, n, d, int(metric == "l2"), vec4,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check_launch("scan_scores", err)
+    launches.add()
+    return out

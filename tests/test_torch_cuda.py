@@ -1,0 +1,128 @@
+"""The port's Hopper kernels and main path on the card (marker `cuda`).
+
+These need an NVIDIA card with nvcc; without one every test skips.  Run them
+on the card with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.base import EngineConfig
+from repro_torch.kernels import kmeans_assign as ka
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import scan_scores as ss
+from repro_torch.kernels import segsum_gemm as sg
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(dev, *shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 1000, 256), (33, 777, 192),
+                                   (17, 129, 1024), (64, 4099, 130),
+                                   (97, 3001, 1024)])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_scan_scores_kernel_matches_plain(dev, b, n, d, metric):
+    q, db = _randn(dev, b, d, seed=1), _randn(dev, n, d, seed=2)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids[::5] = -1
+    norms = (db ** 2).sum(1) if metric == "l2" else None
+    before = ss.launches.value
+    got = ss.scan_scores(q, db, ids, norms, metric=metric)
+    assert ss.launches.value == before + 1
+    want = ref.scan_scores_ref(q, db, ids, norms, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("m,c,d", [(1000, 96, 128), (777, 200, 130),
+                                   (300, 1, 64), (4097, 1024, 1024)])
+@pytest.mark.parametrize("fused", [True, False])
+def test_kmeans_assign_kernel_matches_plain(dev, m, c, d, fused):
+    x, cent = _randn(dev, m, d, seed=3), _randn(dev, c, d, seed=4)
+    idx, dist = ka.kmeans_assign(x, cent, fused_conversion=fused)
+    ridx, rdist = ref.kmeans_assign_ref(x, cent, fused_conversion=fused)
+    torch.testing.assert_close(dist, rdist, rtol=3e-2, atol=3e-2)
+    if c > 1:
+        rnd = ref.round_bf16 if fused else (lambda t: t)
+        dd = (cent ** 2).sum(1)[None, :] - 2 * (rnd(x) @ rnd(cent).T)
+        two = torch.topk(dd, 2, dim=1, largest=False).values
+        sure = (two[:, 1] - two[:, 0]) > 3e-2
+        assert torch.equal(idx[sure], ridx[sure])
+    assert int(idx.min()) >= 0 and int(idx.max()) < c
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_kmeans_assign_ties_go_to_lowest_index(dev, fused):
+    x = _randn(dev, 300, 64, seed=5)
+    cent = torch.cat([x[:3], x[:3]])
+    idx, _ = ka.kmeans_assign(x, cent, fused_conversion=fused)
+    assert int(idx.max()) < 3
+    assert idx[:3].tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("m,c,d,lo", [(999, 64, 128, 0), (100, 8, 130, -1),
+                                      (513, 100, 64, -3), (0, 4, 32, 0)])
+def test_segsum_kernel_matches_plain_and_is_deterministic(dev, m, c, d, lo):
+    x = _randn(dev, m, d, seed=6)
+    g = torch.Generator(device=dev).manual_seed(7)
+    a = torch.randint(lo, c + 5, (m,), generator=g, device=dev,
+                      dtype=torch.int32)
+    sums, counts = sg.segsum_gemm(x, a, n_clusters=c)
+    rsums, rcounts = sg.segsum_gemm_plain(x, a, n_clusters=c)
+    assert torch.equal(counts, rcounts)
+    torch.testing.assert_close(sums, rsums, rtol=1e-4, atol=1e-3)
+    assert torch.equal(sums, sg.segsum_gemm(x, a, n_clusters=c)[0])
+
+
+def test_use_kernel_false_launches_nothing(dev):
+    x = _randn(dev, 64, 128, seed=8)
+    ids = torch.arange(64, dtype=torch.int32, device=dev)
+    counts = [m.launches.value for m in (ss, ka, sg)]
+    ops.scan_scores(x[:2], x, ids, use_kernel=False)
+    ops.kmeans_assign(x, x[:4], use_kernel=False)
+    ops.segsum_gemm(x, ids % 4, n_clusters=4, use_kernel=False)
+    assert [m.launches.value for m in (ss, ka, sg)] == counts
+
+
+def test_service_lifecycle_on_the_card(dev):
+    from repro_torch.api import MemoryService
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3)
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2000, 256)).astype(np.float32)
+    before = [m.launches.value for m in (ss, ka, sg)]
+    with MemoryService(maintenance=False) as svc:
+        assert svc.device.type == "cuda"
+        coll = svc.create_collection("m", cfg)
+        svc.build("m", x)
+        ids, _ = svc.query("m", x[:1] + 0.01)           # probed
+        assert ids[0, 0] == 0
+        ids, _ = svc.query("m", x[:8] + 0.01)           # full scan
+        np.testing.assert_array_equal(ids[:, 0], np.arange(8))
+        svc.insert("m", rng.standard_normal((64, 256)).astype(np.float32),
+                   ids=np.arange(5000, 5064))
+        assert svc.delete("m", np.arange(100)) == 100
+        r = svc.rebuild("m")
+        assert not r["aborted"]
+        st = coll.snapshot()
+        live = torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+        live = set(live[live >= 0].tolist())
+        assert live == set(range(100, 2000)) | set(range(5000, 5064))
+    after = [m.launches.value for m in (ss, ka, sg)]
+    assert all(a > b for a, b in zip(after, before))

@@ -1,0 +1,90 @@
+"""The port stands alone: no file of `repro_torch`, nor `chip_smoke.py` or
+`tools/profile_port.py`, imports jax or anything of the JAX package
+`repro`; importing the port leaves jax unloaded; its EngineConfig has
+exactly the reference's fields.
+"""
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_neither_jax_nor_repro(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
+            "scan_scores.py"} <= names
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
+            "repro_torch.core.metrics, repro_torch.configs.ame_paper; "
+            "assert 'jax' not in sys.modules, 'jax loaded'; "
+            "assert not any(m == 'repro' or m.startswith('repro.') "
+            "for m in sys.modules), 'repro loaded'")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_engine_config_has_the_reference_fields():
+    from repro.configs.base import EngineConfig as JConfig
+    from repro_torch.configs import ame_paper
+    from repro.configs import ame_paper as jame_paper
+    from repro_torch.configs.base import EngineConfig
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(EngineConfig) == fields(JConfig)
+    for name in ("PAPER_10K", "PAPER_100K", "PAPER_1M"):
+        assert dataclasses.asdict(getattr(ame_paper, name)) == \
+            dataclasses.asdict(getattr(jame_paper, name))
+    assert ame_paper.ABLATION_LADDER == jame_paper.ABLATION_LADDER
+    with pytest.raises(ValueError):
+        EngineConfig(index_policy="bogus")
+
+
+def test_lock_hierarchy_matches_reference():
+    from repro.core import locking as jlocking
+    from repro_torch.core import locking
+    assert locking.LEVELS == jlocking.LEVELS
+
+
+def test_templates_route_matches_reference():
+    from repro.configs.ame_paper import PAPER_1M as J1M
+    from repro.core import templates as jt
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.core import templates as t
+    assert t.TemplateThresholds.from_profile(PAPER_1M).full_scan_batch == \
+        jt.TemplateThresholds.from_profile(J1M).full_scan_batch == 2
+    for kind, batch in (("query", 1), ("query", 64), ("insert", 8),
+                        ("delete", 3), ("build", 100), ("rebuild", 1)):
+        assert dataclasses.asdict(t.route(kind, batch, PAPER_1M)) == \
+            dataclasses.asdict(jt.route(kind, batch, J1M))

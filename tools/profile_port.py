@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's main path, on one NVIDIA card.
+
+    python3 tools/profile_port.py [--seed N] [--out FILE]
+
+Builds the PAPER_1M collection that ``chip_smoke.py`` builds (same
+synthetic corpus, same seed), warms every op kind once, then runs each op
+once more under ``torch.profiler`` (CPU + CUDA activities) and reports per
+op: wall time, device busy time (sum of kernel times — one stream, so
+kernels do not overlap), device idle share, and device time by kernel name.
+Prints one JSON object; with ``--out`` also writes it to FILE.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import chip_smoke  # noqa: E402  (repo root on the path above)
+
+
+def profiled(fn) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kernel = defaultdict(float)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] += evt.device_time_total / 1e3  # us -> ms
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / (1e3 * wall)),
+            "kernels_ms": {k[:90]: v for k, v in top}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_port: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.api import MemoryService
+    from repro_torch.configs.ame_paper import PAPER_1M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    n = 1_000_000
+    x = chip_smoke.make_corpus(n, PAPER_1M.dim, g)
+    ids = np.arange(n, dtype=np.int32)
+    q1 = chip_smoke.perturb(x[:1], g)
+    q64 = chip_smoke.perturb(x[1:65], g)
+    rows = torch.nn.functional.normalize(
+        torch.randn(1024, PAPER_1M.dim, generator=g, device=dev), dim=1)
+    next_id = [n]
+
+    def insert():
+        svc.insert("mem", rows, ids=np.arange(next_id[0], next_id[0] + 1024,
+                                              dtype=np.int32))
+        next_id[0] += 1024
+
+    ops = {
+        "build 1M rows": lambda: svc.build("mem", x, ids=ids),
+        "probed query B=1": lambda: svc.query("mem", q1),
+        "full scan B=64": lambda: svc.query("mem", q64),
+        "insert 1024 rows": insert,
+        "delete 10000 ids": lambda: svc.delete(
+            "mem", np.arange(next_id[0] - 10_000, next_id[0])),
+        "rebuild": lambda: svc.rebuild("mem"),
+    }
+    out = {"card": chip_smoke.nvidia_smi(),
+           "torch": torch.__version__, "ops": {}}
+    with MemoryService(maintenance=False) as svc:
+        svc.create_collection("mem", PAPER_1M, seed=args.seed)
+        for name, fn in ops.items():        # warm every path once
+            fn()
+        torch.cuda.synchronize()
+        for name, fn in ops.items():
+            out["ops"][name] = profiled(fn)
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

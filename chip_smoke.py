@@ -10,10 +10,15 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (PAPER_1M) and at ragged shapes, with times, the
    least time the card could take, and one PyTorch library call's time.
-4. main path: the PAPER_1M memory lifecycle (build, queries, concurrent
-   inserts, deletes, a delta-replay rebuild under inserts, queries again)
-   through ``repro_torch.api.MemoryService`` on a synthetic clustered
-   corpus made from ``--seed``; launch counters show it ran the kernels.
+4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
+   an exact brute force, queries, concurrent inserts, deletes, a
+   delta-replay rebuild under inserts, queries again) through
+   ``repro_torch.api.MemoryService`` on a synthetic clustered corpus made
+   from ``--seed``; launch counters show it ran the kernels.
+5. main path, int8: the same lifecycle on the same corpus with
+   ``store_dtype="int8"`` (coarse ``scan_scores_q8`` scan, exact f32
+   rescore), then ``save`` / ``load`` of the service and the same query
+   ids from the loaded one; its recall@10 must reach 0.95 x phase 4's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -22,11 +27,13 @@ and the port (never jax, never the JAX package).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,6 +45,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # H100 SXM published peaks (dense): bf16 tensor cores, f32 outside the tensor
 # cores, device memory rate
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -87,18 +95,18 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_scan(got, want, tol=2e-2) -> float:
+def check_scan(got, want, tol=2e-2, name="scan_scores") -> float:
     """Masked slots identical, finite scores within rtol = atol = tol."""
     if got.shape != want.shape:
-        raise AssertionError(f"scan shape {got.shape} != {want.shape}")
+        raise AssertionError(f"{name} shape {got.shape} != {want.shape}")
     if not torch.equal(torch.isinf(got), torch.isinf(want)) or not \
             torch.equal(got[torch.isinf(got)], want[torch.isinf(want)]):
-        raise AssertionError("scan_scores masks disagree with the plain version")
+        raise AssertionError(f"{name} masks disagree with the plain version")
     fin = torch.isfinite(want)
     err = (got[fin] - want[fin]).abs()
     bad = err > tol + tol * want[fin].abs()
     if bool(bad.any()) or not bool(torch.isfinite(got[fin]).all()):
-        raise AssertionError(f"scan_scores off by {float(err.max())}")
+        raise AssertionError(f"{name} off by {float(err.max())}")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -142,6 +150,7 @@ def phase_kernels(seed: int, cfg) -> dict:
     from repro_torch.kernels import kmeans_assign as ka
     from repro_torch.kernels import ref
     from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
     from repro_torch.kernels import segsum_gemm as sg
 
     dev = torch.device("cuda")
@@ -213,6 +222,72 @@ def phase_kernels(seed: int, cfg) -> dict:
                    "plain_ms": probe_plain, "bound_ms": probe_bound[0],
                    "bound_by": probe_bound[1], "library_ms": probe_lib,
                    "library_f32_ms": probe_f32},
+    }
+
+    # -- scan_scores_q8 ---------------------------------------------------
+    def q8_args(b, n, dd, metric):
+        """Random operands over the whole int8 range, the scalars the
+        store's affine fit gives unit rows, ~10 % tombstones."""
+        qc = torch.randint(-127, 128, (b, dd), generator=g, device=dev,
+                           dtype=torch.int8)
+        codes = torch.randint(-127, 128, (n, dd), generator=g, device=dev,
+                              dtype=torch.int8)
+        sq = torch.rand(b, generator=g, device=dev) * 1e-2 + 1e-3
+        norms = (torch.rand(n, generator=g, device=dev) * 2
+                 if metric == "l2" else None)
+        return (qc, codes, ids_with_holes(n),
+                torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4,
+                torch.randn(n, generator=g, device=dev) * 1e-2, sq,
+                ref.query_corr(qc, sq), norms)
+
+    def q8_bytes(b, n, dd, metric):
+        # codes + ids/scales/zeros (+ norms) + query codes and scalars + out
+        return (n * dd + 4 * n * (3 + (metric == "l2")) + b * dd + 8 * b
+                + 4 * b * n)
+
+    def q8_check(args, metric):
+        return check_scan(q8.scan_scores_q8(*args, metric=metric),
+                          ref.scan_scores_q8_plain(*args, metric=metric),
+                          tol=1e-5, name="scan_scores_q8")
+
+    err = 0.0
+    for (b, n, dd, metric) in [(97, 3001, 130, "ip"), (97, 3001, 130, "l2"),
+                               (5, 1000, 130, "l2"), (1, 777, 130, "ip"),
+                               (17, 129, d, "l2"), (64, 4099, d, "ip")]:
+        err = max(err, q8_check(q8_args(b, n, dd, metric), metric))
+    q8_times = {}
+    for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full)):
+        args = q8_args(b, n, d, "ip")
+        err = max(err, q8_check(args, "ip"))
+        ms = cuda_ms(lambda: q8.scan_scores_q8(*args), reps=20)
+        plain = cuda_ms(lambda: ref.scan_scores_q8_plain(*args), reps=3)
+        # torch._int_mm computes only the int32 product (no epilogue, no
+        # mask) and needs more than 16 rows: B=1 goes in padded to 32
+        qc = args[0]
+        if b <= 16:
+            qc = torch.zeros((32, d), dtype=torch.int8, device=dev)
+            qc[:b] = args[0]
+        codes_t = args[1].t()
+        lib = cuda_ms(lambda: torch._int_mm(qc, codes_t), reps=20)
+        q8_times[label] = (f"B={b} N={n} D={d} ip", ms, plain, lib,
+                           *bound_ms(q8_bytes(b, n, d, "ip"), 2 * b * n * d,
+                                     PEAK_INT8))
+        del args, qc, codes_t
+        torch.cuda.empty_cache()
+    shape, ms, plain, lib, qb, qby = q8_times["full"]
+    pshape, pms, pplain, plib, pqb, pqby = q8_times["probed"]
+    out["scan_scores_q8"] = {
+        "name": "scan_scores_q8", "route": "cuda",
+        "source": "src/repro_torch/csrc/scan_scores_q8.cu",
+        "replaces": "src/repro/kernels/scan_scores.py:135",
+        "shape": f"full scan {shape}", "max_abs_err": err, "ms": ms,
+        "plain_ms": plain, "bound_ms": qb, "bound_by": qby,
+        "library_ms": lib,
+        "library_call": "torch._int_mm(qc, codes.t()): the int32 product "
+                        "only, a lower yardstick",
+        "probed": {"shape": f"{pshape} (_int_mm at 32 rows)", "ms": pms,
+                   "plain_ms": pplain, "bound_ms": pqb, "bound_by": pqby,
+                   "library_ms": plib},
     }
 
     # -- kmeans_assign ----------------------------------------------------
@@ -315,9 +390,13 @@ def perturb(rows: torch.Tensor, g: torch.Generator) -> torch.Tensor:
 
 
 def phase_main(seed: int, cfg) -> dict:
+    """The memory lifecycle of `cfg` at PAPER_1M scale on the card; under
+    the int8 policy it ends with a save/load round trip of the service."""
     from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.core import metrics
     from repro_torch.kernels import kmeans_assign as ka
     from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
     from repro_torch.kernels import segsum_gemm as sg
 
     n, dev = N_ROWS, torch.device("cuda")
@@ -326,7 +405,7 @@ def phase_main(seed: int, cfg) -> dict:
     live = np.zeros(n + 200_000, dtype=bool)    # the host-side id set
     live[:n] = True
     next_id = n
-    out = {}
+    out = {"store_dtype": cfg.store_dtype}
 
     def check_live(coll, what):
         st = coll.snapshot()
@@ -351,12 +430,15 @@ def phase_main(seed: int, cfg) -> dict:
         pick = torch.randint(0, len(cand), (b,), generator=g, device=dev)
         return cand[pick.cpu().numpy()]
 
+    def queries(b):
+        t = targets(b)
+        return t, perturb(x[torch.from_numpy(t).to(dev)], g)
+
     def hit_rate(svc, b, reps, path):
         hits = tot = 0
         lat = []
         for _ in range(reps):
-            t = targets(b)
-            q = perturb(x[torch.from_numpy(t).to(dev)], g)
+            t, q = queries(b)
             t0 = time.perf_counter()
             ids, _ = svc.query("mem", q)
             lat.append(time.perf_counter() - t0)
@@ -368,83 +450,122 @@ def phase_main(seed: int, cfg) -> dict:
                                  f"{rate:.4f} < 0.99 of queries")
         return rate, lat
 
-    for mod in (ss, ka, sg):
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    for mod in kernels.values():
         mod.launches.reset()
     torch.cuda.reset_peak_memory_stats()
-    with MemoryService() as svc:
-        coll = svc.create_collection("mem", cfg, seed=seed,
-                                     spill_capacity=4096)
-        if svc.device.type != "cuda":
-            raise AssertionError(f"service runs on {svc.device}")
-        t0 = time.perf_counter()
-        r = svc.build("mem", x, ids=np.arange(n, dtype=np.int32))
-        out["build_s"] = time.perf_counter() - t0
-        out["build_spilled"] = r["spilled"]
-        check_live(coll, "build")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as saved:
+        with MemoryService() as svc:
+            coll = svc.create_collection("mem", cfg, seed=seed,
+                                         spill_capacity=4096)
+            if svc.device.type != "cuda":
+                raise AssertionError(f"service runs on {svc.device}")
+            t0 = time.perf_counter()
+            r = svc.build("mem", x, ids=np.arange(n, dtype=np.int32))
+            out["build_s"] = time.perf_counter() - t0
+            out["build_spilled"] = r["spilled"]
+            check_live(coll, "build")
+            if coll.stats()["store_dtype"] != cfg.store_dtype:
+                raise AssertionError("the collection's store policy changed")
 
-        # queries: the router sends B=1 down the probed path, B=64 full scan
-        if coll.resolve_query(1, None, None, None)[2] != "probed" or \
-                coll.resolve_query(64, None, None, None)[2] != "full_scan":
-            raise AssertionError("PAPER_1M routing changed")
-        hit_rate(svc, 1, 3, "probed")                # warm-up
-        out["probed_hit"], lat = hit_rate(svc, 1, 50, "probed")
-        out["probed_p50_ms"] = 1e3 * float(np.median(lat))
-        hit_rate(svc, 64, 1, "full scan")            # warm-up
-        out["full_hit"], lat = hit_rate(svc, 64, 8, "full scan")
-        out["full_scan_qps"] = 64 * len(lat) / sum(lat)
+            # recall@10 of both query paths against an exact f32 brute force
+            _, rq = queries(256)
+            truth = metrics.brute_force_topk(
+                rq, x, torch.arange(n, device=dev), 10, cfg.metric,
+                device=dev)
+            for path in ("full_scan", "probed"):
+                got, _ = svc.query("mem", rq, k=10, path=path)
+                out[f"recall10_{path}"] = metrics.recall_at_k(got, truth)
+            del rq, truth
 
-        # 8 insert batches as futures while probed queries run
-        batches = [fresh_rows(1024) for _ in range(8)]
-        t0 = time.perf_counter()
-        futs = [svc.submit(MemoryOp("insert", "mem", rows, ids=ids,
-                                    concurrent=True))
-                for rows, ids in batches]
-        hit_rate(svc, 1, 10, "probed (during inserts)")
-        for f in futs:
-            f.result(timeout=300)
-        out["insert_rows_per_s"] = 8 * 1024 / (time.perf_counter() - t0)
-        for _, ids in batches:
-            live[ids] = True
-        check_live(coll, "inserts")
+            # the router sends B=1 down the probed path, B=64 to the full scan
+            if coll.resolve_query(1, None, None, None)[2] != "probed" or \
+                    coll.resolve_query(64, None, None, None)[2] != "full_scan":
+                raise AssertionError("PAPER_1M routing changed")
+            hit_rate(svc, 1, 3, "probed")                # warm-up
+            out["probed_hit"], lat = hit_rate(svc, 1, 50, "probed")
+            out["probed_p50_ms"] = 1e3 * float(np.median(lat))
+            hit_rate(svc, 64, 1, "full scan")            # warm-up
+            out["full_hit"], lat = hit_rate(svc, 64, 8, "full scan")
+            out["full_scan_qps"] = 64 * len(lat) / sum(lat)
 
-        # delete 10,000 live corpus ids
-        gone = np.random.default_rng(seed).choice(n, 10_000, replace=False)
-        n_hit = svc.delete("mem", gone.astype(np.int32))
-        if n_hit != 10_000:
-            raise AssertionError(f"delete tombstoned {n_hit} of 10000")
-        live[gone] = False
-        check_live(coll, "delete")
+            # 8 insert batches as futures while probed queries run
+            batches = [fresh_rows(1024) for _ in range(8)]
+            t0 = time.perf_counter()
+            futs = [svc.submit(MemoryOp("insert", "mem", rows, ids=ids,
+                                        concurrent=True))
+                    for rows, ids in batches]
+            hit_rate(svc, 1, 10, "probed (during inserts)")
+            for f in futs:
+                f.result(timeout=300)
+            out["insert_rows_per_s"] = 8 * 1024 / (time.perf_counter() - t0)
+            for _, ids in batches:
+                live[ids] = True
+            check_live(coll, "inserts")
 
-        # rebuild while inserts keep landing: they go to the delta log and
-        # are replayed onto the rebuilt index before it is published
-        t0 = time.perf_counter()
-        fut = svc.submit(MemoryOp("rebuild", "mem"))
-        landed = 0
-        while not fut.done() and landed < 400:
-            rows, ids = fresh_rows(256)
-            svc.insert("mem", rows, ids=ids)
-            live[ids] = True
-            landed += 1
-        rb = fut.result(timeout=600)
-        out["rebuild_s"] = time.perf_counter() - t0
-        out["rebuild_replayed_rows"] = rb["replayed"]
-        out["inserts_during_rebuild"] = landed
-        if rb["aborted"] or rb["replayed"] == 0:
-            raise AssertionError(f"rebuild did not replay a delta: {rb}")
-        check_live(coll, "rebuild")
+            # delete 10,000 live corpus ids
+            gone = np.random.default_rng(seed).choice(n, 10_000, replace=False)
+            n_hit = svc.delete("mem", gone.astype(np.int32))
+            if n_hit != 10_000:
+                raise AssertionError(f"delete tombstoned {n_hit} of 10000")
+            live[gone] = False
+            check_live(coll, "delete")
 
-        out["probed_hit_after"], _ = hit_rate(svc, 1, 30, "probed")
-        out["full_hit_after"], _ = hit_rate(svc, 64, 4, "full scan")
-        st = coll.stats()
-        out["live"] = st["live"]
-        out["spill"] = st["spill"]
+            # rebuild while inserts keep landing: they go to the delta log
+            # and are replayed onto the rebuilt index before it is published
+            t0 = time.perf_counter()
+            fut = svc.submit(MemoryOp("rebuild", "mem"))
+            landed = 0
+            while not fut.done() and landed < 400:
+                rows, ids = fresh_rows(256)
+                svc.insert("mem", rows, ids=ids)
+                live[ids] = True
+                landed += 1
+            rb = fut.result(timeout=600)
+            out["rebuild_s"] = time.perf_counter() - t0
+            out["rebuild_replayed_rows"] = rb["replayed"]
+            out["inserts_during_rebuild"] = landed
+            if rb["aborted"] or rb["replayed"] == 0:
+                raise AssertionError(f"rebuild did not replay a delta: {rb}")
+            check_live(coll, "rebuild")
+
+            out["probed_hit_after"], _ = hit_rate(svc, 1, 30, "probed")
+            out["full_hit_after"], _ = hit_rate(svc, 64, 4, "full scan")
+            st = coll.stats()
+            out["live"] = st["live"]
+            out["spill"] = st["spill"]
+            out["index_gb"] = st["index_bytes"] / 1e9
+            if cfg.quantized:
+                _, sq = queries(64)
+                want = [svc.query("mem", sq),
+                        svc.query("mem", sq[:8], path="probed")]
+                t0 = time.perf_counter()
+                svc.save(saved)
+                out["save_s"] = time.perf_counter() - t0
+        del svc, coll                 # free the state before loading a copy
+        torch.cuda.empty_cache()
+        if cfg.quantized:
+            t0 = time.perf_counter()
+            with MemoryService.load(saved) as back:
+                out["load_s"] = time.perf_counter() - t0
+                got = [back.query("mem", sq),
+                       back.query("mem", sq[:8], path="probed")]
+                check_live(back.collection("mem"), "save/load")
+            for (gi, gs), (wi, ws) in zip(got, want):
+                if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
+                    raise AssertionError("the loaded service answers "
+                                         "differently from the saved one")
+            out["reload_same_ids"] = True
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    out["launches"] = {"scan_scores": ss.launches.value,
-                       "kmeans_assign": ka.launches.value,
-                       "segsum_gemm": sg.launches.value}
-    for k, v in out["launches"].items():
-        if v <= 0:
-            raise AssertionError(f"main path never launched {k}")
+    out["launches"] = {k: m.launches.value for k, m in kernels.items()}
+    needed = (("scan_scores_q8", "scan_scores", "kmeans_assign", "segsum_gemm")
+              if cfg.quantized else
+              ("scan_scores", "kmeans_assign", "segsum_gemm"))
+    for k in needed:
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"main path ({cfg.store_dtype}) never "
+                                 f"launched {k}")
     return out
 
 
@@ -484,13 +605,27 @@ def main(argv=None) -> int:
     kernels = phase_kernels(args.seed, PAPER_1M)
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # 4. main path
-    t0 = time.perf_counter()
-    main_path = phase_main(args.seed, PAPER_1M)
-    print(f"main path PAPER_1M in {time.perf_counter() - t0:.1f} s "
-          f"[{card}]: " + json.dumps(main_path), flush=True)
-    for kernel, n in main_path["launches"].items():
-        kernels[kernel]["launches"] = n
+    # 4. main path, f32; 5. main path, int8 (after phase 4's memory is
+    # freed), each with the launch counts set to 0 just before it
+    paths = {}
+    for phase, cfg in ((4, PAPER_1M),
+                       (5, dataclasses.replace(PAPER_1M, store_dtype="int8"))):
+        t0 = time.perf_counter()
+        paths[cfg.store_dtype] = out = phase_main(args.seed, cfg)
+        print(f"phase {phase}: main path PAPER_1M {cfg.store_dtype} in "
+              f"{time.perf_counter() - t0:.1f} s [{card}]: "
+              + json.dumps(out), flush=True)
+        torch.cuda.empty_cache()
+    f32, q8 = paths["float32"], paths["int8"]
+    for path in ("full_scan", "probed"):
+        key = f"recall10_{path}"
+        if q8[key] < 0.95 * f32[key]:
+            raise AssertionError(f"int8 {key} {q8[key]:.4f} < 0.95 x f32's "
+                                 f"{f32[key]:.4f}")
+    for kernel, entry in kernels.items():
+        by_path = {dtype: p["launches"][kernel] for dtype, p in paths.items()}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
 
     print(card)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,9 +1,10 @@
 """A named memory collection — one tenant's IVF state, id-space, counters.
 
 Port of ``src/repro/api/collection.py`` for one unsharded collection whose
-f32 state lives on the device (the reference's HOT tier).  The mesh-sharded
-tier, residency tiers, the HNSW graph and recall-adaptive routing,
-replication shipping and save/load are later slices of the port; they raise
+state (f32, or f32 plus the int8 scan store) lives on the device (the
+reference's HOT tier), with save/load in the reference's on-disk layout.
+The mesh-sharded tier, residency tiers, the HNSW graph and recall-adaptive
+routing and replication shipping are later slices of the port; they raise
 NotImplementedError naming their ROADMAP item.
 
 Concurrency model (lost-update-safe writes, wait-free reads), as in the
@@ -32,6 +33,9 @@ reference's one-entry-per-shard shape; an unsharded collection has one.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import time
 from typing import List, Optional, Tuple
 
@@ -45,9 +49,22 @@ from repro_torch.core import templates
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
 
+META_FILE = "collection.json"
+
+
 def later_slice(feature: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{feature} is not ported to repro_torch yet (ROADMAP.md §1: {item})")
+
+
+def atomic_write_json(path: str, payload: dict) -> None:
+    """Crash-safe metadata write: temp file in the same dir + os.replace."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
 
 
 class Collection:
@@ -55,7 +72,7 @@ class Collection:
                  spill_capacity: int = 4096,
                  thresholds: Optional[templates.TemplateThresholds] = None,
                  delta_log_capacity: int = 1024, mesh=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, _alloc_state: bool = True):
         if cfg.shard_db or mesh is not None:
             raise later_slice("the mesh-sharded tier (shard_db / mesh)",
                               "the sharded tier")
@@ -65,8 +82,6 @@ class Collection:
         if cfg.target_recall > 0:
             raise later_slice("target_recall (recall probe + tuner)",
                               "adaptive routing / HNSW")
-        if cfg.quantized:
-            raise later_slice("store_dtype='int8'", "the int8 slice")
         self.name = name
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -83,6 +98,7 @@ class Collection:
         self._epoch = 0            # bumped on bulk build (obsoletes snapshots)
         self._next_id = 0
         self._n_draws = 0          # random streams handed out (see _split)
+        self._approx_live = 0      # host-side live-row estimate (saved)
         self.counters = {"queries": 0, "inserts": 0, "deletes": 0,
                          "rebuilds": 0, "spilled": 0}
         #   _rebuild_locks   at most one delta-replay rebuild at a time
@@ -98,7 +114,9 @@ class Collection:
         self._delta_overflow = [False]
         self._shard_pressure = [{"tombstones": 0, "spilled": 0}]
         self._spill_floors = [0]
-        self._state = ivf.empty_state(cfg, spill_capacity, device=self.device)
+        # load_from installs the restored state itself: no device allocation
+        self._state = (ivf.empty_state(cfg, spill_capacity, device=self.device)
+                       if _alloc_state else None)
 
     @property
     def _spill_floor(self) -> int:
@@ -123,12 +141,78 @@ class Collection:
     def recall_probe(self, sample=None, k=None) -> dict:
         raise later_slice("the recall probe", "adaptive routing / HNSW")
 
+    # ------------------------------------------------------------------
+    # Persistence — one namespace directory per collection, in the
+    # reference's layout (a Checkpointer step dir + `collection.json`), so
+    # either package loads the other's snapshots.
+    # ------------------------------------------------------------------
     def save_into(self, directory: str, step: int = 0) -> None:
-        raise later_slice("collection save/load", "checkpoint save/load")
+        """Write this collection's namespace directory.  Reads a consistent
+        snapshot under the writer lock; safe to call under live traffic."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        os.makedirs(directory, exist_ok=True)
+        with self._writer_lock:
+            with self._lock:
+                state = self._state
+                # the keys and values of the reference's HOT unsharded
+                # collection (no recall probe here: probe_seq stays 0)
+                meta = {"name": self.name, "next_id": self._next_id,
+                        "counters": dict(self.counters),
+                        "built": self._built,
+                        "spill_capacity": self.spill_capacity, "step": step,
+                        "spill_floors": list(self._spill_floors),
+                        "store_dtype": self.cfg.store_dtype,
+                        "residency": "hot",
+                        "pressure": [dict(p) for p in self._shard_pressure],
+                        "approx_live": self._approx_live,
+                        "probe_seq": 0}
+            Checkpointer(directory).save(step, state._asdict())
+        atomic_write_json(os.path.join(directory, META_FILE), meta)
 
     @classmethod
-    def load_from(cls, directory: str, name: str, cfg: EngineConfig, **_):
-        raise later_slice("collection save/load", "checkpoint save/load")
+    def load_from(cls, directory: str, name: str, cfg: EngineConfig, *,
+                  step: Optional[int] = None, **kw) -> "Collection":
+        """Restore a HOT unsharded collection from its namespace directory
+        onto the device.  The snapshot's `store_dtype` wins over `cfg`'s:
+        the checkpoint carries (or lacks) the int8 store's leaves."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        mpath = os.path.join(directory, META_FILE)
+        meta = {}
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                meta = json.load(f)
+        if meta.get("sharded", False):
+            raise later_slice("loading a sharded snapshot", "the sharded tier")
+        residency = meta.get("residency", "hot")
+        if residency != "hot":
+            raise later_slice(f"loading a {residency} snapshot", "residency")
+        spill_capacity = int(meta.get("spill_capacity", 4096))
+        saved_dtype = meta.get("store_dtype")
+        if saved_dtype is not None and saved_dtype != cfg.store_dtype:
+            cfg = dataclasses.replace(cfg, store_dtype=saved_dtype)
+        coll = cls(name, cfg, spill_capacity=spill_capacity,
+                   _alloc_state=False, **kw)
+        template = ivf.empty_host_state(cfg, spill_capacity)._asdict()
+        state = ivf.IVFState(**Checkpointer(directory).restore(
+            template, step=step, device=coll.device))
+        floors = meta.get("spill_floors") or [0]
+        press = meta.get("pressure")
+        if press is not None:
+            p0 = press[0] if press else {}
+            press = [{"tombstones": int(p0.get("tombstones", 0)),
+                      "spilled": int(p0.get("spilled", 0))}]
+        else:
+            press = [{"tombstones": int(state.num_deleted),
+                      "spilled": int(state.spill_size)}]
+        with coll._lock:
+            coll._state = state
+            coll._built = bool(meta.get("built", True))
+            coll._next_id = int(meta.get("next_id", 0))
+            coll.counters.update(meta.get("counters", {}))
+            coll._approx_live = int(meta.get("approx_live", 0))
+            coll._shard_pressure = press
+            coll._spill_floors = [int(floors[0])]
+        return coll
 
     # ------------------------------------------------------------------
     # Versioned state snapshot
@@ -223,6 +307,7 @@ class Collection:
                 self._epoch += 1        # obsoletes in-flight rebuild snapshots
                 self._shard_pressure = [{"tombstones": 0, "spilled": spilled}]
                 self._spill_floors = [spilled]
+                self._approx_live = int(x.shape[0])
             self._swap(state, rebuilds=1, spilled=spilled)
         return {"build_s": time.perf_counter() - t0, "spilled": spilled}
 
@@ -246,6 +331,7 @@ class Collection:
             spilled = int(spilled)      # sync: compute done before publish
             with self._lock:
                 self._shard_pressure[0]["spilled"] += spilled
+                self._approx_live += n
             self._swap(state, inserts=n, spilled=spilled)
             self._log_delta("insert", x, ids)
         return spilled
@@ -260,6 +346,7 @@ class Collection:
             n_hit = int(n_hit)          # sync: compute done before publish
             with self._lock:
                 self._shard_pressure[0]["tombstones"] += n_hit
+                self._approx_live = max(0, self._approx_live - n_hit)
             self._swap(state, deletes=n_hit)
             self._log_delta("delete", None, ids)
         return n_hit

@@ -14,18 +14,24 @@ tombstone/spill pressure counters and, past the thresholds in its
 the scheduler — the delta-replay rebuild in `Collection` makes that safe
 under concurrent inserts/deletes.
 
-Cross-collection batching (`batch=True`, `flush`, `query_many`), residency
-tiers and save/load are later slices of the port and raise
-NotImplementedError.
+Persistence: `save`/`load` write and read one namespace directory per
+collection under ``collections/`` plus a ``service.json`` registry, in the
+reference's layout.  Cross-collection batching (`batch=True`, `flush`,
+`query_many`), residency tiers and sharded snapshots are later slices of
+the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch.api.collection import Collection, later_slice
+from repro_torch.api.collection import Collection, atomic_write_json, \
+    later_slice
 from repro_torch.api.ops import MemoryOp, OpFuture
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import locking
@@ -35,6 +41,7 @@ from repro_torch.core.scheduler import AdmissionControl, Overloaded, Task, \
 from repro_torch.device import DeviceLike, resolve_device
 
 _NAME_RE = re.compile(r"^[A-Za-z0-9._-]+$")
+SERVICE_FILE = "service.json"
 
 
 class MaintenanceController:
@@ -366,9 +373,53 @@ class MemoryService:
         self.shutdown()
 
     # ------------------------------------------------------------------
+    # Persistence — per-collection namespaces under one service directory.
+    # ------------------------------------------------------------------
     def save(self, directory: str, step: int = 0) -> None:
-        raise later_slice("service save/load", "checkpoint save/load")
+        """Persist every collection (blocks until all namespaces are
+        written)."""
+        with self._lock:
+            colls = dict(self._collections)
+        os.makedirs(directory, exist_ok=True)
+        registry = {}
+        for name, coll in colls.items():
+            coll.save_into(os.path.join(directory, "collections", name),
+                           step=step)
+            registry[name] = {"cfg": dataclasses.asdict(coll.cfg),
+                              "sharded": False}
+        atomic_write_json(os.path.join(directory, SERVICE_FILE),
+                          {"version": 1, "collections": registry})
 
     @classmethod
-    def load(cls, directory: str, **_) -> "MemoryService":
-        raise later_slice("service save/load", "checkpoint save/load")
+    def load(cls, directory: str, *,
+             scheduler: Optional[WindowedScheduler] = None,
+             step: Optional[int] = None, maintenance: bool = True,
+             mesh=None, reshard: bool = False,
+             device_budget_bytes: Optional[int] = None,
+             residency_dir: Optional[str] = None,
+             idle_demote_s: Optional[float] = None,
+             cold_after_s: Optional[float] = None,
+             device: DeviceLike = None) -> "MemoryService":
+        """Restore a saved service: each collection HOT on `device`."""
+        if mesh is not None or reshard:
+            raise later_slice("sharded snapshots (mesh / reshard)",
+                              "the sharded tier")
+        with open(os.path.join(directory, SERVICE_FILE)) as f:
+            registry = json.load(f)
+        svc = cls(scheduler=scheduler, maintenance=maintenance,
+                  device_budget_bytes=device_budget_bytes,
+                  residency_dir=residency_dir, idle_demote_s=idle_demote_s,
+                  cold_after_s=cold_after_s, device=device)
+        for name, entry in registry["collections"].items():
+            cfg = EngineConfig(**entry["cfg"])
+            if entry.get("sharded", cfg.shard_db):
+                raise later_slice(f"the sharded collection {name!r}",
+                                  "the sharded tier")
+            coll = Collection.load_from(
+                os.path.join(directory, "collections", name), name, cfg,
+                step=step, device=svc.device)
+            with svc._lock:
+                svc._collections[name] = coll
+        if registry["collections"]:
+            svc._ensure_maintenance()
+        return svc

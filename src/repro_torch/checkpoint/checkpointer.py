@@ -1,0 +1,167 @@
+"""Atomic, async checkpointing; port of ``src/repro/checkpoint/checkpointer.py``
+(the reference's on-disk layout, without jax).
+
+Layout: <dir>/step_<N>/
+  manifest.json   — tree structure, shapes, dtypes, leaf filenames
+  arr_<i>.npy     — one file per leaf (full arrays, on the host)
+  COMMIT          — written last; a checkpoint without COMMIT is ignored
+                    (crash-safe: partial writes never load)
+
+Leaves are numbered in the order ``jax.tree.flatten`` gives the same tree —
+a dict's keys sorted, a list's or tuple's items in order, ``None`` no leaf —
+so each package restores the other's checkpoints.  `save_async` snapshots
+the tensors to the host, then writes on a background thread; ``keep_n``
+garbage-collects old steps.  `restore` rebuilds the tree, as numpy arrays or
+as tensors on a given device.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike
+
+
+def _flatten(tree: Any, out: List[Any]) -> str:
+    """Append the leaves of `tree` to `out` in jax's flatten order; returns
+    the structure in the reference's ``PyTreeDef`` notation."""
+    if tree is None:
+        return "None"
+    if isinstance(tree, dict):
+        parts = [f"{k!r}: {_flatten(tree[k], out)}" for k in sorted(tree)]
+        return "{" + ", ".join(parts) + "}"
+    if isinstance(tree, (list, tuple)):
+        inner = ", ".join(_flatten(v, out) for v in tree)
+        return f"[{inner}]" if isinstance(tree, list) else f"({inner})"
+    out.append(tree)
+    return "*"
+
+
+def _unflatten(like: Any, leaves) -> Any:
+    """`like`'s structure with its leaves taken from the iterator `leaves`."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        # fill in sorted-key order, keep the caller's key order
+        filled = {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: filled[k] for k in like}
+    if isinstance(like, (list, tuple)):
+        items = [_unflatten(v, leaves) for v in like]
+        return items if isinstance(like, list) else tuple(items)
+    return next(leaves)
+
+
+def _host(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class Checkpointer:
+    def __init__(self, directory: str, keep_n: int = 3):
+        self.dir = directory
+        self.keep_n = keep_n
+        os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------------
+    def save(self, step: int, tree: Any) -> str:
+        leaves: List[Any] = []
+        treedef = _flatten(tree, leaves)
+        return self._write(step, [_host(x) for x in leaves], treedef)
+
+    def save_async(self, step: int, tree: Any) -> None:
+        self.wait()
+        leaves: List[Any] = []
+        treedef = _flatten(tree, leaves)
+        host = [_host(x) for x in leaves]       # device -> host snapshot now
+
+        def work():
+            try:
+                self._write(step, host, treedef)
+            except BaseException as e:   # noqa: BLE001 — raised by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise e
+
+    # ------------------------------------------------------------------
+    def _write(self, step: int, host_leaves, treedef: str) -> str:
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = path + ".tmp"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        manifest = {"step": step, "treedef": f"PyTreeDef({treedef})",
+                    "leaves": []}
+        for i, arr in enumerate(host_leaves):
+            fname = f"arr_{i:05d}.npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"].append(
+                {"file": fname, "shape": list(arr.shape),
+                 "dtype": str(arr.dtype)})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        with open(os.path.join(tmp, "COMMIT"), "w") as f:
+            f.write("ok")
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.rename(tmp, path)          # atomic publish
+        self._gc()
+        return path
+
+    def _gc(self) -> None:
+        steps = self.all_steps()
+        for s in steps[: -self.keep_n] if self.keep_n else []:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
+
+    # ------------------------------------------------------------------
+    def all_steps(self) -> List[int]:
+        out = []
+        for d in sorted(os.listdir(self.dir)):
+            if d.startswith("step_") and not d.endswith(".tmp") and \
+                    os.path.exists(os.path.join(self.dir, d, "COMMIT")):
+                out.append(int(d.split("_")[1]))
+        return out
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                device: DeviceLike = None) -> Any:
+        """Restore into the structure of `tree_like`: numpy leaves, or
+        tensors on `device` when one is given."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(
+                f"no committed checkpoint found in {self.dir!r}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        with open(os.path.join(path, "manifest.json")) as f:
+            manifest = json.load(f)
+        leaves_meta = manifest["leaves"]
+        target: List[Any] = []
+        _flatten(tree_like, target)
+        if len(leaves_meta) != len(target):
+            raise ValueError(f"checkpoint has {len(leaves_meta)} leaves, "
+                             f"target structure {len(target)}")
+        arrs = (np.load(os.path.join(path, m["file"])) for m in leaves_meta)
+        if device is not None:
+            arrs = (torch.from_numpy(a).to(device) for a in arrs)
+        return _unflatten(tree_like, arrs)

@@ -1,4 +1,4 @@
-"""Tile-aligned IVF index, f32 tier; port of ``src/repro/core/index.py``.
+"""Tile-aligned IVF index; port of ``src/repro/core/index.py``.
 
 The state layout is the reference's, field for field:
 
@@ -17,8 +17,10 @@ donates a state to a jitted function, the port writes into it in place:
 must be the sole owner); `insert_shared` / `delete_shared` copy what they
 write, so concurrent readers of the old state are unaffected.
 
-The int8 store policy (``store_dtype="int8"``) is the next slice of the port;
-its ``q_*`` fields stay ``None`` here.
+Under the int8 store policy (``store_dtype="int8"``) the optional ``q_*``
+fields hold the affine int8 scan store; queries scan it with the
+``scan_scores_q8`` kernel and rescore the top ``rescore_k`` rows exactly in
+f32 from the lists.
 """
 from __future__ import annotations
 
@@ -33,9 +35,11 @@ from repro_torch.kernels import ops
 
 
 class IVFState(NamedTuple):
-    """IVF index state.  The eight required fields are the exact f32 tier;
-    the optional ``q_*`` tail (the reference's int8 scan store) is always
-    ``None`` in this slice of the port."""
+    """IVF index state.  The eight required fields are the exact f32 tier.
+    The optional ``q_*`` tail is the int8 quantized scan store, present iff
+    the collection's ``EngineConfig.store_dtype == "int8"``: per-list affine
+    codes for the lists tier, per-row codes for the spill tier, and the
+    dequantized rows' norms (so l2 coarse scans never read the f32 rows)."""
     centroids: torch.Tensor      # f32[C, D]
     lists: torch.Tensor          # f32[C, L, D]
     list_ids: torch.Tensor       # i32[C, L]
@@ -44,14 +48,14 @@ class IVFState(NamedTuple):
     spill_ids: torch.Tensor      # i32[S]
     spill_size: torch.Tensor     # i32[]
     num_deleted: torch.Tensor    # i32[]
-    q_lists: Optional[torch.Tensor] = None
-    q_scales: Optional[torch.Tensor] = None
-    q_zeros: Optional[torch.Tensor] = None
-    q_norms: Optional[torch.Tensor] = None
-    q_spill: Optional[torch.Tensor] = None
-    q_spill_scales: Optional[torch.Tensor] = None
-    q_spill_zeros: Optional[torch.Tensor] = None
-    q_spill_norms: Optional[torch.Tensor] = None
+    q_lists: Optional[torch.Tensor] = None         # i8[C, L, D]
+    q_scales: Optional[torch.Tensor] = None        # f32[C] per-list scale
+    q_zeros: Optional[torch.Tensor] = None         # f32[C] per-list zero
+    q_norms: Optional[torch.Tensor] = None         # f32[C, L] dequant norms
+    q_spill: Optional[torch.Tensor] = None         # i8[S, D]
+    q_spill_scales: Optional[torch.Tensor] = None  # f32[S] per-row scale
+    q_spill_zeros: Optional[torch.Tensor] = None   # f32[S] per-row zero
+    q_spill_norms: Optional[torch.Tensor] = None   # f32[S] dequant norms
 
     @property
     def n_clusters(self) -> int:
@@ -69,20 +73,16 @@ class IVFState(NamedTuple):
     def device(self) -> torch.device:
         return self.lists.device
 
-
-def _f32_only(cfg: EngineConfig) -> None:
-    if cfg.quantized:
-        raise NotImplementedError(
-            "store_dtype='int8' is not ported yet: it is the int8 slice of "
-            "the port (ROADMAP.md §1, with the scan_scores_q8 kernel)")
+    @property
+    def quantized(self) -> bool:
+        return self.q_lists is not None
 
 
 def empty_state(cfg: EngineConfig, spill_capacity: int = 4096, *,
                 device: DeviceLike = None) -> IVFState:
-    _f32_only(cfg)
     dev = resolve_device(device)
     c, l, d = cfg.n_clusters, cfg.list_capacity, cfg.dim
-    return IVFState(
+    state = IVFState(
         centroids=torch.zeros((c, d), dtype=torch.float32, device=dev),
         lists=torch.zeros((c, l, d), dtype=torch.float32, device=dev),
         list_ids=torch.full((c, l), -1, dtype=torch.int32, device=dev),
@@ -94,14 +94,27 @@ def empty_state(cfg: EngineConfig, spill_capacity: int = 4096, *,
         spill_size=torch.zeros((), dtype=torch.int32, device=dev),
         num_deleted=torch.zeros((), dtype=torch.int32, device=dev),
     )
+    if cfg.quantized:
+        def full(shape, value, dtype):
+            return torch.full(shape, value, dtype=dtype, device=dev)
+        state = state._replace(
+            q_lists=full((c, l, d), 0, torch.int8),
+            q_scales=full((c,), 1.0, torch.float32),
+            q_zeros=full((c,), 0.0, torch.float32),
+            q_norms=full((c, l), 0.0, torch.float32),
+            q_spill=full((spill_capacity, d), 0, torch.int8),
+            q_spill_scales=full((spill_capacity,), 1.0, torch.float32),
+            q_spill_zeros=full((spill_capacity,), 0.0, torch.float32),
+            q_spill_norms=full((spill_capacity,), 0.0, torch.float32),
+        )
+    return state
 
 
 def empty_host_state(cfg: EngineConfig, spill_capacity: int = 4096) -> IVFState:
-    """Numpy mirror of `empty_state` — no device allocation (the byte
-    accounting of `state_nbytes` reads it)."""
-    _f32_only(cfg)
+    """Numpy mirror of `empty_state` — no device allocation (the restore
+    template of save/load and the byte accounting of `state_nbytes`)."""
     c, l, d = cfg.n_clusters, cfg.list_capacity, cfg.dim
-    return IVFState(
+    state = IVFState(
         centroids=np.zeros((c, d), np.float32),
         lists=np.zeros((c, l, d), np.float32),
         list_ids=np.full((c, l), -1, np.int32),
@@ -111,6 +124,21 @@ def empty_host_state(cfg: EngineConfig, spill_capacity: int = 4096) -> IVFState:
         spill_size=np.zeros((), np.int32),
         num_deleted=np.zeros((), np.int32),
     )
+    if cfg.quantized:
+        state = state._replace(
+            q_lists=np.zeros((c, l, d), np.int8),
+            q_scales=np.ones((c,), np.float32),
+            q_zeros=np.zeros((c,), np.float32),
+            q_norms=np.zeros((c, l), np.float32),
+            q_spill=np.zeros((spill_capacity, d), np.int8),
+            q_spill_scales=np.ones((spill_capacity,), np.float32),
+            q_spill_zeros=np.zeros((spill_capacity,), np.float32),
+            q_spill_norms=np.zeros((spill_capacity,), np.float32),
+        )
+    return state
+
+
+_Q_FIELDS = tuple(f for f in IVFState._fields if f.startswith("q_"))
 
 
 def _leaves(state: IVFState):
@@ -129,6 +157,101 @@ def live_count(state: IVFState) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Int8 quantized scan store (store_dtype == "int8")
+#
+# Affine quantization, as in the reference: row ~= scale * code + zero with
+# codes in [-127, 127], scale/zero shared per IVF list (lists tier) or per
+# row (spill tier).  The f32 rows stay the source of truth; the quantized
+# store is a derived coarse-scan stream, re-derived for exactly the lists
+# and spill rows each write touches.  The port re-derives in place, a chunk
+# of lists at a time, so no temporary holds more than _QUANT_CHUNK_BYTES of
+# f32 rows (the reference gathers one slab per inserted row at once).
+# ---------------------------------------------------------------------------
+
+_QUANT_CHUNK_BYTES = 1 << 28
+
+
+def _affine_encode(x: torch.Tensor, dims: Tuple[int, ...]):
+    """(codes i8, scale, zero) with x ~= scale*codes + zero over `dims`."""
+    mn = x.amin(dim=dims)
+    mx = x.amax(dim=dims)
+    zero = 0.5 * (mn + mx)
+    scale = torch.clamp((mx - mn) / 254.0, min=1e-8)
+    bshape = scale.shape + (1,) * len(dims)
+    codes = torch.clamp(torch.round((x - zero.reshape(bshape))
+                                    / scale.reshape(bshape)), -127, 127)
+    return codes.to(torch.int8), scale, zero
+
+
+def _quantize_lists(lists: torch.Tensor, list_ids: torch.Tensor):
+    """Per-list affine quantization of [..., L, D] slabs.  Empty and
+    tombstoned slots are masked to 0 for the range fit; returns (codes,
+    scale, zero, norms) with the DEQUANTIZED rows' norms."""
+    masked = torch.where((list_ids >= 0)[..., None], lists, 0.0)
+    codes, scale, zero = _affine_encode(masked, (-2, -1))
+    deq = codes.float() * scale[..., None, None] + zero[..., None, None]
+    return codes, scale, zero, (deq * deq).sum(-1)
+
+
+def _quantize_rows(rows: torch.Tensor, ids: torch.Tensor):
+    """Per-row affine quantization of [..., D] rows (the spill tier)."""
+    masked = torch.where((ids >= 0)[..., None], rows, 0.0)
+    codes, scale, zero = _affine_encode(masked, (-1,))
+    deq = codes.float() * scale[..., None] + zero[..., None]
+    return codes, scale, zero, (deq * deq).sum(-1)
+
+
+def _requantize_lists(state: IVFState,
+                      touched: Optional[torch.Tensor] = None) -> None:
+    """Re-derive the int8 store of the distinct lists `touched` (every list
+    when None) in place, a chunk of lists at a time."""
+    c, l, d = state.lists.shape
+    step = max(1, _QUANT_CHUNK_BYTES // (l * d * 4))
+    total = c if touched is None else touched.numel()
+    for i in range(0, total, step):
+        sel = (slice(i, min(i + step, c)) if touched is None
+               else touched[i:i + step])
+        codes, sc, zr, nrm = _quantize_lists(state.lists[sel],
+                                             state.list_ids[sel])
+        state.q_lists[sel] = codes
+        state.q_scales[sel] = sc
+        state.q_zeros[sel] = zr
+        state.q_norms[sel] = nrm
+
+
+def _write_spill_codes(state: IVFState, rows: torch.Tensor,
+                       ids: torch.Tensor, pos) -> None:
+    """Per-row encode of spill `rows` into slots `pos` (indices or a
+    slice), in place."""
+    codes, sc, zr, nrm = _quantize_rows(rows, ids)
+    state.q_spill[pos] = codes
+    state.q_spill_scales[pos] = sc
+    state.q_spill_zeros[pos] = zr
+    state.q_spill_norms[pos] = nrm
+
+
+def _quantize_state(state: IVFState) -> None:
+    """Full requantization of every tier (build / rebuild / pack time)."""
+    _requantize_lists(state)
+    _write_spill_codes(state, state.spill, state.spill_ids, slice(None))
+
+
+def _requantize_touched(state: IVFState, x: torch.Tensor,
+                        clusters: torch.Tensor, rows: torch.Tensor,
+                        spos: torch.Tensor) -> None:
+    """Incremental coherence after an insert batch, in place: re-derive the
+    lists the rows landed in (`clusters`, one per written row; duplicates
+    give identical values, so each distinct list is encoded once) and
+    encode the appended spill rows x[rows] at their slots `spos`.  Deletes
+    need no counterpart: they only flip ids, and every scan masks ids < 0.
+    """
+    _requantize_lists(state, torch.unique(clusters))
+    _write_spill_codes(state, x[rows],
+                       torch.zeros(rows.shape[0], dtype=torch.int32,
+                                   device=x.device), spos)
+
+
+# ---------------------------------------------------------------------------
 # Build
 # ---------------------------------------------------------------------------
 
@@ -143,28 +266,32 @@ def build(gen: torch.Generator, x: torch.Tensor, ids: torch.Tensor,
     """
     from repro_torch.core.kmeans import kmeans as _kmeans
 
-    _f32_only(cfg)
     centroids, assign = _kmeans(gen, x, ids >= 0, cfg)
     state = empty_state(cfg, spill_capacity,
                         device=x.device)._replace(centroids=centroids)
     return _pack(state, x, ids, assign, cfg)
 
 
-def _scatter_lists(state: IVFState, x, ids, cl, offsets, ok) -> None:
-    """Write rows where `ok` into their (cluster, offset) slots, in place.
-    Rows that do not fit are selected out first: the reference's
-    ``mode="drop"`` scatter has no PyTorch counterpart."""
+def _scatter_lists(state: IVFState, x, ids, cl, offsets,
+                   ok) -> torch.Tensor:
+    """Write rows where `ok` into their (cluster, offset) slots, in place;
+    returns the cluster of each written row.  Rows that do not fit are
+    selected out first: the reference's ``mode="drop"`` scatter has no
+    PyTorch counterpart."""
     sel = ok.nonzero().squeeze(1)
     ci, oi = cl[sel].long(), offsets[sel].long()
     state.lists[ci, oi] = x[sel]
     state.list_ids[ci, oi] = ids[sel]
     state.list_sizes.add_(torch.bincount(
         ci, minlength=state.n_clusters).to(torch.int32))
+    return ci
 
 
-def _append_spill(state: IVFState, x, ids, over) -> None:
+def _append_spill(state: IVFState, x, ids,
+                  over) -> Tuple[torch.Tensor, torch.Tensor]:
     """Append the `over` rows to the spill buffer in place; rows past its
-    capacity are dropped (and were counted by the caller)."""
+    capacity are dropped (and were counted by the caller).  Returns (rows
+    of x written, their spill slots)."""
     s_cap = state.spill.shape[0]
     spos = state.spill_size.long() + torch.cumsum(over.long(), 0) - 1
     sel = (over & (spos < s_cap)).nonzero().squeeze(1)
@@ -172,6 +299,7 @@ def _append_spill(state: IVFState, x, ids, over) -> None:
     state.spill_ids[spos[sel]] = ids[sel]
     state.spill_size.copy_(
         torch.clamp(state.spill_size + over.sum(), max=s_cap))
+    return sel, spos[sel]
 
 
 def _pack(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
@@ -189,6 +317,8 @@ def _pack(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
     _scatter_lists(state, x, ids, cl, offsets, ok)
     over = valid & ~ok
     _append_spill(state, x, ids, over)
+    if cfg.quantized:
+        _quantize_state(state)
     return state, over.sum().to(torch.int32)
 
 
@@ -234,7 +364,6 @@ def _insert(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
     Assignment is the `kmeans_assign` GEMM kernel (the paper: inserts map to
     dense matmuls).  Returns (new_state, n_spilled_or_dropped i32[]).
     """
-    _f32_only(cfg)
     l_cap = state.list_capacity
     cl, _ = ops.kmeans_assign(
         x, state.centroids, use_kernel=cfg.use_kernel,
@@ -243,14 +372,17 @@ def _insert(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
     offsets = state.list_sizes[cl.long()] + rank
     fits = offsets < l_cap
     if copy:
-        state = state._replace(
-            lists=state.lists.clone(), list_ids=state.list_ids.clone(),
-            list_sizes=state.list_sizes.clone(), spill=state.spill.clone(),
-            spill_ids=state.spill_ids.clone(),
-            spill_size=state.spill_size.clone())
-    _scatter_lists(state, x, ids, cl, offsets, fits)
+        # every field this insert writes, the int8 store's included, so a
+        # reader's snapshot never changes under it
+        written = ("lists", "list_ids", "list_sizes", "spill", "spill_ids",
+                   "spill_size") + (_Q_FIELDS if cfg.quantized else ())
+        state = state._replace(**{f: getattr(state, f).clone()
+                                  for f in written})
+    touched = _scatter_lists(state, x, ids, cl, offsets, fits)
     over = ~fits
-    _append_spill(state, x, ids, over)
+    rows, spos = _append_spill(state, x, ids, over)
+    if cfg.quantized:
+        _requantize_touched(state, x, touched, rows, spos)
     return state, over.sum().to(torch.int32)
 
 
@@ -364,11 +496,14 @@ def replay(state: IVFState, log, cfg: EngineConfig) -> Tuple[IVFState, int, int]
 # Query
 # ---------------------------------------------------------------------------
 
+def _flat_ids(state: IVFState) -> torch.Tensor:
+    return torch.cat([state.list_ids.reshape(-1), state.spill_ids], dim=0)
+
+
 def _flat_rows(state: IVFState) -> Tuple[torch.Tensor, torch.Tensor]:
     c, l, d = state.lists.shape
     rows = torch.cat([state.lists.reshape(c * l, d), state.spill], dim=0)
-    ids = torch.cat([state.list_ids.reshape(c * l), state.spill_ids], dim=0)
-    return rows, ids
+    return rows, _flat_ids(state)
 
 
 def flat_rows_host(state: IVFState) -> Tuple[np.ndarray, np.ndarray]:
@@ -395,14 +530,90 @@ def _scan(q, rows, ids, cfg: EngineConfig) -> torch.Tensor:
         use_kernel=cfg.use_kernel, fused_conversion=cfg.fused_conversion)
 
 
+# --- int8 asymmetric two-stage query (coarse quantized scan -> f32 rescore)
+
+def _flat_codes(state: IVFState):
+    """Quantized analogue of `_flat_rows`: the int8 coarse-scan stream with
+    per-row-expanded scale/zero/norm sidebands (the lists tier repeats its
+    per-list scalars over L slots; the spill tier is already per-row)."""
+    c, l, d = state.q_lists.shape
+    codes = torch.cat([state.q_lists.reshape(c * l, d), state.q_spill])
+    scales = torch.cat([state.q_scales.repeat_interleave(l),
+                        state.q_spill_scales])
+    zeros = torch.cat([state.q_zeros.repeat_interleave(l),
+                       state.q_spill_zeros])
+    norms = torch.cat([state.q_norms.reshape(c * l), state.q_spill_norms])
+    return codes, scales, zeros, norms
+
+
+def _gather_flat_rows(state: IVFState, cand: torch.Tensor) -> torch.Tensor:
+    """f32 rows for flat candidate indices [..., R] (lists first, then
+    spill — `_flat_rows` order) without materialising the flat copy."""
+    c, l, _ = state.lists.shape
+    n_list = c * l
+    li = cand.clamp(0, n_list - 1)
+    in_rows = state.lists[li // l, li % l]
+    sp_rows = state.spill[(cand - n_list).clamp(0, state.spill.shape[0] - 1)]
+    return torch.where((cand >= n_list)[..., None], sp_rows, in_rows)
+
+
+def _rescore_topk(q: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
+                  metric: str, k: int):
+    """Exact f32 rescore of candidate rows f32[B, R, D] -> top-k.
+
+    An elementwise product and a sum, never a matrix product, so it stays
+    exact f32 whatever the global TF32 flag says: the rescore exists to
+    erase the coarse tier's quantization error.  Returns (ids, scores,
+    rows) at the final k.
+    """
+    s = (rows * q.float()[:, None, :]).sum(-1)
+    if metric == "l2":
+        s = (rows * rows).sum(-1) - 2.0 * s
+    mask_val = float("inf") if metric == "l2" else float("-inf")
+    s = torch.where(ids >= 0, s, mask_val)
+    top, ii = torch.topk(_order_scores(s, metric), k, dim=1)
+    return (ids.gather(1, ii), top,
+            torch.take_along_dim(rows, ii[..., None], dim=1))
+
+
+def _rescore_r(cfg: EngineConfig, k: int, n: int) -> int:
+    """Coarse-survivor count: rescore_k clamped to [k, n]."""
+    return min(max(cfg.rescore_k, k), n)
+
+
+def _scan_q8(q, codes, ids, scales, zeros, norms, cfg: EngineConfig):
+    return ops.scan_scores_q8(
+        q, codes, ids, scales, zeros, norms if cfg.metric == "l2" else None,
+        metric=cfg.metric, use_kernel=cfg.use_kernel)
+
+
+def _query_full_scan_q8(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
+                        k: int):
+    """Two-stage full scan: int8 coarse scan over every row, exact f32
+    rescore of the top `rescore_k` survivors (the f32 tier is touched only
+    for B * rescore_k gathered rows)."""
+    codes, scales, zeros, norms = _flat_codes(state)
+    ids = _flat_ids(state)
+    coarse = _scan_q8(q, codes, ids, scales, zeros, norms, cfg)
+    r = _rescore_r(cfg, k, codes.shape[0])
+    del codes, scales, zeros, norms
+    cand = torch.topk(_order_scores(coarse, cfg.metric), r, dim=1).indices
+    rows = _gather_flat_rows(state, cand)
+    return _rescore_topk(q, rows, ids[cand], cfg.metric, k)
+
+
 def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Throughput template: fused GEMM scan of the whole database.
 
     Returns (ids i32[B, k], scores f32[B, k]); l2 scores are negated
-    distances, as in the reference.
+    distances, as in the reference.  Under the int8 store policy this is
+    the two-stage pipeline: quantized coarse scan, then an exact f32
+    rescore of the top `cfg.rescore_k`.
     """
-    _f32_only(cfg)
+    if cfg.quantized:
+        out_ids, top, _ = _query_full_scan_q8(state, q, cfg, k)
+        return out_ids, top
     rows, ids = _flat_rows(state)
     scores = _scan(q, rows, ids, cfg)
     top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
@@ -411,8 +622,10 @@ def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
 
 def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
                          k: int):
-    """Like query_full_scan but also returns the vectors f32[B, k, D]."""
-    _f32_only(cfg)
+    """Like query_full_scan but also returns the vectors f32[B, k, D]
+    (under the int8 policy the exact f32 rows, never dequantized ones)."""
+    if cfg.quantized:
+        return _query_full_scan_q8(state, q, cfg, k)
     rows, ids = _flat_rows(state)
     scores = _scan(q, rows, ids, cfg)
     top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
@@ -426,8 +639,9 @@ def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     Centroid scores are one small scan; each query then gathers its nprobe
     lists (contiguous slabs) plus the spill buffer and runs one fused scan
     over [nprobe*L + spill] rows, query by query to bound the working set.
+    Under the int8 policy the probed slabs stream as int8 codes with their
+    per-list scalars, and the survivors are rescored in f32.
     """
-    _f32_only(cfg)
     c, l, d = state.lists.shape
     # clamp so topk's k <= axis holds even when a caller asks for more
     # probes than there are clusters
@@ -440,6 +654,11 @@ def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     out_ids, out_scores = [], []
     for i in range(q.shape[0]):
         pi = probes[i]
+        if cfg.quantized:
+            ids_i, top = _probe_q8(state, q[i:i + 1], pi, cfg, k)
+            out_ids.append(ids_i)
+            out_scores.append(top)
+            continue
         rows = torch.empty((nprobe * l + s_cap, d), dtype=torch.float32,
                            device=state.device)
         torch.index_select(state.lists, 0, pi,
@@ -457,19 +676,54 @@ def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     return torch.stack(out_ids), torch.stack(out_scores)
 
 
+def _probe_q8(state: IVFState, qi: torch.Tensor, pi: torch.Tensor,
+              cfg: EngineConfig, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query qi f32[1, D] over its probed lists `pi` and the spill
+    buffer: int8 coarse scan, then the survivors' f32 rows (probed-slab
+    indices map through `pi`) rescored exactly."""
+    _, l, d = state.lists.shape
+    nprobe, s_cap = pi.shape[0], state.spill.shape[0]
+    n_probe_rows = nprobe * l
+    codes = torch.empty((n_probe_rows + s_cap, d), dtype=torch.int8,
+                        device=state.device)
+    torch.index_select(state.q_lists, 0, pi,
+                       out=codes[:n_probe_rows].view(nprobe, l, d))
+    codes[n_probe_rows:] = state.q_spill
+    rids = torch.cat([state.list_ids[pi].reshape(n_probe_rows),
+                      state.spill_ids])
+    scales = torch.cat([state.q_scales[pi].repeat_interleave(l),
+                        state.q_spill_scales])
+    zeros = torch.cat([state.q_zeros[pi].repeat_interleave(l),
+                       state.q_spill_zeros])
+    norms = torch.cat([state.q_norms[pi].reshape(n_probe_rows),
+                       state.q_spill_norms])
+    s = _scan_q8(qi, codes, rids, scales, zeros, norms, cfg)
+    r = _rescore_r(cfg, k, codes.shape[0])
+    cand = torch.topk(_order_scores(s, cfg.metric), r, dim=1).indices
+    li = cand.clamp(0, n_probe_rows - 1)
+    in_rows = state.lists[pi[li // l], li % l]
+    sp = state.spill[(cand - n_probe_rows).clamp(0, s_cap - 1)]
+    rows = torch.where((cand >= n_probe_rows)[..., None], sp, in_rows)
+    out_ids, top, _ = _rescore_topk(qi, rows, rids[cand], cfg.metric, k)
+    return out_ids[0], top[0]
+
+
 # ---------------------------------------------------------------------------
 # Stats
 # ---------------------------------------------------------------------------
 
 def footprint(state: IVFState) -> dict:
-    """Resident-size accounting for the scan store (f32 tier: 4 bytes per
-    component, streamed and stored)."""
+    """Resident-size accounting for the scan store.  `bytes_per_row`: under
+    the int8 policy a row costs its retained exact f32 copy (the rescore
+    tier) plus its 1-byte code; `scan_bytes_per_row`: what the coarse scan
+    streams per row (1 byte a component under int8, 4 under f32);
+    `index_bytes`: every leaf of the state."""
     return {
-        "bytes_per_row": state.dim * 4,
-        "scan_bytes_per_row": state.dim * 4,
+        "bytes_per_row": state.dim * (5 if state.quantized else 4),
+        "scan_bytes_per_row": state.dim * (1 if state.quantized else 4),
         "index_bytes": sum(int(leaf.numel()) * leaf.element_size()
                            for leaf in _leaves(state)),
-        "store_dtype": "float32",
+        "store_dtype": "int8" if state.quantized else "float32",
     }
 
 

@@ -19,7 +19,7 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-KERNELS = ("scan_scores", "kmeans_assign", "segsum_gemm")
+KERNELS = ("scan_scores", "scan_scores_q8", "kmeans_assign", "segsum_gemm")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

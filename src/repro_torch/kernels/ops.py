@@ -15,6 +15,7 @@ from __future__ import annotations
 from repro_torch.kernels import kmeans_assign as _assign
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import scan_scores as _scan
+from repro_torch.kernels import scan_scores_q8 as _scan_q8
 from repro_torch.kernels import segsum_gemm as _segsum
 
 
@@ -30,6 +31,22 @@ def scan_scores(q, db, ids, db_norms=None, *, metric="ip", use_kernel=True,
         return _ref.scan_scores_ref(q, db, ids, db_norms, metric=metric,
                                     fused_conversion=fused_conversion)
     return _scan.scan_scores(q, db, ids, db_norms, metric=metric)
+
+
+def scan_scores_q8(q, codes, ids, scales, zeros, db_norms=None, *,
+                   metric="ip", use_kernel=True):
+    """Quantized coarse scan: f32[B, N] approximate scores of f32 queries
+    q[B, D] against the affine int8 row store (per-row scales/zeros; for l2,
+    `db_norms` are the dequantized rows' norms).  The queries are quantized
+    here and `corr` is taken over the real D, so the kernel and the plain
+    version consume identical integer operands."""
+    if not use_kernel:
+        return _ref.scan_scores_q8_ref(q, codes, ids, scales, zeros,
+                                       db_norms, metric=metric)
+    qc, sq = _ref.quantize_queries(q)
+    return _scan_q8.scan_scores_q8(qc, codes, ids, scales, zeros, sq,
+                                   _ref.query_corr(qc, sq), db_norms,
+                                   metric=metric)
 
 
 def kmeans_assign(x, centroids, *, use_kernel=True, fused_conversion=True):

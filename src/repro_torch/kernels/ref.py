@@ -4,7 +4,8 @@ Counterparts of ``src/repro/kernels/ref.py``.  JAX's bf16 dot with
 ``preferred_element_type=f32`` multiplies bf16 operands exactly and sums in
 f32; PyTorch's ``bf16 @ bf16`` would return bf16.  So operands are rounded to
 bf16, upcast, and multiplied in f32, which reproduces the reference's
-arithmetic up to summation order.
+arithmetic up to summation order.  The quantized scan's integer products
+are exact (see `scan_scores_q8_plain`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,56 @@ def scan_scores_ref(q, db, ids, db_norms=None, *, metric="ip",
         scores = db_norms[None, :] - 2.0 * scores
     mask_val = POS_INF if metric == "l2" else NEG_INF
     return torch.where((ids >= 0)[None, :], scores, mask_val)
+
+
+def quantize_queries(q):
+    """Symmetric per-query int8 codes for the quantized coarse scan:
+    (codes i8[B, D], sq f32[B]) with q ~= sq[:, None] * codes.  Same
+    operations as the reference (`torch.round` rounds half to even like
+    `jnp.round`; a division, not a multiply by the reciprocal)."""
+    q = q.float()
+    sq = torch.clamp(q.abs().amax(dim=1), min=1e-30) / 127.0
+    codes = torch.clamp(torch.round(q / sq[:, None]), -127, 127)
+    return codes.to(torch.int8), sq
+
+
+def query_corr(qc, sq):
+    """sq * sum(qc) per query, over the real D: the affine zero-point term
+    of the quantized scan."""
+    return sq * qc.to(torch.int32).sum(1).to(torch.float32)
+
+
+def scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq, corr,
+                         db_norms=None, *, metric="ip"):
+    """The quantized scan over given integer operands (what the Hopper
+    kernel computes):
+
+        s = (float(qc . codes_n) * sq) * scale_n + corr * zero_n
+        s = norms_n - 2 s               (l2; norms of the dequantized rows)
+
+    masked where ids < 0.  The integer accumulator is exact: `int8 @ int8`
+    in PyTorch returns int8 (it wraps) and CUDA has no int32 product, so the
+    codes are multiplied in float64, where every product (|.| <= 127^2) and
+    every partial sum (|.| <= D * 127^2 < 2^53) is an exact integer on both
+    devices, in any summation order.  The epilogue is f32 in the
+    reference's operation order."""
+    if metric == "l2" and db_norms is None:
+        raise ValueError("the q8 l2 scan needs the dequantized row norms")
+    acc = (qc.double() @ codes.double().T).float()
+    scores = acc * sq[:, None] * scales[None, :] + corr[:, None] * zeros[None, :]
+    if metric == "l2":
+        scores = db_norms[None, :] - 2.0 * scores
+    mask_val = POS_INF if metric == "l2" else NEG_INF
+    return torch.where((ids >= 0)[None, :], scores, mask_val)
+
+
+def scan_scores_q8_ref(q, codes, ids, scales, zeros, db_norms=None, *,
+                       metric="ip"):
+    """Quantized coarse scores f32[B, N] of f32 queries against the affine
+    int8 row store (row_n ~= scales[n] * codes_n + zeros[n])."""
+    qc, sq = quantize_queries(q)
+    return scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq,
+                                query_corr(qc, sq), db_norms, metric=metric)
 
 
 def kmeans_assign_ref(x, centroids, *, fused_conversion=True):

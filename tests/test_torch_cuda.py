@@ -13,6 +13,7 @@ from repro_torch.configs.base import EngineConfig
 from repro_torch.kernels import kmeans_assign as ka
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import scan_scores as ss
+from repro_torch.kernels import scan_scores_q8 as q8
 from repro_torch.kernels import segsum_gemm as sg
 
 pytestmark = pytest.mark.cuda
@@ -48,6 +49,59 @@ def test_scan_scores_kernel_matches_plain(dev, b, n, d, metric):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     torch.testing.assert_close(got[fin], want[fin], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("b,n,d", [(1, 1000, 256), (5, 300, 130),
+                                   (17, 129, 1024), (64, 4099, 1024),
+                                   (97, 3001, 130)])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_scan_scores_q8_kernel_matches_plain(dev, b, n, d, metric):
+    """Random int8 operands over the whole code range, ragged B/N/D and
+    ~10 % tombstones: the integer accumulator is exact, so the scores agree
+    to f32 epilogue rounding and the masks are identical."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    qc = torch.randint(-127, 128, (b, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    codes = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids[torch.rand(n, generator=g, device=dev) < 0.1] = -1
+    scales = torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4
+    zeros = torch.randn(n, generator=g, device=dev) * 1e-2
+    sq = torch.rand(b, generator=g, device=dev) * 1e-2 + 1e-3
+    corr = ref.query_corr(qc, sq)
+    norms = (torch.rand(n, generator=g, device=dev) * 2
+             if metric == "l2" else None)
+    before = q8.launches.value
+    got = q8.scan_scores_q8(qc, codes, ids, scales, zeros, sq, corr, norms,
+                            metric=metric)
+    assert q8.launches.value == before + 1
+    want = ref.scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq, corr,
+                                    norms, metric=metric)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(got)], want[torch.isinf(want)])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_q8_dispatch_on_quantized_rows(dev, metric):
+    """The index's own operands: rows quantized by the int8 store, f32
+    queries quantized by the dispatch; kernel against plain version."""
+    from repro_torch.core import index as ivf
+    rows, q = _randn(dev, 2000, 1024, seed=10), _randn(dev, 3, 1024, seed=11)
+    ids = torch.arange(2000, dtype=torch.int32, device=dev)
+    ids[::9] = -1
+    codes, scales, zeros, norms = ivf._quantize_rows(rows, ids)
+    norms = norms if metric == "l2" else None
+    got = ops.scan_scores_q8(q, codes, ids, scales, zeros, norms,
+                             metric=metric)
+    want = ops.scan_scores_q8(q, codes, ids, scales, zeros, norms,
+                              metric=metric, use_kernel=False)
+    fin = torch.isfinite(want)
+    assert torch.equal(fin, torch.isfinite(got))
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("m,c,d", [(1000, 96, 128), (777, 200, 130),
@@ -93,11 +147,15 @@ def test_segsum_kernel_matches_plain_and_is_deterministic(dev, m, c, d, lo):
 def test_use_kernel_false_launches_nothing(dev):
     x = _randn(dev, 64, 128, seed=8)
     ids = torch.arange(64, dtype=torch.int32, device=dev)
-    counts = [m.launches.value for m in (ss, ka, sg)]
+    counts = [m.launches.value for m in (ss, q8, ka, sg)]
     ops.scan_scores(x[:2], x, ids, use_kernel=False)
+    ops.scan_scores_q8(x[:2], torch.zeros((64, 128), dtype=torch.int8,
+                                          device=dev), ids,
+                       torch.ones(64, device=dev), torch.zeros(64, device=dev),
+                       use_kernel=False)
     ops.kmeans_assign(x, x[:4], use_kernel=False)
     ops.segsum_gemm(x, ids % 4, n_clusters=4, use_kernel=False)
-    assert [m.launches.value for m in (ss, ka, sg)] == counts
+    assert [m.launches.value for m in (ss, q8, ka, sg)] == counts
 
 
 def test_service_lifecycle_on_the_card(dev):
@@ -126,3 +184,36 @@ def test_service_lifecycle_on_the_card(dev):
         assert live == set(range(100, 2000)) | set(range(5000, 5064))
     after = [m.launches.value for m in (ss, ka, sg)]
     assert all(a > b for a, b in zip(after, before))
+
+
+def test_int8_service_lifecycle_and_save_load_on_the_card(dev, tmp_path):
+    from repro_torch.api import MemoryService
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3, store_dtype="int8", rescore_k=32)
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2000, 256)).astype(np.float32)
+    before = [m.launches.value for m in (ss, q8, ka)]
+    with MemoryService(maintenance=False) as svc:
+        coll = svc.create_collection("m", cfg)
+        svc.build("m", x)
+        assert coll.snapshot().q_lists.is_cuda
+        ids, _ = svc.query("m", x[:1] + 0.01)            # probed
+        assert ids[0, 0] == 0
+        ids, _ = svc.query("m", x[:8] + 0.01)            # full scan
+        np.testing.assert_array_equal(ids[:, 0], np.arange(8))
+        svc.insert("m", rng.standard_normal((64, 256)).astype(np.float32),
+                   ids=np.arange(5000, 5064))
+        assert svc.delete("m", np.arange(100)) == 100
+        assert not svc.rebuild("m")["aborted"]
+        want = svc.query("m", x[100:108] + 0.01)
+        svc.save(str(tmp_path))
+    after = [m.launches.value for m in (ss, q8, ka)]
+    assert all(a > b for a, b in zip(after, before))
+    back = MemoryService.load(str(tmp_path), maintenance=False)
+    try:
+        assert back.collection("m").snapshot().q_lists.is_cuda
+        got = back.query("m", x[100:108] + 0.01)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    finally:
+        back.shutdown()

@@ -307,6 +307,17 @@ def test_footprint_stats_and_nbytes_match_reference():
 
 
 def test_int8_policy_names_its_slice():
-    _, tcfg = _cfgs(store_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        ivf.empty_state(tcfg, device="cpu")
+    """The int8 policy is ported: its state carries the reference's int8
+    store fields and its accounting names the policy."""
+    jcfg, tcfg = _cfgs(store_dtype="int8")
+    state = ivf.empty_state(tcfg, 256, device="cpu")
+    jstate = jivf.empty_state(jcfg, 256)
+    for f in jivf.IVFState._fields:
+        a, b = getattr(jstate, f), getattr(state, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(b.numpy(), np.asarray(a),
+                                          err_msg=f)
+            assert b.numpy().dtype == np.asarray(a).dtype, f
+    assert ivf.footprint(state) == jivf.footprint(jstate)
+    assert ivf.footprint(state)["store_dtype"] == "int8"

@@ -38,12 +38,14 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
-            "scan_scores.py"} <= names
+            "scan_scores.py", "scan_scores_q8.py", "checkpointer.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
-            "repro_torch.core.metrics, repro_torch.configs.ame_paper; "
+            "repro_torch.core.metrics, repro_torch.configs.ame_paper, "
+            "repro_torch.kernels.scan_scores_q8, "
+            "repro_torch.checkpoint.checkpointer; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")
@@ -51,6 +53,21 @@ def test_import_leaves_jax_unloaded():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_every_kernel_has_a_source_and_a_launch_counter():
+    """Each kernel the build knows is a CUDA source in csrc/ with a wrapper
+    module of the same name that counts its launches; importing a wrapper
+    builds nothing."""
+    import importlib
+    from repro_torch.kernels import build
+    assert set(build.KERNELS) == {"scan_scores", "scan_scores_q8",
+                                  "kmeans_assign", "segsum_gemm"}
+    for name in build.KERNELS:
+        assert (build.CSRC / f"{name}.cu").is_file(), name
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        assert isinstance(mod.launches, build.LaunchCounter), name
+    assert not build._libs
 
 
 def test_engine_config_has_the_reference_fields():

@@ -113,7 +113,7 @@ def test_future_errors_and_registry(service):
     lambda s: s.submit(MemoryOp("query", "a", _corpus(1), batch=True)),
     lambda s: s.flush(),
     lambda s: s.query_many([("a", _corpus(1))]),
-    lambda s: s.save("/nonexistent"),
+    lambda s: s.collection("a").set_ship_hook(None),
     lambda s: s.submit(MemoryOp("demote", "a")),
 ])
 def test_later_slices_raise_not_implemented(service, call):

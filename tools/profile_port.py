@@ -3,16 +3,18 @@
 
     python3 tools/profile_port.py [--seed N] [--out FILE]
 
-Builds the PAPER_1M collection that ``chip_smoke.py`` builds (same
-synthetic corpus, same seed), warms every op kind once, then runs each op
-once more under ``torch.profiler`` (CPU + CUDA activities) and reports per
-op: wall time, device busy time (sum of kernel times — one stream, so
-kernels do not overlap), device idle share, and device time by kernel name.
-Prints one JSON object; with ``--out`` also writes it to FILE.
+For each store policy (f32, then int8), builds the PAPER_1M collection that
+``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
+kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
+activities) and reports per op: wall time, device busy time (sum of kernel
+times — one stream, so kernels do not overlap), device idle share, and
+device time by kernel name.  Prints one JSON object (``ops`` keyed by
+policy, then by op); with ``--out`` also writes it to FILE.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -87,13 +89,17 @@ def main(argv=None) -> int:
     }
     out = {"card": chip_smoke.nvidia_smi(),
            "torch": torch.__version__, "ops": {}}
-    with MemoryService(maintenance=False) as svc:
-        svc.create_collection("mem", PAPER_1M, seed=args.seed)
-        for name, fn in ops.items():        # warm every path once
-            fn()
-        torch.cuda.synchronize()
-        for name, fn in ops.items():
-            out["ops"][name] = profiled(fn)
+    for cfg in (PAPER_1M, dataclasses.replace(PAPER_1M, store_dtype="int8")):
+        out["ops"][cfg.store_dtype] = timed = {}
+        with MemoryService(maintenance=False) as svc:
+            svc.create_collection("mem", cfg, seed=args.seed)
+            for name, fn in ops.items():        # warm every path once
+                fn()
+            torch.cuda.synchronize()
+            for name, fn in ops.items():
+                timed[name] = profiled(fn)
+        del svc                 # free this policy's state before the next
+        torch.cuda.empty_cache()
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -10,11 +10,14 @@ Phases (any failure raises and the script exits non-zero):
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the main path's shapes (PAPER_1M) and at ragged shapes, with times, the
    least time the card could take, and one PyTorch library call's time.
+   Both scans are checked and timed in both variants (``stream``,
+   ``generic``).
 4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
    an exact brute force, queries, concurrent inserts, deletes, a
    delta-replay rebuild under inserts, queries again) through
    ``repro_torch.api.MemoryService`` on a synthetic clustered corpus made
-   from ``--seed``; launch counters show it ran the kernels.
+   from ``--seed``; launch counters show it ran the kernels, every scan in
+   its ``stream`` variant.
 5. main path, int8: the same lifecycle on the same corpus with
    ``store_dtype="int8"`` (coarse ``scan_scores_q8`` scan, exact f32
    rescore), then ``save`` / ``load`` of the service and the same query
@@ -66,6 +69,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device time of fn() in ms over `reps` launches queued behind a
+    spin kernel: the card runs them back to back, so the host time between
+    launches, which at the probed shape (tens of microseconds) is most of
+    a `cuda_ms` time, does not count."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)       # ~50 ms, longer than the enqueue
     t0.record()
     for _ in range(reps):
         fn()
@@ -172,56 +193,73 @@ def phase_kernels(seed: int, cfg) -> dict:
     out = {}
 
     # -- scan_scores ------------------------------------------------------
+    def variants(mod, b, n, dd, *ptrs):
+        """Both variants where the shape takes the stream one."""
+        return (("stream", "generic")
+                if mod.variant_for(b, n, dd, *ptrs) == "stream"
+                else ("generic",))
+
+    def race(fns, reps):
+        """Device ms of each named call (`queued_ms`), in turns a, b, b, a."""
+        ms = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            ms[k].append(queued_ms(fns[k], reps))
+        return {k: sum(v) / len(v) for k, v in ms.items()}
+
     err = 0.0
     for (b, n, dd, metric) in [(33, 777, 192, "l2"), (5, 1000, 130, "ip"),
                                (17, 129, d, "l2"), (1, c, d, "ip"),
                                (64, 3000, d, "ip"), (2, 4099, 68, "l2"),
-                               (97, 3001, d, "l2")]:
+                               (97, 3001, d, "l2"), (200, 100, 768, "ip"),
+                               (7, 1000, 256, "l2")]:
         q, db, ids = randn(b, dd), randn(n, dd), ids_with_holes(n)
         norms = (db ** 2).sum(1) if metric == "l2" else None
-        err = max(err, check_scan(ss.scan_scores(q, db, ids, norms,
-                                                 metric=metric),
-                                  ref.scan_scores_ref(q, db, ids, norms,
-                                                      metric=metric)))
-    # probed slab (B = 1) and full scan (B = 64) at PAPER_1M
-    q1, dbp, idsp = randn(1, d), randn(n_probe, d), ids_with_holes(n_probe)
-    err = max(err, check_scan(ss.scan_scores(q1, dbp, idsp),
-                              ref.scan_scores_ref(q1, dbp, idsp)))
-    probe_ms = cuda_ms(lambda: ss.scan_scores(q1, dbp, idsp), reps=50)
-    probe_plain = cuda_ms(lambda: ref.scan_scores_ref(q1, dbp, idsp), reps=10)
-    with tf32_on():
-        probe_lib = cuda_ms(lambda: torch.mm(q1, dbp.T), reps=50)
-    probe_f32 = cuda_ms(lambda: torch.mm(q1, dbp.T), reps=50)
-    probe_bound = bound_ms(4 * (n_probe * d + n_probe + d + n_probe),
-                           2 * n_probe * d, PEAK_BF16)
-    del dbp, idsp
-    q64, dbf, idsf = randn(64, d), randn(n_full, d), ids_with_holes(n_full)
-    err = max(err, check_scan(ss.scan_scores(q64, dbf, idsf),
-                              ref.scan_scores_ref(q64, dbf, idsf)))
-    full_ms = cuda_ms(lambda: ss.scan_scores(q64, dbf, idsf), reps=10)
-    full_plain = cuda_ms(lambda: ref.scan_scores_ref(q64, dbf, idsf), reps=3)
-    with tf32_on():
-        full_lib = cuda_ms(lambda: torch.mm(q64, dbf.T), reps=10)
-    full_f32 = cuda_ms(lambda: torch.mm(q64, dbf.T), reps=10)
-    fb, fby = bound_ms(4 * (n_full * d + n_full + 64 * d + 64 * n_full),
-                       2 * 64 * n_full * d, PEAK_BF16)
-    del dbf, idsf
-    torch.cuda.empty_cache()
+        want = ref.scan_scores_ref(q, db, ids, norms, metric=metric)
+        for v in variants(ss, b, n, dd, q.data_ptr(), db.data_ptr()):
+            err = max(err, check_scan(ss.scan_scores(q, db, ids, norms,
+                                                     metric=metric,
+                                                     _variant=v), want))
+    scan_times = {}
+    for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full)):
+        q, db, ids = randn(b, d), randn(n, d), ids_with_holes(n)
+        if ss.variant_for(b, n, d, q.data_ptr(), db.data_ptr()) != "stream":
+            raise AssertionError(f"scan_scores at PAPER_1M {label} does not "
+                                 "take the stream variant")
+        want = ref.scan_scores_ref(q, db, ids)
+        for v in ("stream", "generic"):
+            err = max(err, check_scan(ss.scan_scores(q, db, ids, _variant=v),
+                                      want))
+        del want
+        reps = 50 if b == 1 else 10
+        var_ms = race({v: (lambda v=v: ss.scan_scores(q, db, ids,
+                                                      _variant=v))
+                       for v in ("stream", "generic")}, reps)
+        ms = cuda_ms(lambda: ss.scan_scores(q, db, ids), reps=reps)
+        plain = cuda_ms(lambda: ref.scan_scores_ref(q, db, ids),
+                        reps=10 if b == 1 else 3)
+        with tf32_on():
+            lib = cuda_ms(lambda: torch.mm(q, db.T), reps=reps)
+        f32 = cuda_ms(lambda: torch.mm(q, db.T), reps=reps)
+        bnd = bound_ms(4 * (n * d + n + b * d + b * n), 2 * b * n * d,
+                       PEAK_BF16)
+        scan_times[label] = {
+            "shape": f"B={b} N={n} D={d} ip", "ms": ms, "variant_ms": var_ms,
+            "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": lib, "library_f32_ms": f32}
+        del q, db, ids
+        torch.cuda.empty_cache()
+    full, probed = scan_times["full"], scan_times["probed"]
     out["scan_scores"] = {
         "name": "scan_scores", "route": "cuda",
         "source": "src/repro_torch/csrc/scan_scores.cu",
+        "header": "src/repro_torch/csrc/scan_stream.cuh",
         "replaces": "src/repro/kernels/scan_scores.py:203",
-        "shape": f"full scan B=64 N={n_full} D={d} ip",
-        "max_abs_err": err, "ms": full_ms, "plain_ms": full_plain,
-        "bound_ms": fb, "bound_by": fby, "library_ms": full_lib,
+        "shape": f"full scan {full.pop('shape')}", "max_abs_err": err,
+        **full,
         # TF32 reads the same f32 bytes on the tensor cores; the f32 mm
         # without TF32 runs on the CUDA cores and is bound by operations
         "library_call": "torch.mm(q, db.T) f32 inputs, TF32 on",
-        "library_f32_ms": full_f32,
-        "probed": {"shape": f"B=1 N={n_probe} D={d} ip", "ms": probe_ms,
-                   "plain_ms": probe_plain, "bound_ms": probe_bound[0],
-                   "bound_by": probe_bound[1], "library_ms": probe_lib,
-                   "library_f32_ms": probe_f32},
+        "probed": probed,
     }
 
     # -- scan_scores_q8 ---------------------------------------------------
@@ -245,21 +283,35 @@ def phase_kernels(seed: int, cfg) -> dict:
         return (n * dd + 4 * n * (3 + (metric == "l2")) + b * dd + 8 * b
                 + 4 * b * n)
 
-    def q8_check(args, metric):
-        return check_scan(q8.scan_scores_q8(*args, metric=metric),
+    def q8_check(args, metric, variant):
+        return check_scan(q8.scan_scores_q8(*args, metric=metric,
+                                            _variant=variant),
                           ref.scan_scores_q8_plain(*args, metric=metric),
-                          tol=1e-5, name="scan_scores_q8")
+                          tol=1e-5, name=f"scan_scores_q8 ({variant})")
 
     err = 0.0
     for (b, n, dd, metric) in [(97, 3001, 130, "ip"), (97, 3001, 130, "l2"),
                                (5, 1000, 130, "l2"), (1, 777, 130, "ip"),
-                               (17, 129, d, "l2"), (64, 4099, d, "ip")]:
-        err = max(err, q8_check(q8_args(b, n, dd, metric), metric))
+                               (17, 129, d, "l2"), (64, 4099, d, "ip"),
+                               (200, 100, 768, "l2"), (7, 1000, 256, "ip"),
+                               (65, 3001, d, "l2")]:
+        args = q8_args(b, n, dd, metric)
+        for v in variants(q8, b, n, dd, args[0].data_ptr(),
+                          args[1].data_ptr()):
+            err = max(err, q8_check(args, metric, v))
     q8_times = {}
     for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full)):
         args = q8_args(b, n, d, "ip")
-        err = max(err, q8_check(args, "ip"))
-        ms = cuda_ms(lambda: q8.scan_scores_q8(*args), reps=20)
+        if q8.variant_for(b, n, d, args[0].data_ptr(),
+                          args[1].data_ptr()) != "stream":
+            raise AssertionError(f"scan_scores_q8 at PAPER_1M {label} does "
+                                 "not take the stream variant")
+        for v in ("stream", "generic"):
+            err = max(err, q8_check(args, "ip", v))
+        reps = 50 if b == 1 else 20
+        var_ms = race({v: (lambda v=v: q8.scan_scores_q8(*args, _variant=v))
+                       for v in ("stream", "generic")}, reps)
+        ms = cuda_ms(lambda: q8.scan_scores_q8(*args), reps=reps)
         plain = cuda_ms(lambda: ref.scan_scores_q8_plain(*args), reps=3)
         # torch._int_mm computes only the int32 product (no epilogue, no
         # mask) and needs more than 16 rows: B=1 goes in padded to 32
@@ -268,26 +320,26 @@ def phase_kernels(seed: int, cfg) -> dict:
             qc = torch.zeros((32, d), dtype=torch.int8, device=dev)
             qc[:b] = args[0]
         codes_t = args[1].t()
-        lib = cuda_ms(lambda: torch._int_mm(qc, codes_t), reps=20)
-        q8_times[label] = (f"B={b} N={n} D={d} ip", ms, plain, lib,
-                           *bound_ms(q8_bytes(b, n, d, "ip"), 2 * b * n * d,
-                                     PEAK_INT8))
+        lib = cuda_ms(lambda: torch._int_mm(qc, codes_t), reps=reps)
+        qb, qby = bound_ms(q8_bytes(b, n, d, "ip"), 2 * b * n * d, PEAK_INT8)
+        q8_times[label] = {
+            "shape": f"B={b} N={n} D={d} ip", "ms": ms, "variant_ms": var_ms,
+            "plain_ms": plain, "bound_ms": qb, "bound_by": qby,
+            "library_ms": lib}
         del args, qc, codes_t
         torch.cuda.empty_cache()
-    shape, ms, plain, lib, qb, qby = q8_times["full"]
-    pshape, pms, pplain, plib, pqb, pqby = q8_times["probed"]
+    full, probed = q8_times["full"], q8_times["probed"]
+    probed["shape"] += " (_int_mm at 32 rows)"
     out["scan_scores_q8"] = {
         "name": "scan_scores_q8", "route": "cuda",
         "source": "src/repro_torch/csrc/scan_scores_q8.cu",
+        "header": "src/repro_torch/csrc/scan_stream.cuh",
         "replaces": "src/repro/kernels/scan_scores.py:135",
-        "shape": f"full scan {shape}", "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": qb, "bound_by": qby,
-        "library_ms": lib,
+        "shape": f"full scan {full.pop('shape')}", "max_abs_err": err,
+        **full,
         "library_call": "torch._int_mm(qc, codes.t()): the int32 product "
                         "only, a lower yardstick",
-        "probed": {"shape": f"{pshape} (_int_mm at 32 rows)", "ms": pms,
-                   "plain_ms": pplain, "bound_ms": pqb, "bound_by": pqby,
-                   "library_ms": plib},
+        "probed": probed,
     }
 
     # -- kmeans_assign ----------------------------------------------------
@@ -454,6 +506,8 @@ def phase_main(seed: int, cfg) -> dict:
                "segsum_gemm": sg}
     for mod in kernels.values():
         mod.launches.reset()
+        for counter in getattr(mod, "launches_by_variant", {}).values():
+            counter.reset()
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as saved:
         with MemoryService() as svc:
@@ -566,6 +620,14 @@ def phase_main(seed: int, cfg) -> dict:
         if out["launches"][k] <= 0:
             raise AssertionError(f"main path ({cfg.store_dtype}) never "
                                  f"launched {k}")
+    # every scan of the main path is at D = 1024 and takes the stream variant
+    out["launches_by_variant"] = {
+        k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8")}
+    for k, by in out["launches_by_variant"].items():
+        if by["generic"] or by["stream"] != out["launches"][k]:
+            raise AssertionError(f"main path ({cfg.store_dtype}) {k} "
+                                 f"launches by variant {by}: not all stream")
     return out
 
 
@@ -597,7 +659,10 @@ def main(argv=None) -> int:
           + " ".join(f"{k}={v:.1f}s" for k, v in secs.items()), flush=True)
     for k, log in build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line:           # the kernel (variant)
+                fn = line.split("'")[1]
+                print(f"  ptxas {k}: {fn}")
+            elif "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
     # 3. kernels vs plain versions
@@ -626,6 +691,11 @@ def main(argv=None) -> int:
         by_path = {dtype: p["launches"][kernel] for dtype, p in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+        if kernel in ("scan_scores", "scan_scores_q8"):
+            entry["launches_by_variant"] = {
+                v: sum(p["launches_by_variant"][kernel][v]
+                       for p in paths.values())
+                for v in ("stream", "generic")}
 
     print(card)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": list(kernels.values())}))

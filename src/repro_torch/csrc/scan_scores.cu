@@ -13,20 +13,33 @@
 // byte — far under the H100's ~295 flop/byte bf16 ridge for every batch the
 // router sends here (B = 1 probed, B >= 2 full scan).
 //
-// What the design does about it: each block streams a 128-row DB tile once,
-// converts f32 -> bf16 in registers on its way to shared memory (the bf16
-// copy never exists in device memory, as in the TPU kernel's in-VREG
-// conversion), and multiplies it against every query of its query tile on
-// the tensor cores (WMMA bf16, f32 accumulate).  The next stage's global
-// loads are issued into registers before the current stage's MMAs, so load
-// latency overlaps compute.  The norm/mask epilogue is fused: scores leave
-// the block once, coalesced along N.  Ragged B, N and D are masked in the
-// kernel (zero-filled operands, guarded stores), so no padding is needed.
+// Two variants, chosen by the wrapper from shapes and alignment alone:
+//
+// `stream` (D % 4 == 0, 16-byte-aligned q and db, the query tile fits in
+// shared memory; scan_stream.cuh): a persistent grid whose blocks keep a
+// tile of up to 64 queries resident as bf16 and stream 128-row DB tiles
+// through a TMA ring of 128-row x 32-float boxes.  Two consumer groups of
+// four warps take the tiles in turn.  A group reads each f32 box from the
+// swizzled stage, converts it to bf16 in registers (the TPU kernel's
+// in-VREG conversion: the bf16 copy never exists in device memory) and
+// runs mma.sync m16n8k16 with the DB rows on the M side, so B = 1 costs an
+// N = 8 product.  The accumulator stays in registers over all of D; the
+// norm/mask epilogue is applied in registers and its stores (each
+// instruction eight neighbouring rows of four queries: 32-byte segments
+// along N) overlap the other group's products on the next tile.
+//
+// `generic` (any shape): each block streams one 128-row tile, converting
+// f32 -> bf16 on its way to shared memory, WMMA bf16 with the next stage's
+// loads issued before the current stage's products, and a staged epilogue
+// written coalesced along N.  Ragged B, N and D are masked in the kernel
+// (zero-filled operands, guarded stores), so no padding is needed.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "scan_stream.cuh"
 
 using namespace nvcuda;
 
@@ -168,15 +181,212 @@ scan_scores_kernel(const float* __restrict__ q, const float* __restrict__ db,
   }
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float2 v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// QT = resident queries per block (blockIdx.y selects the query tile).
+template <int QT>
+__global__ void __launch_bounds__(scan_stream::THREADS, 1)
+scan_scores_stream_kernel(const __grid_constant__ CUtensorMap db_map,
+                          const float* __restrict__ q,
+                          const int* __restrict__ ids,
+                          const float* __restrict__ norms,
+                          float* __restrict__ out, int B, int N, int D,
+                          int l2, int stages) {
+  using namespace scan_stream;
+  constexpr int NB = QT / 8;                // n8 blocks of queries
+  constexpr int BOX_K = BOX_BYTES / 4;      // f32 depth per stage
+  extern __shared__ uint8_t smem_raw[];
+  const Smem sm = carve_smem(smem_raw, stages);
+  uint8_t* s_q = sm.rest;                   // [QT][dpad] bf16 (+ QPAD)
+
+  const int kb_n = (D + BOX_K - 1) / BOX_K;
+  const int dpad = kb_n * BOX_K;
+  const int qstride = dpad * 2 + QPAD;      // bytes per resident query row
+  const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
+  const int q0 = blockIdx.y * QT;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the query tile, as bf16, zero past B and D (D % 4 == 0 here)
+  const int v4 = dpad / 4;
+  for (int e = tid; e < QT * v4; e += scan_stream::THREADS) {
+    const int r = e / v4, k = (e % v4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < B && k < D)
+      v = __ldg(reinterpret_cast<const float4*>(q + (size_t)(q0 + r) * D + k));
+    uint32_t* dst = reinterpret_cast<uint32_t*>(s_q + r * qstride + k * 2);
+    dst[0] = pack_bf16(make_float2(v.x, v.y));
+    dst[1] = pack_bf16(make_float2(v.z, v.w));
+  }
+  __syncthreads();
+
+  if (warp == CONSUMER_WARPS) {
+    produce(&db_map, sm, stages, n_tiles, kb_n, BOX_K);
+    return;
+  }
+
+  const int wrow = (warp % GROUP_WARPS) * 32;  // this warp's rows in a tile
+  const int g = lane >> 2, tg = lane & 3;
+  const float mask_val = l2 ? INFINITY : -INFINITY;
+  // ldmatrix row address of this lane in the query tile: matrices 0/1 are
+  // depth halves of queries 0-7 of an n8 pair, matrices 2/3 of queries 8-15
+  const uint32_t b_lane = smem_u32(s_q) +
+                          ((lane & 7) + ((lane >> 4) << 3)) * qstride +
+                          (((lane >> 3) & 1) << 4);
+  Ring rg(stages);
+  Turn turn(sm.turn, warp / GROUP_WARPS);
+  int local = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++local) {
+    if (!turn.mine(local)) {            // the other group's tile
+      rg.advance(kb_n);
+      continue;
+    }
+    const int row0 = t * TILE_ROWS + wrow;
+    // this thread's four rows' sidebands, fetched now, used after the loop
+    float nrm[2][2];
+    bool dead[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = row0 + mi * 16 + h * 8 + g;
+        dead[mi][h] = n < N && ids[n] < 0;
+        nrm[mi][h] = (l2 && n < N) ? norms[n] : 0.f;
+      }
+    float acc[2][NB][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mi][nb][i] = 0.f;
+
+    turn.acquire();
+    for (int kb = 0; kb < kb_n; ++kb) {
+      bar_wait(&sm.full[rg.stage], rg.phase);
+      const uint8_t* st = sm.ring + rg.stage * STAGE_BYTES;
+#pragma unroll
+      for (int ks = 0; ks < BOX_K / 16; ++ks) {
+        // A: rows g / g + 8 of each 16-row half, depth 2tg (+8), read from
+        // the swizzled box (16-byte unit u of row r sits at u ^ (r % 8))
+        uint32_t a[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const uint8_t* rowp = st + (wrow + mi * 16 + g) * BOX_BYTES;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = ks * 16 + h * 8 + 2 * tg;
+            const int off = (((k >> 2) ^ g) << 4) + ((k & 3) << 2);
+            a[mi][2 * h] =
+                pack_bf16(*reinterpret_cast<const float2*>(rowp + off));
+            a[mi][2 * h + 1] = pack_bf16(
+                *reinterpret_cast<const float2*>(rowp + 8 * BOX_BYTES + off));
+          }
+        }
+        const uint32_t b_k = b_lane + (kb * BOX_K + ks * 16) * 2;
+        if constexpr (NB == 1) {
+          uint32_t b[2];
+          ldmatrix_x2(b, b_k);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) mma_bf16(acc[mi][0], a[mi], b[0], b[1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NB / 2; ++j) {
+            uint32_t b[4];
+            ldmatrix_x4(b, b_k + j * 16 * qstride);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) {
+              mma_bf16(acc[mi][2 * j], a[mi], b[0], b[1]);
+              mma_bf16(acc[mi][2 * j + 1], a[mi], b[2], b[3]);
+            }
+          }
+        }
+      }
+      bar_arrive(&sm.empty[rg.stage]);
+      rg.advance();
+    }
+    turn.release();
+
+    // epilogue in registers, overlapping the other group's products:
+    // acc[mi][nb][i] is row mi*16 + g (+8 for i >= 2) of this warp's 32,
+    // query nb*8 + 2tg (+1 for odd i); each store instruction writes eight
+    // neighbouring rows (32 bytes) of each of four queries
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int h = i >> 1;
+          const int n = row0 + mi * 16 + h * 8 + g;
+          const int b = q0 + nb * 8 + 2 * tg + (i & 1);
+          if (n < N && b < B) {
+            float s = acc[mi][nb][i];
+            if (l2) s = nrm[mi][h] - 2.f * s;
+            out[(size_t)b * N + n] = dead[mi][h] ? mask_val : s;
+          }
+        }
+  }
+}
+
+template <int QT>
+int launch_stream(const float* q, const float* db, const int* ids,
+                  const float* norms, float* out, int B, int N, int D, int l2,
+                  cudaStream_t s) {
+  using namespace scan_stream;
+  CUtensorMap map;
+  int err = encode_rows(&map, db, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, D);
+  if (err) return err;
+  const int box_k = BOX_BYTES / 4;
+  const int qrow = (D + box_k - 1) / box_k * box_k * 2;
+  const int stages = ring_stages(QT, qrow, 0);
+  if (stages < MIN_STAGES) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(stages, QT, qrow, 0);
+  const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
+  const int n_qt = (B + QT - 1) / QT;
+  const int gx = persistent_blocks(scan_scores_stream_kernel<QT>, smem,
+                                   n_tiles, n_qt, &err);
+  if (err) return err;
+  scan_scores_stream_kernel<QT>
+      <<<dim3(gx, n_qt), scan_stream::THREADS, smem, s>>>(
+          map, q, ids, norms, out, B, N, D, l2, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Plain C entry point (loaded through ctypes).  Launches on `stream` and
-// returns cudaGetLastError() so the caller can raise on a refused launch.
+// Plain C entry point (loaded through ctypes).  variant 1 = stream (the
+// caller has checked its shape and alignment rules), 0 = generic.  Launches
+// on `stream` and returns cudaGetLastError() (or the setup's error) so the
+// caller can raise on a refused launch.
 extern "C" int scan_scores_launch(const float* q, const float* db,
                                   const int* ids, const float* norms,
                                   float* out, int B, int N, int D, int l2,
-                                  int vec4, void* stream) {
+                                  int vec4, int variant, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    switch (scan_stream::query_tile(B)) {
+      case 8:
+        return launch_stream<8>(q, db, ids, norms, out, B, N, D, l2, s);
+      case 16:
+        return launch_stream<16>(q, db, ids, norms, out, B, N, D, l2, s);
+      case 32:
+        return launch_stream<32>(q, db, ids, norms, out, B, N, D, l2, s);
+      default:
+        return launch_stream<64>(q, db, ids, norms, out, B, N, D, l2, s);
+    }
+  }
   dim3 block(THREADS);
   if (B <= 16) {
     dim3 grid((N + BN - 1) / BN, (B + 15) / 16);

@@ -2,7 +2,9 @@
 
 Port of ``src/repro/kernels/scan_scores.py::scan_scores`` (the Pallas TPU
 kernel).  A CPU tensor takes the plain version (`ref.scan_scores_ref`); a
-CUDA tensor launches the kernel, or raises.
+CUDA tensor launches the kernel, or raises.  The kernel has two variants,
+``stream`` and ``generic``; `variant_for` picks one from shapes and alignment
+(see `scan_stream`).
 """
 from __future__ import annotations
 
@@ -10,21 +12,29 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, ref, scan_stream
 
 launches = build.LaunchCounter()
+launches_by_variant = {v: build.LaunchCounter() for v in scan_stream.VARIANTS}
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+
+
+def variant_for(b: int, n: int, d: int, *ptrs: int) -> str:
+    """``stream`` or ``generic`` for B = b queries over n rows of depth d,
+    given the base addresses of q and db."""
+    return scan_stream.choose(b, n, d, 4, ptrs)
 
 
 def scan_scores(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
                 db_norms: torch.Tensor | None = None, *,
-                metric: str = "ip") -> torch.Tensor:
+                metric: str = "ip", _variant: str | None = None) -> torch.Tensor:
     """Scores f32[B, N] of queries q f32[B, D] against rows db f32[N, D].
 
     ip: bf16(q) . bf16(db)^T with f32 accumulation; l2: db_norms - 2 x that
     (db_norms defaults to the rows' norms).  Slots with ids < 0 score -inf
-    (ip) or +inf (l2).
+    (ip) or +inf (l2).  `_variant` forces a kernel variant (for the card
+    tests and ``chip_smoke.py``; the main path never passes it).
     """
     if metric not in ("ip", "l2"):
         raise ValueError(f"metric must be 'ip' or 'l2', got {metric!r}")
@@ -54,12 +64,17 @@ def scan_scores(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
         return out
     vec4 = int(d % 4 == 0 and q.data_ptr() % 16 == 0
                and db.data_ptr() % 16 == 0)
+    variant = scan_stream.check_forced(
+        "scan_scores", _variant,
+        variant_for(b, n, d, q.data_ptr(), db.data_ptr()))
     fn = build.entry("scan_scores", "scan_scores_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), db.data_ptr(), ids.data_ptr(),
                  None if db_norms is None else db_norms.data_ptr(),
                  out.data_ptr(), b, n, d, int(metric == "l2"), vec4,
+                 int(variant == "stream"),
                  torch.cuda.current_stream().cuda_stream)
     build.check_launch("scan_scores", err)
     launches.add()
+    launches_by_variant[variant].add()
     return out

@@ -85,6 +85,127 @@ def test_scan_scores_q8_kernel_matches_plain(dev, b, n, d, metric):
     torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-5)
 
 
+# (b, n, d): B across the query tiles (1, 7, 64, 65, 97, 200), N below one
+# 128-row tile, not a multiple of it, and 1000; D the stream variant takes
+# (1024, 768, 256) and two it cannot take for int8 codes (130, 68)
+_STREAM_SHAPES = [(1, 1000, 1024), (7, 100, 768), (64, 3001, 1024),
+                  (65, 1000, 256), (97, 777, 1024), (200, 3001, 768),
+                  (1, 100, 256), (64, 1000, 768)]
+_GENERIC_SHAPES = [(7, 1000, 130), (65, 3001, 68), (200, 100, 130),
+                   (1, 777, 68)]
+
+
+def _variant_cases(kernel):
+    cases = [(shape, v) for shape in _STREAM_SHAPES
+             for v in ("stream", "generic")]
+    for shape in _GENERIC_SHAPES:
+        legal = (shape[2] * (4 if kernel == "f32" else 1)) % 16 == 0
+        cases += [(shape, v) for v in (("stream", "generic") if legal
+                                       else ("generic",))]
+    return cases
+
+
+def _q8_operands(dev, b, n, d, metric, seed=9, codes=None):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qc = torch.randint(-127, 128, (b, d), generator=g, device=dev,
+                       dtype=torch.int8)
+    if codes is None:
+        codes = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                              dtype=torch.int8)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    ids[torch.rand(n, generator=g, device=dev) < 0.1] = -1
+    sq = torch.rand(b, generator=g, device=dev) * 1e-2 + 1e-3
+    norms = (torch.rand(n, generator=g, device=dev) * 2
+             if metric == "l2" else None)
+    return (qc, codes, ids, torch.rand(n, generator=g, device=dev) * 1e-3 + 1e-4,
+            torch.randn(n, generator=g, device=dev) * 1e-2, sq,
+            ref.query_corr(qc, sq), norms)
+
+
+def _f32_operands(dev, b, n, d, metric, db=None):
+    q = _randn(dev, b, d, seed=1)
+    db = _randn(dev, n, d, seed=2) if db is None else db
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    ids[torch.rand(n, generator=g, device=dev) < 0.1] = -1
+    norms = (db ** 2).sum(1) if metric == "l2" else None
+    return q, db, ids, norms
+
+
+def _check_f32(got, want):
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got[torch.isinf(got)], want[torch.isinf(want)])
+    fin = torch.isfinite(want)
+    torch.testing.assert_close(got[fin], want[fin], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape,variant", _variant_cases("f32"))
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_scan_scores_variants_match_plain(dev, shape, variant, metric):
+    q, db, ids, norms = _f32_operands(dev, *shape, metric)
+    before = ss.launches_by_variant[variant].value
+    got = ss.scan_scores(q, db, ids, norms, metric=metric, _variant=variant)
+    assert ss.launches_by_variant[variant].value == before + 1
+    torch.cuda.synchronize()
+    _check_f32(got, ref.scan_scores_ref(q, db, ids, norms, metric=metric))
+
+
+@pytest.mark.parametrize("shape,variant", _variant_cases("q8"))
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_scan_scores_q8_variants_bit_equal_plain(dev, shape, variant, metric):
+    """The exact s32 accumulator and the epilogue's rounded steps in the
+    reference's order: scores equal the plain version's bit for bit."""
+    args = _q8_operands(dev, *shape, metric)
+    before = q8.launches_by_variant[variant].value
+    got = q8.scan_scores_q8(*args, metric=metric, _variant=variant)
+    assert q8.launches_by_variant[variant].value == before + 1
+    torch.cuda.synchronize()
+    want = ref.scan_scores_q8_plain(*args, metric=metric)
+    assert float((got - want).nan_to_num(0.0).abs().max()) == 0.0
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_misaligned_slices_take_generic(dev, metric):
+    """A contiguous slice whose base is not 16-byte aligned cannot feed
+    TMA: the wrappers pick generic, and the scores still match."""
+    b, n, d = 9, 1000, 1024
+    flat = _randn(dev, n * d + 1, seed=4)
+    db = flat[1:].view(n, d)
+    assert db.is_contiguous() and db.data_ptr() % 16 == 4
+    q, db, ids, norms = _f32_operands(dev, b, n, d, metric, db=db)
+    before = {v: c.value for v, c in ss.launches_by_variant.items()}
+    got = ss.scan_scores(q, db, ids, norms, metric=metric)
+    assert ss.launches_by_variant["generic"].value == before["generic"] + 1
+    assert ss.launches_by_variant["stream"].value == before["stream"]
+    _check_f32(got, ref.scan_scores_ref(q, db, ids, norms, metric=metric))
+    with pytest.raises(ValueError, match="stream"):
+        ss.scan_scores(q, db, ids, norms, metric=metric, _variant="stream")
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat8 = torch.randint(-127, 128, (n * d + 3,), generator=g, device=dev,
+                          dtype=torch.int8)
+    args = _q8_operands(dev, b, n, d, metric, codes=flat8[3:].view(n, d))
+    before = {v: c.value for v, c in q8.launches_by_variant.items()}
+    got = q8.scan_scores_q8(*args, metric=metric)
+    assert q8.launches_by_variant["generic"].value == before["generic"] + 1
+    assert q8.launches_by_variant["stream"].value == before["stream"]
+    assert torch.equal(got, ref.scan_scores_q8_plain(*args, metric=metric))
+
+
+@pytest.mark.parametrize("b", [1, 64])
+def test_d1024_scans_take_stream(dev, b):
+    """At PAPER_1M's width every scan takes the stream variant."""
+    q, db, ids, _ = _f32_operands(dev, b, 3000, 1024, "ip")
+    args = _q8_operands(dev, b, 3000, 1024, "ip")
+    for mod, call in ((ss, lambda: ss.scan_scores(q, db, ids)),
+                      (q8, lambda: q8.scan_scores_q8(*args))):
+        before = {v: c.value for v, c in mod.launches_by_variant.items()}
+        call()
+        assert mod.launches_by_variant["stream"].value == before["stream"] + 1
+        assert mod.launches_by_variant["generic"].value == before["generic"]
+
+
 @pytest.mark.parametrize("metric", ["ip", "l2"])
 def test_q8_dispatch_on_quantized_rows(dev, metric):
     """The index's own operands: rows quantized by the int8 store, f32

@@ -3,6 +3,8 @@
 
     python3 tools/profile_port.py [--seed N] [--out FILE]
 
+    python3 tools/profile_port.py --scan-sweep [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -10,6 +12,11 @@ activities) and reports per op: wall time, device busy time (sum of kernel
 times — one stream, so kernels do not overlap), device idle share, and
 device time by kernel name.  Prints one JSON object (``ops`` keyed by
 policy, then by op); with ``--out`` also writes it to FILE.
+
+``--scan-sweep`` instead times both scan kernels' variants over every row
+of a PAPER_1M full scan at B = 1, 8, 16, 32 and 64 (CUDA events, f32 rows
+and int8 codes from ``--seed``) beside their one-call yardsticks
+(``torch.mm`` with TF32, ``torch._int_mm``) and their byte bounds.
 """
 from __future__ import annotations
 
@@ -50,14 +57,70 @@ def profiled(fn) -> dict:
             "kernels_ms": {k[:90]: v for k, v in top}}
 
 
+def scan_sweep(seed: int) -> dict:
+    """ms of each scan variant and its yardstick over the full-scan rows."""
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = PAPER_1M.dim
+    n = PAPER_1M.n_clusters * PAPER_1M.list_capacity + 4096
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    out = {"shape": f"N={n} D={d} ip", "f32": {}, "int8": {}}
+    db = torch.randn(n, d, generator=g, device=dev)
+    for b in (1, 8, 16, 32, 64):
+        q = torch.randn(b, d, generator=g, device=dev)
+        row = {v: chip_smoke.cuda_ms(
+            lambda v=v: ss.scan_scores(q, db, ids, _variant=v), reps=10)
+            for v in ("stream", "generic")}
+        with chip_smoke.tf32_on():
+            row["torch.mm_tf32"] = chip_smoke.cuda_ms(
+                lambda: torch.mm(q, db.T), reps=10)
+        row["bound"] = 4 * (n * d + n + b * d + b * n) / chip_smoke.PEAK_BYTES * 1e3
+        out["f32"][b] = row
+    del db
+    torch.cuda.empty_cache()
+    codes = torch.randint(-127, 128, (n, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand(n, generator=g, device=dev)
+    zeros = torch.rand(n, generator=g, device=dev)
+    codes_t = codes.t()
+    for b in (1, 8, 16, 32, 64):
+        qc = torch.randint(-127, 128, (b, d), generator=g, device=dev,
+                           dtype=torch.int8)
+        sq = torch.rand(b, generator=g, device=dev)
+        corr = ref.query_corr(qc, sq)
+        row = {v: chip_smoke.cuda_ms(
+            lambda v=v: q8.scan_scores_q8(qc, codes, ids, scales, zeros, sq,
+                                          corr, _variant=v), reps=20)
+            for v in ("stream", "generic")}
+        qq = qc if b > 16 else torch.zeros((32, d), dtype=torch.int8,
+                                           device=dev)
+        row["torch._int_mm"] = chip_smoke.cuda_ms(
+            lambda: torch._int_mm(qq, codes_t), reps=20)
+        row["bound"] = (n * d + 12 * n + b * d + 8 * b + 4 * b * n) \
+            / chip_smoke.PEAK_BYTES * 1e3
+        out["int8"][b] = row
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--scan-sweep", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
+    if args.scan_sweep:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "scan_sweep": scan_sweep(args.seed)}, args.out)
     from repro_torch.api import MemoryService
     from repro_torch.configs.ame_paper import PAPER_1M
 
@@ -100,11 +163,15 @@ def main(argv=None) -> int:
                 timed[name] = profiled(fn)
         del svc                 # free this policy's state before the next
         torch.cuda.empty_cache()
+    return _emit(out, args.out)
+
+
+def _emit(out: dict, path) -> int:
     line = json.dumps(out)
     print(line)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
             f.write(line + "\n")
     return 0
 

@@ -11,13 +11,15 @@ Phases (any failure raises and the script exits non-zero):
    the main path's shapes (PAPER_1M) and at ragged shapes, with times, the
    least time the card could take, and one PyTorch library call's time.
    Both scans are checked and timed in both variants (``stream``,
-   ``generic``).
+   ``generic``), and ``kmeans_assign`` in both of its (``wgmma``,
+   ``generic``) at the build, rebuild and insert shapes, with ties across
+   centroid tiles and slices.
 4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
    an exact brute force, queries, concurrent inserts, deletes, a
    delta-replay rebuild under inserts, queries again) through
    ``repro_torch.api.MemoryService`` on a synthetic clustered corpus made
    from ``--seed``; launch counters show it ran the kernels, every scan in
-   its ``stream`` variant.
+   its ``stream`` variant and every assignment in its ``wgmma`` one.
 5. main path, int8: the same lifecycle on the same corpus with
    ``store_dtype="int8"`` (coarse ``scan_scores_q8`` scan, exact f32
    rescore), then ``save`` / ``load`` of the service and the same query
@@ -343,35 +345,91 @@ def phase_kernels(seed: int, cfg) -> dict:
     }
 
     # -- kmeans_assign ----------------------------------------------------
+    def assign_variants(x, cent):
+        """Both variants where the shape takes the wgmma one."""
+        (m, dd), cc = x.shape, cent.shape[0]
+        return (ka.VARIANTS
+                if ka.variant_for(m, cc, dd, x.data_ptr(),
+                                  cent.data_ptr()) == "wgmma"
+                else ("generic",))
+
     err = 0.0
     err_f32 = 0.0
     for (m, cc, dd) in [(1000, 96, 128), (777, 200, 130), (300, 1, 64),
-                        (4097, c, d)]:
+                        (4097, c, d), (1024, c, d)]:
         x, cent = randn(m, dd), randn(cc, dd)
-        idx, dist = ka.kmeans_assign(x, cent)
-        err = max(err, check_assign(x, cent, idx, dist))
+        for v in assign_variants(x, cent):
+            idx, dist = ka.kmeans_assign(x, cent, _variant=v)
+            err = max(err, check_assign(x, cent, idx, dist))
         # the f32-product variant (ablation rung fused_conversion=False)
         idx, dist = ka.kmeans_assign(x, cent, fused_conversion=False)
         err_f32 = max(err_f32, check_assign(x, cent, idx, dist, fused=False))
-    x, cent = randn(m_build, d), randn(c, d)
-    idx, dist = ka.kmeans_assign(x, cent)
-    err = max(err, check_assign(x, cent, idx, dist))
-    ms = cuda_ms(lambda: ka.kmeans_assign(x, cent), reps=10)
-    plain = cuda_ms(lambda: ref.kmeans_assign_ref(x, cent), reps=3)
-    f32_ms = cuda_ms(lambda: ka.kmeans_assign(x, cent,
-                                              fused_conversion=False), reps=3)
+    # ties: copies of three rows in every centroid tile, and at M = 1024 in
+    # every C-slice of the wgmma variant, go to the lowest index; the split
+    # merge gives the same bits twice
+    x, cent = randn(1024, d), randn(c, d)
+    for base in (1000, 700, 300, 5):
+        cent[base:base + 3] = x[:3]
+    for v in ka.VARIANTS:
+        idx, dist = ka.kmeans_assign(x, cent, _variant=v)
+        err = max(err, check_assign(x, cent, idx, dist))
+        if idx[:3].tolist() != [5, 6, 7]:
+            raise AssertionError(f"kmeans_assign ({v}) tie went to "
+                                 f"{idx[:3].tolist()}, not [5, 6, 7]")
+        again = ka.kmeans_assign(x, cent, _variant=v)
+        if not (torch.equal(idx, again[0]) and torch.equal(dist, again[1])):
+            raise AssertionError(f"kmeans_assign ({v}) is not deterministic")
+    # the main path's three shapes: build (the corpus), rebuild (every
+    # slot of the lists and the spill), insert (one batch)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assign_times = {}
+    for label, m in (("build", m_build), ("rebuild", n_full),
+                     ("insert", 1024)):
+        x, cent = randn(m, d), randn(c, d)
+        if ka.variant_for(m, c, d, x.data_ptr(),
+                          cent.data_ptr()) != "wgmma":
+            raise AssertionError(f"kmeans_assign at the {label} shape does "
+                                 "not take the wgmma variant")
+        for v in ka.VARIANTS:
+            idx, dist = ka.kmeans_assign(x, cent, _variant=v)
+            err = max(err, check_assign(x, cent, idx, dist))
+        del idx, dist
+        reps = 10 if m > 100_000 else 50
+        var_ms = race({v: (lambda v=v: ka.kmeans_assign(x, cent,
+                                                        _variant=v))
+                       for v in ka.VARIANTS}, reps)
+        plain = cuda_ms(lambda: ref.kmeans_assign_ref(x, cent),
+                        reps=3 if m > 100_000 else 10)
+        # the bf16 product alone, on operands converted before the timing
+        xb, cb = x.to(torch.bfloat16), cent.to(torch.bfloat16)
+        lib = queued_ms(lambda: torch.mm(xb, cb.t()), reps)
+        ab, aby = bound_ms(4 * (m * d + c * d + 2 * m), 2 * m * c * d,
+                           PEAK_BF16)
+        assign_times[label] = {
+            "shape": f"M={m} C={c} D={d}", "ms": var_ms["wgmma"],
+            "variant_ms": var_ms, "plain_ms": plain, "bound_ms": ab,
+            "bound_by": aby, "library_ms": lib,
+            "c_split": ka.c_split(m, c, sms)}
+        if label == "build":
+            f32_ms = cuda_ms(lambda: ka.kmeans_assign(
+                x, cent, fused_conversion=False), reps=3)
+        del x, cent, xb, cb
+        torch.cuda.empty_cache()
     f32_bound = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
                          2 * m_build * c * d, PEAK_F32)
-    kb, kby = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
-                       2 * m_build * c * d, PEAK_BF16)
+    build_t = assign_times["build"]
     out["kmeans_assign"] = {
         "name": "kmeans_assign", "route": "cuda",
         "source": "src/repro_torch/csrc/kmeans_assign.cu",
+        "header": "src/repro_torch/csrc/scan_stream.cuh",
         "replaces": "src/repro/kernels/kmeans_assign.py:84",
-        "shape": f"M={m_build} C={c} D={d}", "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": kb, "bound_by": kby,
-        "library_ms": None,
-        "library_call": None,  # no single PyTorch call computes an argmin GEMM
+        "shape": f"build {build_t.pop('shape')}", "max_abs_err": err,
+        **build_t,
+        "library_call": "torch.mm(xb, cb.t()) on bf16 operands converted "
+                        "before the timing: the product only, no "
+                        "conversion of x and no argmin, a lower yardstick",
+        "rebuild": assign_times["rebuild"],
+        "insert": assign_times["insert"],
         "f32_variant": {"max_abs_err": err_f32, "ms": f32_ms,
                         "bound_ms": f32_bound[0], "bound_by": f32_bound[1]},
     }
@@ -620,14 +678,16 @@ def phase_main(seed: int, cfg) -> dict:
         if out["launches"][k] <= 0:
             raise AssertionError(f"main path ({cfg.store_dtype}) never "
                                  f"launched {k}")
-    # every scan of the main path is at D = 1024 and takes the stream variant
+    # every scan and assignment of the main path is at D = 1024 and takes
+    # the fast variant (stream for the scans, wgmma for kmeans_assign)
     out["launches_by_variant"] = {
         k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
-        for k in ("scan_scores", "scan_scores_q8")}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
     for k, by in out["launches_by_variant"].items():
-        if by["generic"] or by["stream"] != out["launches"][k]:
+        fast = next(iter(by))
+        if by["generic"] or by[fast] != out["launches"][k]:
             raise AssertionError(f"main path ({cfg.store_dtype}) {k} "
-                                 f"launches by variant {by}: not all stream")
+                                 f"launches by variant {by}: not all {fast}")
     return out
 
 
@@ -691,11 +751,11 @@ def main(argv=None) -> int:
         by_path = {dtype: p["launches"][kernel] for dtype, p in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-        if kernel in ("scan_scores", "scan_scores_q8"):
+        if kernel in f32["launches_by_variant"]:
             entry["launches_by_variant"] = {
                 v: sum(p["launches_by_variant"][kernel][v]
                        for p in paths.values())
-                for v in ("stream", "generic")}
+                for v in f32["launches_by_variant"][kernel]}
 
     print(card)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,5 +1,7 @@
 // The streaming-scan machinery shared by scan_scores.cu and
 // scan_scores_q8.cu (their `stream` variants), for Hopper (sm_90a).
+// kmeans_assign.cu's `wgmma` variant uses its tensor-map encoder and its
+// barrier and TMA helpers.
 //
 // Both scans are bound by the bytes of the database rows they stream once.
 // The shape that keeps those bytes moving on this card:
@@ -100,18 +102,19 @@ inline EncodeTiled encoder() {
 
 // A map of the row-major rows [n_rows, d] (elements of elem_bytes, the row
 // stride d * elem_bytes a multiple of 16, base 16-byte aligned) in boxes of
-// TILE_ROWS rows x BOX_BYTES of depth, 128-byte swizzled, zero-filled past
-// the edges.  Returns 0 or a CUDA error code.
-inline int encode_rows(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType dtype, int elem_bytes,
-                       long long n_rows, int d) {
+// box_rows rows x box_elems elements of depth (box_elems * elem_bytes <=
+// 128), 128-byte swizzled, zero-filled past the edges.  Returns 0 or a CUDA
+// error code.
+inline int encode_2d(CUtensorMap* map, const void* base,
+                     CUtensorMapDataType dtype, int elem_bytes,
+                     long long n_rows, int d, int box_elems, int box_rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(n_rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem_bytes};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BOX_BYTES / elem_bytes),
-                             static_cast<cuuint32_t>(TILE_ROWS)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_elems),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = enc(map, dtype, 2, const_cast<void*>(base), dims, strides,
                          box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -119,6 +122,14 @@ inline int encode_rows(CUtensorMap* map, const void* base,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The scans' boxes: TILE_ROWS rows x BOX_BYTES of depth.
+inline int encode_rows(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType dtype, int elem_bytes,
+                       long long n_rows, int d) {
+  return encode_2d(map, base, dtype, elem_bytes, n_rows, d,
+                   BOX_BYTES / elem_bytes, TILE_ROWS);
 }
 
 // The persistent grid's width: SMs x resident blocks per SM at `smem`

@@ -56,15 +56,17 @@ def choose(b: int, n: int, d: int, elem_bytes: int, ptrs) -> str:
     return "stream" if stages >= MIN_STAGES else "generic"
 
 
-def check_forced(name: str, forced: str | None, chosen: str) -> str:
+def check_forced(name: str, forced: str | None, chosen: str,
+                 variants: tuple = VARIANTS) -> str:
     """`forced` (the private `_variant=` of a wrapper) if given and legal,
-    else `chosen`.  Forcing `stream` onto a shape it cannot take raises."""
+    else `chosen`.  Forcing the fast variant (`variants[0]`) onto a shape it
+    cannot take raises."""
     if forced is None:
         return chosen
-    if forced not in VARIANTS:
-        raise ValueError(f"{name}: _variant must be one of {VARIANTS}, "
+    if forced not in variants:
+        raise ValueError(f"{name}: _variant must be one of {variants}, "
                          f"got {forced!r}")
-    if forced == "stream" and chosen != "stream":
+    if forced == variants[0] and chosen != forced:
         raise ValueError(f"{name}: this shape/alignment cannot take the "
-                         f"stream variant")
+                         f"{forced} variant")
     return forced

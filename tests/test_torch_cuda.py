@@ -251,6 +251,85 @@ def test_kmeans_assign_ties_go_to_lowest_index(dev, fused):
     assert idx[:3].tolist() == [0, 1, 2]
 
 
+def _assign_cases():
+    """(shape, variant) for both kmeans_assign variants where the shape
+    takes wgmma (fresh tensors are 16-byte aligned), else generic only."""
+    cases = []
+    for shape in [(1000, 96, 128), (777, 200, 130), (300, 1, 64),
+                  (4097, 1024, 1024), (1024, 1024, 1024),
+                  (70_000, 1024, 1024), (65, 300, 1280), (100, 50, 68)]:
+        for v in ka.VARIANTS:
+            if v == "generic" or ka.variant_for(*shape, 256, 256) == v:
+                cases.append((shape, v))
+    return cases
+
+
+def _check_assign(x, cent, idx, dist, tol=3e-2):
+    """dist within tol of the plain version; idx equal wherever the plain
+    version's best-vs-second margin exceeds tol."""
+    ridx, rdist = ref.kmeans_assign_ref(x, cent)
+    torch.testing.assert_close(dist, rdist, rtol=tol, atol=tol)
+    if cent.shape[0] > 1:
+        dd = (cent ** 2).sum(1)[None, :] - 2 * (ref.round_bf16(x)
+                                                @ ref.round_bf16(cent).T)
+        two = torch.topk(dd, 2, dim=1, largest=False).values
+        sure = (two[:, 1] - two[:, 0]) > tol
+        assert torch.equal(idx[sure], ridx[sure])
+    assert int(idx.min()) >= 0 and int(idx.max()) < cent.shape[0]
+
+
+@pytest.mark.parametrize("shape,variant", _assign_cases())
+def test_kmeans_assign_variants_match_plain(dev, shape, variant):
+    m, c, d = shape
+    x, cent = _randn(dev, m, d, seed=12), _randn(dev, c, d, seed=13)
+    before = ka.launches_by_variant[variant].value
+    idx, dist = ka.kmeans_assign(x, cent, _variant=variant)
+    assert ka.launches_by_variant[variant].value == before + 1
+    torch.cuda.synchronize()
+    _check_assign(x, cent, idx, dist)
+
+
+@pytest.mark.parametrize("m", [1024, 70_000])
+@pytest.mark.parametrize("variant", ["wgmma", "generic"])
+def test_kmeans_assign_far_apart_ties_go_to_lowest_index(dev, m, variant):
+    """Copies of a row in every centroid tile (and, at M = 1024, in every
+    C-slice): the lowest index wins, as one block doing all of C gives."""
+    x, cent = _randn(dev, m, 1024, seed=14), _randn(dev, 1024, 1024, seed=15)
+    for base in (1000, 700, 300, 5):
+        cent[base:base + 3] = x[:3]
+    idx, dist = ka.kmeans_assign(x, cent, _variant=variant)
+    assert idx[:3].tolist() == [5, 6, 7]
+    _check_assign(x, cent, idx, dist)
+
+
+@pytest.mark.parametrize("m", [1024, 4097, 70_000])
+def test_kmeans_assign_wgmma_is_deterministic(dev, m):
+    """Two calls give bit-equal results, across the C-split merge too."""
+    x, cent = _randn(dev, m, 1024, seed=16), _randn(dev, 1024, 1024, seed=17)
+    a = ka.kmeans_assign(x, cent, _variant="wgmma")
+    b = ka.kmeans_assign(x, cent, _variant="wgmma")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_kmeans_assign_main_path_shapes_take_wgmma(dev):
+    """A misaligned slice or f32 products take generic; D = 1024 rows take
+    wgmma, and forcing wgmma where it cannot run raises."""
+    x, cent = _randn(dev, 2000, 1024, seed=18), _randn(dev, 300, 1024, seed=19)
+    flat = _randn(dev, 2000 * 1024 + 1, seed=20)
+    xm = flat[1:].view(2000, 1024)
+    for args, kw, want in (((x, cent), {}, "wgmma"),
+                           ((xm, cent), {}, "generic"),
+                           ((x, cent), {"fused_conversion": False},
+                            "generic")):
+        before = {v: c.value for v, c in ka.launches_by_variant.items()}
+        ka.kmeans_assign(*args, **kw)
+        after = {v: c.value for v, c in ka.launches_by_variant.items()}
+        assert {v: after[v] - before[v] for v in after} == \
+            {v: int(v == want) for v in after}
+    with pytest.raises(ValueError, match="wgmma"):
+        ka.kmeans_assign(xm, cent, _variant="wgmma")
+
+
 @pytest.mark.parametrize("m,c,d,lo", [(999, 64, 128, 0), (100, 8, 130, -1),
                                       (513, 100, 64, -3), (0, 4, 32, 0)])
 def test_segsum_kernel_matches_plain_and_is_deterministic(dev, m, c, d, lo):

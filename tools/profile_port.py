@@ -5,6 +5,8 @@
 
     python3 tools/profile_port.py --scan-sweep [--out FILE]
 
+    python3 tools/profile_port.py --assign-sweep [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -17,6 +19,14 @@ policy, then by op); with ``--out`` also writes it to FILE.
 of a PAPER_1M full scan at B = 1, 8, 16, 32 and 64 (CUDA events, f32 rows
 and int8 codes from ``--seed``) beside their one-call yardsticks
 (``torch.mm`` with TF32, ``torch._int_mm``) and their byte bounds.
+
+``--assign-sweep`` times both ``kmeans_assign`` variants (``wgmma``,
+``generic``) at C = D = 1024 (PAPER_1M) for M = 1024 (an insert batch),
+8192, 65,536, 1,000,000 (a build) and 1,503,232 (a rebuild over every
+slot), with launches queued behind a spin kernel and timed with CUDA
+events, beside the bf16 ``torch.mm`` of the same operands converted
+beforehand (the product alone: a lower yardstick) and the least time the
+card could take (operations at C = 1024, bytes at small M).
 """
 from __future__ import annotations
 
@@ -107,11 +117,43 @@ def scan_sweep(seed: int) -> dict:
     return out
 
 
+def assign_sweep(seed: int) -> dict:
+    """ms of each kmeans_assign variant and of the bf16 product over M."""
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.kernels import kmeans_assign as ka
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c, d = PAPER_1M.n_clusters, PAPER_1M.dim
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cent = torch.randn(c, d, generator=g, device=dev)
+    cb = cent.to(torch.bfloat16)
+    out = {"shape": f"C={c} D={d}", "rows": {}}
+    for m in (1024, 8192, 65_536, 1_000_000,
+              c * PAPER_1M.list_capacity + 4096):
+        x = torch.randn(m, d, generator=g, device=dev)
+        xb = x.to(torch.bfloat16)
+        reps = 50 if m <= 65_536 else 10
+        row = {v: chip_smoke.queued_ms(
+            lambda v=v: ka.kmeans_assign(x, cent, _variant=v), reps)
+            for v in ka.VARIANTS}
+        row["torch.mm_bf16"] = chip_smoke.queued_ms(
+            lambda: torch.mm(xb, cb.t()), reps)
+        row["bound"], row["bound_by"] = chip_smoke.bound_ms(
+            4 * (m * d + c * d + 2 * m), 2 * m * c * d, chip_smoke.PEAK_BF16)
+        row["c_split"] = ka.c_split(m, c, sms)
+        out["rows"][m] = row
+        del x, xb
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--scan-sweep", action="store_true")
+    ap.add_argument("--assign-sweep", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -121,6 +163,11 @@ def main(argv=None) -> int:
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
                       "scan_sweep": scan_sweep(args.seed)}, args.out)
+    if args.assign_sweep:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "assign_sweep": assign_sweep(args.seed)}, args.out)
     from repro_torch.api import MemoryService
     from repro_torch.configs.ame_paper import PAPER_1M
 

@@ -13,7 +13,10 @@ Phases (any failure raises and the script exits non-zero):
    Both scans are checked and timed in both variants (``stream``,
    ``generic``), and ``kmeans_assign`` in both of its (``wgmma``,
    ``generic``) at the build, rebuild and insert shapes, with ties across
-   centroid tiles and slices.
+   centroid tiles and slices.  Both scans also take a lane axis (G
+   collections in one launch): each is checked against its lane plain
+   version in both variants, lane g against the 2-D launch on lane g bit
+   for bit, and timed at phase 6's fused shapes.
 4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
    an exact brute force, queries, concurrent inserts, deletes, a
    delta-replay rebuild under inserts, queries again) through
@@ -24,6 +27,12 @@ Phases (any failure raises and the script exits non-zero):
    ``store_dtype="int8"`` (coarse ``scan_scores_q8`` scan, exact f32
    rescore), then ``save`` / ``load`` of the service and the same query
    ids from the loaded one; its recall@10 must reach 0.95 x phase 4's.
+6. fused windows: twelve PAPER_100K tenants (eight f32, four int8) and
+   then two PAPER_1M tenants in one ``MemoryService`` each, queried through
+   batched windows (``batch=True`` + ``flush``): two dispatches for a mixed
+   window, one lane launch per scan step, stack-cache hits, a write seen,
+   the probed template, a drop evicting its stacks; every fused result
+   equals the per-collection query.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -33,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -55,6 +65,10 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 N_ROWS = 1_000_000       # PAPER_1M's corpus: HotpotQA's 1 M passages
+# phase 6a's per-lane query batches, eight f32 tenants and four int8 ones;
+# phase 3 checks and times the lane launches at the Bmax these give
+F32_BATCHES = (1, 2, 3, 5, 8, 13, 16, 21)
+Q8_BATCHES = (2, 5, 13, 21)
 
 
 def nvidia_smi() -> str:
@@ -97,6 +111,14 @@ def queued_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def race(fns, reps):
+    """Device ms of each named call (`queued_ms`), in turns a, b, b, a."""
+    ms = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        ms[k].append(queued_ms(fns[k], reps))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
 class tf32_on:
     """TF32 tensor-core products inside the block, f32 outside (the script
     runs with TF32 off)."""
@@ -106,6 +128,14 @@ class tf32_on:
 
     def __exit__(self, *exc):
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def release() -> None:
+    """Free the device memory of services that were shut down and let go:
+    a service's futures and scheduler tasks refer to each other, so only
+    the cycle collector frees them, not the last `del`."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -200,13 +230,6 @@ def phase_kernels(seed: int, cfg) -> dict:
         return (("stream", "generic")
                 if mod.variant_for(b, n, dd, *ptrs) == "stream"
                 else ("generic",))
-
-    def race(fns, reps):
-        """Device ms of each named call (`queued_ms`), in turns a, b, b, a."""
-        ms = {k: [] for k in fns}
-        for k in list(fns) + list(fns)[::-1]:
-            ms[k].append(queued_ms(fns[k], reps))
-        return {k: sum(v) / len(v) for k, v in ms.items()}
 
     err = 0.0
     for (b, n, dd, metric) in [(33, 777, 192, "l2"), (5, 1000, 130, "ip"),
@@ -411,8 +434,13 @@ def phase_kernels(seed: int, cfg) -> dict:
             "bound_by": aby, "library_ms": lib,
             "c_split": ka.c_split(m, c, sms)}
         if label == "build":
+            # the f32-product rung (ablation B): kernel, plain version, and
+            # the f32 product alone (TF32 off) as its yardstick
             f32_ms = cuda_ms(lambda: ka.kmeans_assign(
                 x, cent, fused_conversion=False), reps=3)
+            f32_plain = cuda_ms(lambda: ref.kmeans_assign_ref(
+                x, cent, fused_conversion=False), reps=3)
+            f32_lib = cuda_ms(lambda: torch.mm(x, cent.t()), reps=3)
         del x, cent, xb, cb
         torch.cuda.empty_cache()
     f32_bound = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
@@ -431,6 +459,9 @@ def phase_kernels(seed: int, cfg) -> dict:
         "rebuild": assign_times["rebuild"],
         "insert": assign_times["insert"],
         "f32_variant": {"max_abs_err": err_f32, "ms": f32_ms,
+                        "plain_ms": f32_plain, "library_ms": f32_lib,
+                        "library_call": "torch.mm(x, c.t()) f32, TF32 off: "
+                                        "the product only",
                         "bound_ms": f32_bound[0], "bound_by": f32_bound[1]},
     }
 
@@ -471,6 +502,183 @@ def phase_kernels(seed: int, cfg) -> dict:
     }
     del x, a, a64, acc, got
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3, lanes: both scans with a lane axis (G collections, one launch)
+# ---------------------------------------------------------------------------
+
+def slots(cfg, nprobe=None) -> int:
+    """Rows a scan of `cfg` streams: every list slot and the spill (full
+    scan), or `nprobe` lists and the spill (a probed query)."""
+    return (cfg.n_clusters if nprobe is None else nprobe) \
+        * cfg.list_capacity + 4096
+
+
+def phase_lanes(seed: int) -> dict:
+    """Each scan's lane launch against its lane plain version, in both
+    variants, at the fused shapes of phase 6 and at ragged shapes; lane g
+    of a lane launch against the 2-D launch on lane g, bit for bit; times
+    of the fused shapes beside the bound and a library call."""
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    d = PAPER_100K.dim
+
+    def lane_ids(g, n):
+        ids = torch.arange(n, dtype=torch.int32, device=dev).repeat(g, 1)
+        holes = torch.rand(g, n, generator=gen, device=dev) < 0.1
+        return torch.where(holes, torch.full_like(ids, -1), ids)
+
+    def f32_args(g, b, n, dd):
+        return (torch.randn(g, b, dd, generator=gen, device=dev),
+                torch.randn(g, n, dd, generator=gen, device=dev),
+                lane_ids(g, n))
+
+    def q8_args(g, b, n, dd):
+        qc = torch.randint(-127, 128, (g, b, dd), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sq = torch.rand(g, b, generator=gen, device=dev) * 1e-2 + 1e-3
+        return (qc, torch.randint(-127, 128, (g, n, dd), generator=gen,
+                                  device=dev, dtype=torch.int8),
+                lane_ids(g, n),
+                torch.rand(g, n, generator=gen, device=dev) * 1e-3 + 1e-4,
+                torch.randn(g, n, generator=gen, device=dev) * 1e-2, sq,
+                ref.query_corr(qc, sq))
+
+    def lane(args, i):
+        return [a[i] for a in args]
+
+    def check(mod, args, plain, tol, name, variants):
+        """Lane launch vs the lane plain version (tol) and vs 2-D launches
+        of each lane (bit for bit), in each variant; the max error."""
+        want = plain(*args)
+        err = 0.0
+        for v in variants:
+            got = mod(*args, _variant=v)
+            err = max(err, check_scan(got, want, tol=tol,
+                                      name=f"{name} lanes ({v})"))
+            for i in range(args[0].shape[0]):
+                if not torch.equal(got[i], mod(*lane(args, i), _variant=v)):
+                    raise AssertionError(f"{name} ({v}): lane {i} of a lane "
+                                         "launch differs from its 2-D launch")
+        return err
+
+    out = {"scan_scores": {}, "scan_scores_q8": {}}
+    both = ("stream", "generic")
+    # ragged lanes: f32 at D = 1000 takes stream (4000-byte rows), D = 130
+    # only generic; int8 codes at D = 1024 take stream, D = 1000 generic
+    err = 0.0
+    for (g, b, n, dd), vs in (((3, 5, 1000, 1000), both),
+                              ((3, 5, 1000, 130), ("generic",)),
+                              ((2, 97, 300, 768), both)):
+        args = f32_args(g, b, n, dd)
+        if ss.variant_for(b, n, dd, args[0].data_ptr(),
+                          args[1].data_ptr()) != vs[0]:
+            raise AssertionError(f"scan_scores lanes {(g, b, n, dd)} do not "
+                                 f"take {vs[0]}")
+        err = max(err, check(ss.scan_scores, args, ref.scan_scores_lanes_ref,
+                             2e-2, "scan_scores", vs))
+    err8 = 0.0
+    for (g, b, n, dd), vs in (((3, 5, 1000, 1024), both),
+                              ((3, 5, 1000, 1000), ("generic",)),
+                              ((2, 97, 300, 768), both)):
+        args = q8_args(g, b, n, dd)
+        if q8.variant_for(b, n, dd, args[0].data_ptr(),
+                          args[1].data_ptr()) != vs[0]:
+            raise AssertionError(f"scan_scores_q8 lanes {(g, b, n, dd)} do "
+                                 f"not take {vs[0]}")
+        err8 = max(err8, check(q8.scan_scores_q8, args,
+                               ref.scan_scores_q8_lanes_plain, 0.0,
+                               "scan_scores_q8", vs))
+
+    # the fused shapes phase 6 launches: each group's full scan at Bmax,
+    # its centroid scan at Bmax (probed windows; the int8 group's centroids
+    # are f32) and its probed slabs at B = 1 per lane, and 6b's PAPER_1M
+    # centroid scan and slabs
+    g32, b32 = len(F32_BATCHES), max(F32_BATCHES)
+    g8, b8 = len(Q8_BATCHES), max(Q8_BATCHES)
+    for label, g, b, n in (
+            ("full PAPER_100K", g32, b32, slots(PAPER_100K)),
+            ("centroids PAPER_100K", g32, b32, PAPER_100K.n_clusters),
+            ("centroids PAPER_100K int8 group", g8, b8,
+             PAPER_100K.n_clusters),
+            ("probed PAPER_100K", g32, 1,
+             slots(PAPER_100K, PAPER_100K.nprobe)),
+            ("centroids PAPER_1M", 2, 1, PAPER_1M.n_clusters),
+            ("probed PAPER_1M", 2, 1, slots(PAPER_1M, PAPER_1M.nprobe))):
+        args = f32_args(g, b, n, d)
+        if ss.variant_for(b, n, d, args[0].data_ptr(),
+                          args[1].data_ptr()) != "stream":
+            raise AssertionError(f"scan_scores lanes {label} do not take "
+                                 "the stream variant")
+        err = max(err, check(ss.scan_scores, args, ref.scan_scores_lanes_ref,
+                             2e-2, "scan_scores", both))
+        q, db, ids = args
+        reps = 50 if n < 50_000 else 10
+        var_ms = race({v: (lambda v=v: ss.scan_scores(*args, _variant=v))
+                       for v in both}, reps)
+        plain = cuda_ms(lambda: ref.scan_scores_lanes_ref(*args), reps=3)
+        dbt = db.transpose(1, 2)
+        with tf32_on():
+            lib = queued_ms(lambda: torch.bmm(q, dbt), reps)
+        lib_f32 = queued_ms(lambda: torch.bmm(q, dbt), reps)
+        bnd = bound_ms(4 * g * (n * d + n + b * d + b * n), 2 * g * b * n * d,
+                       PEAK_BF16)
+        out["scan_scores"][label] = {
+            "shape": f"G={g} B={b} N={n} D={d} ip", "ms": var_ms["stream"],
+            "variant_ms": var_ms, "plain_ms": plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib, "library_f32_ms": lib_f32,
+            "library_call": "torch.bmm(q, db.transpose(1, 2)) f32 inputs, "
+                            "TF32 on"}
+        del args, q, db, ids, dbt
+        torch.cuda.empty_cache()
+    for label, g, b, n in (
+            ("full PAPER_100K", g8, b8, slots(PAPER_100K)),
+            ("probed PAPER_100K", g8, 1,
+             slots(PAPER_100K, PAPER_100K.nprobe))):
+        args = q8_args(g, b, n, d)
+        if q8.variant_for(b, n, d, args[0].data_ptr(),
+                          args[1].data_ptr()) != "stream":
+            raise AssertionError(f"scan_scores_q8 lanes {label} do not take "
+                                 "the stream variant")
+        err8 = max(err8, check(q8.scan_scores_q8, args,
+                               ref.scan_scores_q8_lanes_plain, 0.0,
+                               "scan_scores_q8", both))
+        reps = 50 if n < 50_000 else 20
+        var_ms = race({v: (lambda v=v: q8.scan_scores_q8(*args, _variant=v))
+                       for v in both}, reps)
+        plain = cuda_ms(lambda: ref.scan_scores_q8_lanes_plain(*args), reps=3)
+        # no batched int8 product in PyTorch: G back-to-back torch._int_mm,
+        # the queries padded to 32 rows (its least), the product only
+        qc = torch.zeros((g, 32, d), dtype=torch.int8, device=dev)
+        qc[:, :b] = args[0]
+        codes_t = [args[1][i].t() for i in range(g)]
+
+        def int_mm():
+            for i in range(g):
+                torch._int_mm(qc[i], codes_t[i])
+
+        lib = queued_ms(int_mm, reps)
+        # codes + ids/scales/zeros + query codes and scalars + out
+        nbytes = g * (n * d + 12 * n + b * d + 8 * b + 4 * b * n)
+        bnd = bound_ms(nbytes, 2 * g * b * n * d, PEAK_INT8)
+        out["scan_scores_q8"][label] = {
+            "shape": f"G={g} B={b} N={n} D={d} ip", "ms": var_ms["stream"],
+            "variant_ms": var_ms, "plain_ms": plain, "bound_ms": bnd[0],
+            "bound_by": bnd[1], "library_ms": lib,
+            "library_call": f"{g} x torch._int_mm(qc, codes.t()), the "
+                            "queries padded to 32 rows: the int32 product "
+                            "only, a lower yardstick"}
+        del args, qc, codes_t
+        torch.cuda.empty_cache()
+    out["scan_scores"]["max_abs_err"] = err
+    out["scan_scores_q8"]["max_abs_err"] = err8
     return out
 
 
@@ -656,7 +864,7 @@ def phase_main(seed: int, cfg) -> dict:
                 svc.save(saved)
                 out["save_s"] = time.perf_counter() - t0
         del svc, coll                 # free the state before loading a copy
-        torch.cuda.empty_cache()
+        release()
         if cfg.quantized:
             t0 = time.perf_counter()
             with MemoryService.load(saved) as back:
@@ -688,6 +896,244 @@ def phase_main(seed: int, cfg) -> dict:
         if by["generic"] or by[fast] != out["launches"][k]:
             raise AssertionError(f"main path ({cfg.store_dtype}) {k} "
                                  f"launches by variant {by}: not all {fast}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: fused multi-tenant windows through MemoryService
+# ---------------------------------------------------------------------------
+
+def phase_fused(seed: int, card: str) -> dict:
+    """Cross-collection fused windows on the card.  6a: twelve PAPER_100K
+    tenants (eight f32, four int8) in one service, a window of unequal
+    per-lane batches (full scans: two dispatches, one lane launch per
+    group), the window again (stack-cache hits), after an insert (one miss,
+    the new row visible), a probed window (1 + Bmax lane launches per
+    group), then a drop (its stacks evicted).  6b: two PAPER_1M f32 tenants
+    with one query each (the probed path).  Every fused result equals the
+    same request run per collection (ids equal, scores to 1e-5), and every
+    scan is a `stream` lane launch."""
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    mods = {"scan_scores": ss, "scan_scores_q8": q8}
+    kernels = {**mods, "kmeans_assign": ka, "segsum_gemm": sg}
+    for m in kernels.values():          # the tenants' builds count too
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    torch.cuda.reset_peak_memory_stats()
+
+    def counts():
+        return {k: (m.launches.value, m.launches_by_lanes["G>1"].value)
+                for k, m in mods.items()}
+
+    def window(svc, reqs, path=None):
+        """One batched window: (dispatches, results, wall s, launches)."""
+        before = counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [svc.submit(MemoryOp("query", n, q, path=path, batch=True))
+                for n, q in reqs]
+        n_disp = svc.flush()
+        res = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        after = counts()
+        launched = {k: (after[k][0] - before[k][0],
+                        after[k][1] - before[k][1]) for k in mods}
+        for k, (n_all, n_lanes) in launched.items():
+            if n_all != n_lanes:
+                raise AssertionError(f"fused window: {n_all} {k} launches, "
+                                     f"only {n_lanes} of them lane launches")
+        return n_disp, res, wall, launched
+
+    def per_collection(svc, reqs, path=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [svc.query(n, q, path=path) for n, q in reqs]
+        return res, time.perf_counter() - t0
+
+    def same(got, want, what):
+        for (gi, gs), (wi, ws) in zip(got, want):
+            if not np.array_equal(gi, wi):
+                raise AssertionError(f"{what}: fused ids differ from the "
+                                     "per-collection query")
+            if not np.allclose(gs, ws, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"{what}: fused scores differ by "
+                                     f"{float(np.abs(gs - ws).max())}")
+
+    def corpus_of(i, n, d):
+        g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        return make_corpus(n, d, g), g
+
+    out = {}
+    # -- 6a ---------------------------------------------------------------
+    f32_names = [f"f{i}" for i in range(len(F32_BATCHES))]
+    q8_names = [f"q{i}" for i in range(len(Q8_BATCHES))]
+    sizes = dict(zip(f32_names + q8_names, F32_BATCHES + Q8_BATCHES))
+    q8_cfg = dataclasses.replace(PAPER_100K, store_dtype="int8")
+    with MemoryService(batch_window=64, maintenance=False) as svc:
+        reqs = []
+        t0 = time.perf_counter()
+        for i, name in enumerate(f32_names + q8_names):
+            cfg = PAPER_100K if name in f32_names else q8_cfg
+            svc.create_collection(name, cfg, seed=seed + i)
+            x, g = corpus_of(i, 100_000, cfg.dim)
+            svc.build(name, x, ids=np.arange(100_000) + 1_000_000 * i)
+            pick = torch.randint(0, 100_000, (sizes[name],), generator=g,
+                                 device=dev)
+            reqs.append((name, perturb(x[pick], g)))
+            del x
+        out["build_12_s"] = time.perf_counter() - t0
+        out["6a_build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()        # the windows' own peak
+        if any(svc.collection(n).resolve_query(b, None, None, None)[2]
+               != "full_scan" for n, b in sizes.items()):
+            raise AssertionError("PAPER_100K routing changed")
+        bmax = {"f32": max(sizes[n] for n in f32_names),
+                "int8": max(sizes[n] for n in q8_names)}
+        want, _ = per_collection(svc, reqs)          # also the warm-up
+
+        n_disp, got, wall_first, launched = window(svc, reqs)
+        if n_disp != 2:
+            raise AssertionError(f"the mixed window flushed as {n_disp} "
+                                 "dispatches, not 2 (f32 and int8 apart)")
+        same(got, want, "6a full scan")
+        # one lane launch per kernel: the f32 group's scan_scores, the int8
+        # group's scan_scores_q8 (its rescore is exact f32 arithmetic)
+        if launched != {"scan_scores": (1, 1), "scan_scores_q8": (1, 1)}:
+            raise AssertionError(f"6a full-scan window launches {launched}")
+        st0 = svc.stats()["stack_cache"]
+        _, got, wall, _ = window(svc, reqs)
+        st1 = svc.stats()["stack_cache"]
+        if st1["hits"] != st0["hits"] + 2 or st1["misses"] != st0["misses"]:
+            raise AssertionError(f"repeated window: stack cache {st0} -> "
+                                 f"{st1}, not two hits")
+        same(got, want, "6a repeated window")
+        # host-clock walls vary on a shared host: medians of five
+        wall = float(np.median([window(svc, reqs)[2] for _ in range(5)]))
+        sync_s = float(np.median([per_collection(svc, reqs)[1]
+                                  for _ in range(5)]))
+        st1 = svc.stats()["stack_cache"]
+        n_q = sum(sizes.values())
+        out["6a_full"] = {
+            "tenants": "8 f32 + 4 int8 PAPER_100K", "queries": n_q,
+            "bmax": bmax, "dispatches": n_disp,
+            "first_window_s": wall_first, "window_s": wall,
+            "window_qps": n_q / wall, "sync_loop_s": sync_s,
+            "sync_loop_qps": n_q / sync_s, "launches": launched}
+
+        # an insert into one tenant: its group restacks, the row is seen
+        new_id = 1_000_000 * len(sizes) + 7
+        row = torch.nn.functional.normalize(
+            torch.randn(1, PAPER_100K.dim, device=dev), dim=1)
+        svc.insert("f3", row, ids=np.asarray([new_id], np.int32))
+        reqs2 = reqs + [("f3", row)]
+        want2, _ = per_collection(svc, reqs2)
+        _, got, _, _ = window(svc, reqs2)
+        st2 = svc.stats()["stack_cache"]
+        if st2["misses"] != st1["misses"] + 1 or \
+                st2["hits"] != st1["hits"] + 1:
+            raise AssertionError(f"after an insert: stack cache {st1} -> "
+                                 f"{st2}, not one miss and one hit")
+        same(got, want2, "6a after insert")
+        if int(got[-1][0][0, 0]) != new_id:
+            raise AssertionError("the inserted row is not visible to the "
+                                 "fused window")
+
+        # the fused probed template: 1 + Bmax lane launches per group
+        wantp, _ = per_collection(svc, reqs, path="probed")
+        n_disp, got, _, launched = window(svc, reqs, path="probed")
+        same(got, wantp, "6a probed")
+        wallp = float(np.median([window(svc, reqs, path="probed")[2]
+                                 for _ in range(3)]))
+        syncp_s = float(np.median([per_collection(svc, reqs, "probed")[1]
+                                   for _ in range(3)]))
+        want_l = {"scan_scores": (2 + bmax["f32"],) * 2,
+                  "scan_scores_q8": (bmax["int8"],) * 2}
+        if n_disp != 2 or launched != want_l:
+            raise AssertionError(f"6a probed window: {n_disp} dispatches, "
+                                 f"launches {launched}, not {want_l}")
+        out["6a_probed"] = {"window_s": wallp, "window_qps": n_q / wallp,
+                            "sync_loop_s": syncp_s,
+                            "sync_loop_qps": n_q / syncp_s,
+                            "launches": launched}
+        out["6a_stack_cache"] = svc.stats()["stack_cache"]
+
+        # a drop evicts every stack holding the tenant
+        gone = svc.collection("f5")
+        svc.drop_collection("f5")
+        held = [k for k in svc._stack_cache._entries
+                if any(c is gone for c, _ in k[1])]
+        if held:
+            raise AssertionError("drop_collection left stacks of the tenant")
+        out["6a_stack_cache_after_drop"] = svc.stats()["stack_cache"]
+        del gone, held
+    del svc, reqs, reqs2, want, want2, wantp, got, row
+    out["6a_windows_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    release()
+
+    # -- 6b ---------------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with MemoryService(batch_window=64, maintenance=False) as svc:
+        reqs = []
+        for i, name in enumerate(("m0", "m1")):
+            svc.create_collection(name, PAPER_1M, seed=seed + 20 + i)
+            x, g = corpus_of(20 + i, N_ROWS, PAPER_1M.dim)
+            svc.build(name, x, ids=np.arange(N_ROWS) + 10_000_000 * i)
+            reqs.append((name, perturb(x[:1], g)))
+            del x
+        out["6b_build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        if svc.collection("m0").resolve_query(1, None, None, None)[2] != \
+                "probed":
+            raise AssertionError("PAPER_1M routing changed")
+        want, _ = per_collection(svc, reqs)
+        sync_s = float(np.median([per_collection(svc, reqs)[1]
+                                  for _ in range(5)]))
+        n_disp, got, wall_first, launched = window(svc, reqs)
+        same(got, want, "6b")
+        for i, (ids, _) in enumerate(got):
+            if int(ids[0, 0]) != 10_000_000 * i:
+                raise AssertionError("6b: a query missed its own row")
+        walls = [window(svc, reqs)[2] for _ in range(5)]
+        if n_disp != 1 or launched != {"scan_scores": (2, 2),
+                                       "scan_scores_q8": (0, 0)}:
+            raise AssertionError(f"6b window: {n_disp} dispatches, "
+                                 f"launches {launched}")
+        out["6b_probed"] = {
+            "tenants": "2 f32 PAPER_1M", "queries": 2,
+            "first_window_s": wall_first,
+            "window_s_p50": float(np.median(walls)),
+            "window_qps": 2 / float(np.median(walls)),
+            "sync_loop_s": sync_s, "sync_loop_qps": 2 / sync_s,
+            "launches": launched,
+            "stack_cache": svc.stats()["stack_cache"]}
+    del svc, reqs, want, got
+    out["6b_windows_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    release()
+    out["card"] = card
+    out["launches"] = {k: m.launches.value for k, m in kernels.items()}
+    out["launches_by_lanes"] = {
+        k: {key: c.value for key, c in m.launches_by_lanes.items()}
+        for k, m in mods.items()}
+    out["launches_by_variant"] = {
+        k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"phase 6 never launched {k}")
+    # every scan a stream launch, every assignment a wgmma one
+    for k, by in out["launches_by_variant"].items():
+        fast = next(iter(by))
+        if by["generic"] or by[fast] != out["launches"][k]:
+            raise AssertionError(f"phase 6 {k} launches by variant {by}: "
+                                 f"not all {fast}")
     return out
 
 
@@ -725,9 +1171,11 @@ def main(argv=None) -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {k}: {line.strip()}")
 
-    # 3. kernels vs plain versions
+    # 3. kernels vs plain versions (and the scans' lane launches)
     t0 = time.perf_counter()
     kernels = phase_kernels(args.seed, PAPER_1M)
+    for k, lanes in phase_lanes(args.seed).items():
+        kernels[k]["lanes"] = lanes
     print(f"kernels checked in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4. main path, f32; 5. main path, int8 (after phase 4's memory is
@@ -740,7 +1188,14 @@ def main(argv=None) -> int:
         print(f"phase {phase}: main path PAPER_1M {cfg.store_dtype} in "
               f"{time.perf_counter() - t0:.1f} s [{card}]: "
               + json.dumps(out), flush=True)
-        torch.cuda.empty_cache()
+        release()
+    # 6. fused multi-tenant windows (after phase 5's memory is freed), the
+    # scans' counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["fused"] = fused = phase_fused(args.seed, card)
+    print(f"phase 6: fused windows in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(fused), flush=True)
+    release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):
         key = f"recall10_{path}"
@@ -748,14 +1203,19 @@ def main(argv=None) -> int:
             raise AssertionError(f"int8 {key} {q8[key]:.4f} < 0.95 x f32's "
                                  f"{f32[key]:.4f}")
     for kernel, entry in kernels.items():
-        by_path = {dtype: p["launches"][kernel] for dtype, p in paths.items()}
+        by_path = {dtype: p["launches"].get(kernel, 0)
+                   for dtype, p in paths.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if kernel in f32["launches_by_variant"]:
             entry["launches_by_variant"] = {
-                v: sum(p["launches_by_variant"][kernel][v]
+                v: sum(p["launches_by_variant"].get(kernel, {}).get(v, 0)
                        for p in paths.values())
                 for v in f32["launches_by_variant"][kernel]}
+        if "lanes" in entry:
+            entry["lanes"]["launches_fused"] = fused["launches"][kernel]
+            entry["lanes"]["launches_by_lanes_fused"] = \
+                fused["launches_by_lanes"][kernel]
 
     print(card)                  # nvidia-smi name, power.limit
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -228,6 +228,17 @@ class Collection:
         with self._lock:
             return self._version
 
+    def versioned_snapshot(self) -> Tuple[ivf.IVFState, int]:
+        """(state, version) read atomically under the pointer lock.
+
+        The fusion layer's stack cache (`repro_torch.api.batch.StackCache`)
+        tags a stacked G-state with the exact versions of the snapshots it
+        was built from; reading both under one lock acquisition means a
+        cache key can never pair a fresh version with a stale state.
+        """
+        with self._lock:
+            return self._state, self._version
+
     def _swap(self, state: ivf.IVFState, **counter_deltas) -> int:
         """Atomically publish a new state; returns the new version."""
         with self._lock:
@@ -525,6 +536,20 @@ class Collection:
         if path != "probed":
             nprobe = 0
         return k, nprobe, path
+
+    def batch_signature(self, batch: int, k, nprobe, path):
+        """Fusion key: collections whose pending queries share this key can
+        stack states and run as one lane-batched dispatch.
+
+        `(cfg, store_dtype, spill_capacity, mesh, k, nprobe, path)` as in
+        the reference: `cfg` pins the state shapes, `spill_capacity` the
+        spill block, the resolved `(k, nprobe, path)` triple the templates,
+        and the store policy is explicit so int8 and f32 lanes never fuse.
+        The mesh element is None (the port's collections are unsharded).
+        """
+        k, nprobe, path = self.resolve_query(batch, k, nprobe, path)
+        return (self.cfg, self.cfg.store_dtype, self.spill_capacity, None, k,
+                nprobe, path)
 
     def stats(self) -> dict:
         """Counters + index occupancy snapshot.  Syncs device scalars —

@@ -14,11 +14,16 @@ tombstone/spill pressure counters and, past the thresholds in its
 the scheduler — the delta-replay rebuild in `Collection` makes that safe
 under concurrent inserts/deletes.
 
+Cross-collection batching: queries submitted with ``batch=True`` park in
+a pending window; `flush` groups them by `Collection.batch_signature` and
+runs each multi-lane group as one lane-batched dispatch
+(`repro_torch.api.batch`), where every scan is one launch of a scan kernel
+with a lane axis.  `query_many` is the batched entry point.
+
 Persistence: `save`/`load` write and read one namespace directory per
 collection under ``collections/`` plus a ``service.json`` registry, in the
-reference's layout.  Cross-collection batching (`batch=True`, `flush`,
-`query_many`), residency tiers and sharded snapshots are later slices of
-the port and raise NotImplementedError.
+reference's layout.  Residency tiers and sharded collections are later
+slices of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -28,8 +33,12 @@ import os
 import re
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
+import torch
+
+from repro_torch.api import batch as fuse
 from repro_torch.api.collection import Collection, atomic_write_json, \
     later_slice
 from repro_torch.api.ops import MemoryOp, OpFuture
@@ -38,7 +47,7 @@ from repro_torch.core import locking
 from repro_torch.core import templates
 from repro_torch.core.scheduler import AdmissionControl, Overloaded, Task, \
     WindowedScheduler
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
 _NAME_RE = re.compile(r"^[A-Za-z0-9._-]+$")
 SERVICE_FILE = "service.json"
@@ -172,7 +181,8 @@ class MemoryService:
 
     Blocking behavior: `submit()` returns an `OpFuture` immediately (it
     blocks only while the scheduler's submission window is full — the
-    paper's windowed batch submission); the sync conveniences
+    paper's windowed batch submission — or while a full batch window
+    flushes); the sync conveniences
     (`build`/`insert`/`delete`/`query`/`rebuild`) are `.result()` wrappers
     and block until the op lands.  `shutdown()` blocks until the
     maintenance thread and (owned) scheduler workers exit; the service is
@@ -183,7 +193,7 @@ class MemoryService:
     """
 
     def __init__(self, *, scheduler: Optional[WindowedScheduler] = None,
-                 maintenance: bool = True,
+                 batch_window: int = 8, maintenance: bool = True,
                  maintenance_poll_interval_s: float = 0.05,
                  device_budget_bytes: Optional[int] = None,
                  residency_dir: Optional[str] = None,
@@ -200,6 +210,10 @@ class MemoryService:
         self._own_scheduler = scheduler is None
         self._collections: Dict[str, Collection] = {}
         self._lock = locking.make_rlock("_lock")
+        self.batch_window = batch_window
+        self._pending: List[Tuple[MemoryOp, OpFuture]] = []
+        # stacked G-states of fused groups, reused while no lane writes
+        self._stack_cache = fuse.StackCache()
         self._maintenance_enabled = maintenance
         self._maintenance_poll_interval_s = maintenance_poll_interval_s
         self._maintenance: Optional[MaintenanceController] = None
@@ -255,7 +269,11 @@ class MemoryService:
 
     def drop_collection(self, name: str) -> None:
         with self._lock:
-            self._collections.pop(name, None)
+            coll = self._collections.pop(name, None)
+        if coll is not None:
+            # a cached fused-group stack holds a full copy of the dropped
+            # tenant's state — release it now, not at LRU churn
+            self._stack_cache.evict(coll)
 
     def list_collections(self) -> List[str]:
         with self._lock:
@@ -270,13 +288,19 @@ class MemoryService:
     # ------------------------------------------------------------------
     def submit(self, op: MemoryOp) -> OpFuture:
         coll = self.collection(op.collection)     # missing tenant fails fast
-        if op.batch:
-            raise later_slice("cross-collection batched queries (batch=True)",
-                              "batch fusion")
         if op.kind not in ("build", "insert", "delete", "query", "rebuild"):
             raise later_slice(f"the {op.kind!r} op",
                               "residency / adaptive routing")
         fut = OpFuture(op)
+        if op.batch:                      # MemoryOp allows it on queries only
+            fut._on_wait = self.flush     # waiting on a parked op flushes
+            with self._lock:
+                # analyze: ok(LO002) list.append on _pending, not ShippingLog.append
+                self._pending.append((op, fut))
+                full = len(self._pending) >= self.batch_window
+            if full:
+                self.flush()
+            return fut
         plan = templates.route(op.kind, op.batch_size, coll.cfg,
                                coll.thresholds,
                                concurrent_queries=op.concurrent)
@@ -311,13 +335,155 @@ class MemoryService:
             return coll.rebuild(shard=op.shard)
         raise ValueError(f"unknown op kind {op.kind!r}")
 
+    # ------------------------------------------------------------------
+    # Cross-collection batched execution
+    # ------------------------------------------------------------------
     def flush(self) -> int:
-        raise later_slice("cross-collection batched queries (flush)",
-                          "batch fusion")
+        """Fuse pending batched queries and dispatch them.
 
-    def query_many(self, requests, k=None, nprobe=None, path=None):
-        raise later_slice("cross-collection batched queries (query_many)",
-                          "batch fusion")
+        Drains the pending window (ops submitted with ``batch=True``) and
+        groups it by execution signature (`Collection.batch_signature`:
+        cfg shapes, store policy, spill capacity and the resolved
+        `(k, nprobe, path)` triple).  A mixed window therefore splits into
+        independent groups, and each multi-op group becomes ONE scheduler
+        task running one lane-batched dispatch (`repro_torch.api.batch`).
+        A group with a single op has nothing to stack and takes the
+        ordinary per-op path.  Returns the number of dispatches submitted
+        (fused or singleton), so G same-signature tenants report as 1.
+
+        Who flushes: the window filling to ``batch_window`` ops, a caller
+        waiting on a parked future (`OpFuture.wait` calls this method, so a
+        parked op never hangs), `query_many`, `shutdown()`, or an explicit
+        call.  Safe to race from several threads: the window is snatched
+        under the registry lock, so every pending op is dispatched once.
+
+        Error propagation: a signature failure (e.g. the collection was
+        dropped between park and flush) settles that op's future with the
+        error; a failure while submitting or executing a group settles
+        every still-pending future in the group.
+        """
+        with self._lock:
+            pending, self._pending = self._pending, []
+        if not pending:
+            return 0
+
+        groups: Dict[tuple, List[Tuple[MemoryOp, OpFuture]]] = {}
+        for op, fut in pending:
+            try:
+                coll = self.collection(op.collection)
+                sig = coll.batch_signature(op.batch_size, op.k, op.nprobe,
+                                           op.path)
+            except BaseException as e:    # noqa: BLE001 — owed to the future
+                fut._set_error(e)
+                continue
+            groups.setdefault(sig, []).append((op, fut))
+
+        n = 0
+        for sig, ops in groups.items():
+            cfg, _dtype, _spill, _mesh, k, nprobe, path = sig
+            try:
+                if len(ops) == 1:
+                    # a lone op has nothing to fuse with: the per-op path
+                    op, fut = ops[0]
+                    self._submit_single_query(op, fut, k, nprobe, path)
+                else:
+                    self._submit_fused(ops, cfg, k, nprobe, path)
+                n += 1
+            except BaseException as e:    # noqa: BLE001 — e.g. a concurrent
+                for _, fut in ops:        # drop_collection; never strand a
+                    if not fut.done():    # future in a dead group
+                        fut._set_error(e)
+        return n
+
+    def _submit_single_query(self, op: MemoryOp, fut: OpFuture,
+                             k: int, nprobe: int, path: str) -> None:
+        coll = self.collection(op.collection)
+
+        def fn():
+            try:
+                out = coll.query(op.payload, k=k, nprobe=nprobe, path=path)
+            except BaseException as e:    # noqa: BLE001
+                fut._set_error(e)
+                raise
+            fut._set_result(out)
+            return out
+
+        plan = templates.route("query", op.batch_size, coll.cfg,
+                               coll.thresholds)
+        nbytes = getattr(op.payload, "nbytes", 0)
+        fut.task = self.scheduler.submit(
+            Task(fn=fn, kind="query", backend=plan.backend,
+                 priority=plan.priority, size_bytes=int(nbytes)))
+
+    def _submit_fused(self, ops: List[Tuple[MemoryOp, OpFuture]],
+                      cfg: EngineConfig, k: int, nprobe: int,
+                      path: str) -> None:
+        """Submit one same-signature group as ONE fused scheduler task.
+
+        Lane assembly: one lane per distinct collection; several ops
+        against the same collection concatenate into its lane and demux by
+        row span, so a group degenerates gracefully to G = 1 (one lane,
+        one stacked state — still a single dispatch).
+
+        The task routes through `templates.route(..., fused_lanes=G)` —
+        fused dispatches are throughput-class regardless of per-lane batch.
+        Error propagation mirrors `flush`: any failure inside the task
+        (`execute_group`'s ValueError for `path="hnsw"` lanes, its
+        `NotResident` for a lane without a state) settles every
+        still-pending future in the group before re-raising to the
+        scheduler.
+        """
+        lanes: Dict[str, dict] = {}
+        for op, fut in ops:
+            lane = lanes.setdefault(
+                op.collection,
+                {"coll": self.collection(op.collection), "qs": [],
+                 "entries": [], "rows": 0})
+            q = as_tensor(op.payload, torch.float32, lane["coll"].device)
+            q = q[None] if q.dim() == 1 else q
+            lane["entries"].append((fut, lane["rows"], lane["rows"] + len(q)))
+            lane["qs"].append(q)
+            lane["rows"] += len(q)
+        order = sorted(lanes)
+        futs = [fut for op, fut in ops]
+
+        def fn():
+            try:
+                colls = [lanes[nm]["coll"] for nm in order]
+                qs = [torch.cat(lanes[nm]["qs"]) for nm in order]
+                results = fuse.execute_group(colls, qs, cfg, k, nprobe, path,
+                                             cache=self._stack_cache)
+                fuse.demux([lanes[nm]["entries"] for nm in order], results)
+            except BaseException as e:    # noqa: BLE001
+                for fut in futs:
+                    if not fut.done():
+                        fut._set_error(e)
+                raise
+            return len(results)
+
+        total = sum(lanes[nm]["rows"] for nm in order)
+        plan = templates.route("query", total, cfg, fused_lanes=len(order))
+        nbytes = sum(int(getattr(op.payload, "nbytes", 0)) for op, _ in ops)
+        task = Task(fn=fn, kind="query", backend=plan.backend,
+                    priority=plan.priority, size_bytes=nbytes)
+        self.scheduler.submit(task)
+        for fut in futs:
+            fut.task = task
+
+    def query_many(self, requests: Iterable[Tuple[str, "np.ndarray"]],
+                   k: Optional[int] = None, nprobe: Optional[int] = None,
+                   path: Optional[str] = None) -> List[tuple]:
+        """Batched entry point: fuse queries across collections.
+
+        requests: iterable of (collection_name, queries).  Returns per-
+        request (ids, scores) in request order — identical to calling
+        `query()` per request, minus the per-tenant dispatches.
+        """
+        futs = [self.submit(MemoryOp("query", name, q, k=k, nprobe=nprobe,
+                                     path=path, batch=True))
+                for name, q in requests]
+        self.flush()
+        return [f.result() for f in futs]
 
     # ------------------------------------------------------------------
     # Synchronous conveniences — thin .result() wrappers.
@@ -353,13 +519,15 @@ class MemoryService:
             maint = self._maintenance
         return {"collections": {n: c.stats() for n, c in colls.items()},
                 "scheduler": sched.stats() if sched is not None else {},
-                "maintenance": maint.stats() if maint is not None else {}}
+                "maintenance": maint.stats() if maint is not None else {},
+                "stack_cache": self._stack_cache.stats()}
 
     def shutdown(self) -> None:
         with self._lock:
             maint, self._maintenance = self._maintenance, None
         if maint is not None:
             maint.stop()
+        self.flush()
         if self._own_scheduler:
             with self._lock:
                 sched, self._scheduler = self._scheduler, None
@@ -393,7 +561,8 @@ class MemoryService:
     @classmethod
     def load(cls, directory: str, *,
              scheduler: Optional[WindowedScheduler] = None,
-             step: Optional[int] = None, maintenance: bool = True,
+             batch_window: int = 8, step: Optional[int] = None,
+             maintenance: bool = True,
              mesh=None, reshard: bool = False,
              device_budget_bytes: Optional[int] = None,
              residency_dir: Optional[str] = None,
@@ -406,7 +575,8 @@ class MemoryService:
                               "the sharded tier")
         with open(os.path.join(directory, SERVICE_FILE)) as f:
             registry = json.load(f)
-        svc = cls(scheduler=scheduler, maintenance=maintenance,
+        svc = cls(scheduler=scheduler, batch_window=batch_window,
+                  maintenance=maintenance,
                   device_budget_bytes=device_budget_bytes,
                   residency_dir=residency_dir, idle_demote_s=idle_demote_s,
                   cold_after_s=cold_after_s, device=device)

@@ -496,13 +496,16 @@ def replay(state: IVFState, log, cfg: EngineConfig) -> Tuple[IVFState, int, int]
 # Query
 # ---------------------------------------------------------------------------
 
+# The flat views and the rescore below are lane-aware: on a stacked state
+# (every leaf with a leading lane axis G, see `api.batch.stack_states`) they
+# concatenate along the slot axis per lane and return [G, ...] results.
+
 def _flat_ids(state: IVFState) -> torch.Tensor:
-    return torch.cat([state.list_ids.reshape(-1), state.spill_ids], dim=0)
+    return torch.cat([state.list_ids.flatten(-2), state.spill_ids], dim=-1)
 
 
 def _flat_rows(state: IVFState) -> Tuple[torch.Tensor, torch.Tensor]:
-    c, l, d = state.lists.shape
-    rows = torch.cat([state.lists.reshape(c * l, d), state.spill], dim=0)
+    rows = torch.cat([state.lists.flatten(-3, -2), state.spill], dim=-2)
     return rows, _flat_ids(state)
 
 
@@ -515,7 +518,7 @@ def flat_rows_host(state: IVFState) -> Tuple[np.ndarray, np.ndarray]:
 
 def _metric_norms(rows: torch.Tensor, metric: str) -> Optional[torch.Tensor]:
     if metric == "l2":
-        return (rows.float() ** 2).sum(1)
+        return (rows.float() ** 2).sum(-1)
     return None
 
 
@@ -536,44 +539,63 @@ def _flat_codes(state: IVFState):
     """Quantized analogue of `_flat_rows`: the int8 coarse-scan stream with
     per-row-expanded scale/zero/norm sidebands (the lists tier repeats its
     per-list scalars over L slots; the spill tier is already per-row)."""
-    c, l, d = state.q_lists.shape
-    codes = torch.cat([state.q_lists.reshape(c * l, d), state.q_spill])
-    scales = torch.cat([state.q_scales.repeat_interleave(l),
-                        state.q_spill_scales])
-    zeros = torch.cat([state.q_zeros.repeat_interleave(l),
-                       state.q_spill_zeros])
-    norms = torch.cat([state.q_norms.reshape(c * l), state.q_spill_norms])
+    l = state.q_lists.shape[-2]
+    codes = torch.cat([state.q_lists.flatten(-3, -2), state.q_spill], dim=-2)
+    scales = torch.cat([state.q_scales.repeat_interleave(l, dim=-1),
+                        state.q_spill_scales], dim=-1)
+    zeros = torch.cat([state.q_zeros.repeat_interleave(l, dim=-1),
+                       state.q_spill_zeros], dim=-1)
+    norms = torch.cat([state.q_norms.flatten(-2), state.q_spill_norms],
+                      dim=-1)
     return codes, scales, zeros, norms
 
 
+def _lane_index(state: IVFState, idx: torch.Tensor) -> tuple:
+    """The leading index that makes `leaf[(*lane, idx)]` read lane g's own
+    slots for idx [G, ...] of a stacked state; () for one collection."""
+    if state.lists.dim() == 3:
+        return ()
+    g = state.lists.shape[0]
+    return (torch.arange(g, device=idx.device).view(
+        g, *([1] * (idx.dim() - 1))),)
+
+
+def _take(state: IVFState, flat: torch.Tensor, idx: torch.Tensor):
+    """flat[idx] per lane: `flat` [(G,) N(, D)] indexed along its slot axis
+    by idx [(G,) ...]."""
+    return flat[(*_lane_index(state, idx), idx)]
+
+
 def _gather_flat_rows(state: IVFState, cand: torch.Tensor) -> torch.Tensor:
-    """f32 rows for flat candidate indices [..., R] (lists first, then
+    """f32 rows for flat candidate indices [(G,) ..., R] (lists first, then
     spill — `_flat_rows` order) without materialising the flat copy."""
-    c, l, _ = state.lists.shape
+    c, l, _ = state.lists.shape[-3:]
     n_list = c * l
+    lane = _lane_index(state, cand)
     li = cand.clamp(0, n_list - 1)
-    in_rows = state.lists[li // l, li % l]
-    sp_rows = state.spill[(cand - n_list).clamp(0, state.spill.shape[0] - 1)]
+    in_rows = state.lists[(*lane, li // l, li % l)]
+    sp_rows = state.spill[(*lane, (cand - n_list).clamp(
+        0, state.spill.shape[-2] - 1))]
     return torch.where((cand >= n_list)[..., None], sp_rows, in_rows)
 
 
 def _rescore_topk(q: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
                   metric: str, k: int):
-    """Exact f32 rescore of candidate rows f32[B, R, D] -> top-k.
+    """Exact f32 rescore of candidate rows f32[(G,) B, R, D] -> top-k.
 
     An elementwise product and a sum, never a matrix product, so it stays
     exact f32 whatever the global TF32 flag says: the rescore exists to
     erase the coarse tier's quantization error.  Returns (ids, scores,
     rows) at the final k.
     """
-    s = (rows * q.float()[:, None, :]).sum(-1)
+    s = (rows * q.float()[..., None, :]).sum(-1)
     if metric == "l2":
         s = (rows * rows).sum(-1) - 2.0 * s
     mask_val = float("inf") if metric == "l2" else float("-inf")
     s = torch.where(ids >= 0, s, mask_val)
-    top, ii = torch.topk(_order_scores(s, metric), k, dim=1)
-    return (ids.gather(1, ii), top,
-            torch.take_along_dim(rows, ii[..., None], dim=1))
+    top, ii = torch.topk(_order_scores(s, metric), k, dim=-1)
+    return (ids.gather(-1, ii), top,
+            torch.take_along_dim(rows, ii[..., None], dim=-2))
 
 
 def _rescore_r(cfg: EngineConfig, k: int, n: int) -> int:
@@ -595,11 +617,11 @@ def _query_full_scan_q8(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     codes, scales, zeros, norms = _flat_codes(state)
     ids = _flat_ids(state)
     coarse = _scan_q8(q, codes, ids, scales, zeros, norms, cfg)
-    r = _rescore_r(cfg, k, codes.shape[0])
+    r = _rescore_r(cfg, k, codes.shape[-2])
     del codes, scales, zeros, norms
-    cand = torch.topk(_order_scores(coarse, cfg.metric), r, dim=1).indices
+    cand = torch.topk(_order_scores(coarse, cfg.metric), r, dim=-1).indices
     rows = _gather_flat_rows(state, cand)
-    return _rescore_topk(q, rows, ids[cand], cfg.metric, k)
+    return _rescore_topk(q, rows, _take(state, ids, cand), cfg.metric, k)
 
 
 def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -609,15 +631,16 @@ def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     Returns (ids i32[B, k], scores f32[B, k]); l2 scores are negated
     distances, as in the reference.  Under the int8 store policy this is
     the two-stage pipeline: quantized coarse scan, then an exact f32
-    rescore of the top `cfg.rescore_k`.
+    rescore of the top `cfg.rescore_k`.  On a stacked state (q f32[G, B,
+    D]) every lane is answered by one lane scan: (ids, scores) [G, B, k].
     """
     if cfg.quantized:
         out_ids, top, _ = _query_full_scan_q8(state, q, cfg, k)
         return out_ids, top
     rows, ids = _flat_rows(state)
     scores = _scan(q, rows, ids, cfg)
-    top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
-    return ids[idx], top
+    top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=-1)
+    return _take(state, ids, idx), top
 
 
 def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -638,74 +661,97 @@ def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
 
     Centroid scores are one small scan; each query then gathers its nprobe
     lists (contiguous slabs) plus the spill buffer and runs one fused scan
-    over [nprobe*L + spill] rows, query by query to bound the working set.
-    Under the int8 policy the probed slabs stream as int8 codes with their
-    per-list scalars, and the survivors are rescored in f32.
+    over [nprobe*L + spill] rows, query by query to bound the working set
+    (the reference's `lax.map`).  Under the int8 policy the probed slabs
+    stream as int8 codes with their per-list scalars, and the survivors
+    are rescored in f32.
+
+    On a stacked state (every leaf with a leading lane axis G, q f32[G, B,
+    D]) each of those scans is one lane launch for all G collections —
+    1 + B launches — and (ids, scores) are [G, B, k]; a single collection
+    is the G = 1 case.
     """
-    c, l, d = state.lists.shape
+    if state.lists.dim() == 3:
+        ids, scores = query_probed(
+            IVFState(*[None if t is None else t[None] for t in state]),
+            q[None], cfg, k, nprobe)
+        return ids[0], scores[0]
+    g, c, l, _ = state.lists.shape
     # clamp so topk's k <= axis holds even when a caller asks for more
     # probes than there are clusters
     nprobe = max(1, min(nprobe, c))
-    cvalid = torch.arange(c, dtype=torch.int32, device=state.device)
+    cvalid = torch.arange(c, dtype=torch.int32,
+                          device=state.device).expand(g, c).contiguous()
     cscores = _scan(q, state.centroids, cvalid, cfg)
     probes = torch.topk(_order_scores(cscores, cfg.metric), nprobe,
-                        dim=1).indices
-    s_cap = state.spill.shape[0]
+                        dim=-1).indices
     out_ids, out_scores = [], []
-    for i in range(q.shape[0]):
-        pi = probes[i]
+    for i in range(q.shape[1]):
+        pi = probes[:, i]                                  # [G, nprobe]
+        qi = q[:, i:i + 1].contiguous()                    # [G, 1, D]
         if cfg.quantized:
-            ids_i, top = _probe_q8(state, q[i:i + 1], pi, cfg, k)
-            out_ids.append(ids_i)
-            out_scores.append(top)
-            continue
-        rows = torch.empty((nprobe * l + s_cap, d), dtype=torch.float32,
-                           device=state.device)
-        torch.index_select(state.lists, 0, pi,
-                           out=rows[:nprobe * l].view(nprobe, l, d))
-        rows[nprobe * l:] = state.spill
-        rids = torch.cat([state.list_ids[pi].reshape(nprobe * l),
-                          state.spill_ids])
-        s = _scan(q[i:i + 1], rows, rids, cfg)
-        top, idx = torch.topk(_order_scores(s, cfg.metric)[0], k)
-        out_ids.append(rids[idx])
+            ids_i, top = _probe_q8(state, qi, pi, cfg, k)
+        else:
+            rows = _gather_slabs(state.lists, pi, state.spill)
+            rids = _gather_slabs(state.list_ids, pi, state.spill_ids)
+            s = _scan(qi, rows, rids, cfg)[:, 0]
+            del rows
+            top, idx = torch.topk(_order_scores(s, cfg.metric), k, dim=-1)
+            ids_i = rids.gather(1, idx)
+        out_ids.append(ids_i)
         out_scores.append(top)
     if not out_ids:
-        return (torch.empty((0, k), dtype=torch.int32, device=state.device),
-                torch.empty((0, k), dtype=torch.float32, device=state.device))
-    return torch.stack(out_ids), torch.stack(out_scores)
+        return (torch.empty((g, 0, k), dtype=torch.int32, device=state.device),
+                torch.empty((g, 0, k), dtype=torch.float32,
+                            device=state.device))
+    return torch.stack(out_ids, 1), torch.stack(out_scores, 1)
+
+
+def _gather_slabs(src: torch.Tensor, pi: torch.Tensor,
+                  tail: torch.Tensor) -> torch.Tensor:
+    """[G, nprobe * L + S, ...]: lane g's probed lists src[g][pi[g]] as
+    contiguous slabs, then its spill-tier `tail[g]` (src [G, C, L, ...],
+    pi [G, nprobe], tail [G, S, ...]); one copy of each."""
+    g, nprobe = pi.shape
+    l, inner = src.shape[2], src.shape[3:]
+    out = torch.empty((g, nprobe * l + tail.shape[1], *inner),
+                      dtype=src.dtype, device=src.device)
+    for j in range(g):
+        torch.index_select(src[j], 0, pi[j],
+                           out=out[j, :nprobe * l].view(nprobe, l, *inner))
+    out[:, nprobe * l:] = tail
+    return out
 
 
 def _probe_q8(state: IVFState, qi: torch.Tensor, pi: torch.Tensor,
               cfg: EngineConfig, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One query qi f32[1, D] over its probed lists `pi` and the spill
-    buffer: int8 coarse scan, then the survivors' f32 rows (probed-slab
-    indices map through `pi`) rescored exactly."""
-    _, l, d = state.lists.shape
-    nprobe, s_cap = pi.shape[0], state.spill.shape[0]
-    n_probe_rows = nprobe * l
-    codes = torch.empty((n_probe_rows + s_cap, d), dtype=torch.int8,
-                        device=state.device)
-    torch.index_select(state.q_lists, 0, pi,
-                       out=codes[:n_probe_rows].view(nprobe, l, d))
-    codes[n_probe_rows:] = state.q_spill
-    rids = torch.cat([state.list_ids[pi].reshape(n_probe_rows),
-                      state.spill_ids])
-    scales = torch.cat([state.q_scales[pi].repeat_interleave(l),
-                        state.q_spill_scales])
-    zeros = torch.cat([state.q_zeros[pi].repeat_interleave(l),
-                       state.q_spill_zeros])
-    norms = torch.cat([state.q_norms[pi].reshape(n_probe_rows),
-                       state.q_spill_norms])
-    s = _scan_q8(qi, codes, rids, scales, zeros, norms, cfg)
-    r = _rescore_r(cfg, k, codes.shape[0])
-    cand = torch.topk(_order_scores(s, cfg.metric), r, dim=1).indices
+    """One query per lane, qi f32[G, 1, D], over lane g's probed lists
+    pi[g] and its spill: int8 coarse scan, then the survivors' f32 rows
+    (probed-slab indices map through pi) rescored exactly.  Returns (ids
+    i32[G, k], scores f32[G, k])."""
+    g, _, l, _ = state.lists.shape
+    n_probe_rows = pi.shape[1] * l
+    codes = _gather_slabs(state.q_lists, pi, state.q_spill)
+    rids = _gather_slabs(state.list_ids, pi, state.spill_ids)
+    norms = _gather_slabs(state.q_norms, pi, state.q_spill_norms)
+    scales = torch.cat([state.q_scales.gather(1, pi).repeat_interleave(
+        l, dim=1), state.q_spill_scales], dim=1)
+    zeros = torch.cat([state.q_zeros.gather(1, pi).repeat_interleave(
+        l, dim=1), state.q_spill_zeros], dim=1)
+    s = _scan_q8(qi, codes, rids, scales, zeros, norms, cfg)    # [G, 1, N]
+    r = _rescore_r(cfg, k, codes.shape[1])
+    del codes
+    cand = torch.topk(_order_scores(s, cfg.metric), r, dim=-1).indices
+    lane = torch.arange(g, device=state.device).view(g, 1, 1)
     li = cand.clamp(0, n_probe_rows - 1)
-    in_rows = state.lists[pi[li // l], li % l]
-    sp = state.spill[(cand - n_probe_rows).clamp(0, s_cap - 1)]
+    lists = pi.gather(1, (li // l).view(g, -1)).view_as(li)
+    in_rows = state.lists[lane, lists, li % l]
+    sp = state.spill[lane, (cand - n_probe_rows).clamp(
+        0, state.spill.shape[1] - 1)]
     rows = torch.where((cand >= n_probe_rows)[..., None], sp, in_rows)
-    out_ids, top, _ = _rescore_topk(qi, rows, rids[cand], cfg.metric, k)
-    return out_ids[0], top[0]
+    out_ids, top, _ = _rescore_topk(qi, rows, rids[lane, cand], cfg.metric,
+                                    k)
+    return out_ids[:, 0], top[:, 0]
 
 
 # ---------------------------------------------------------------------------

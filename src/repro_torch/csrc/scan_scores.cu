@@ -13,6 +13,14 @@
 // byte — far under the H100's ~295 flop/byte bf16 ridge for every batch the
 // router sends here (B = 1 probed, B >= 2 full scan).
 //
+// A launch takes a lane axis (what the TPU kernel runs under `vmap` for a
+// cross-collection fused query): G same-shaped scans, Q f32[G, B, D] against
+// DB f32[G, N, D] (ids, norms [G, N]; scores [G, B, N]), lane g on
+// blockIdx.z with every operand offset by its lane stride.  A lane's
+// arithmetic is that of a G = 1 launch on its operands, bit for bit: the
+// depth order of each output's sum does not depend on the lane, the query
+// tile or the grid.
+//
 // Two variants, chosen by the wrapper from shapes and alignment alone:
 //
 // `stream` (D % 4 == 0, 16-byte-aligned q and db, the query tile fits in
@@ -82,6 +90,12 @@ scan_scores_kernel(const float* __restrict__ q, const float* __restrict__ db,
                    const float* __restrict__ norms, float* __restrict__ out,
                    int B, int N, int D, int l2, int vec4) {
   constexpr int BM = 16 * MF;
+  const size_t coll = blockIdx.z;  // the lane
+  q += coll * B * D;
+  db += coll * N * D;
+  ids += coll * N;
+  if (l2) norms += coll * N;
+  out += coll * B * N;
   constexpr int TILE_BYTES = (BM + BN) * LDS * 2;
   constexpr int STAGE_BYTES = BM * STAGE_LD * 4;
   constexpr int SMEM = TILE_BYTES > STAGE_BYTES ? TILE_BYTES : STAGE_BYTES;
@@ -195,7 +209,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// QT = resident queries per block (blockIdx.y selects the query tile).
+// QT = resident queries per block (blockIdx.y selects the query tile,
+// blockIdx.z the lane).
 template <int QT>
 __global__ void __launch_bounds__(scan_stream::THREADS, 1)
 scan_scores_stream_kernel(const __grid_constant__ CUtensorMap db_map,
@@ -207,6 +222,11 @@ scan_scores_stream_kernel(const __grid_constant__ CUtensorMap db_map,
   using namespace scan_stream;
   constexpr int NB = QT / 8;                // n8 blocks of queries
   constexpr int BOX_K = BOX_BYTES / 4;      // f32 depth per stage
+  const size_t coll = blockIdx.z;  // the lane; its rows come through db_map
+  q += coll * B * D;
+  ids += coll * N;
+  if (l2) norms += coll * N;
+  out += coll * B * N;
   extern __shared__ uint8_t smem_raw[];
   const Smem sm = carve_smem(smem_raw, stages);
   uint8_t* s_q = sm.rest;                   // [QT][dpad] bf16 (+ QPAD)
@@ -342,11 +362,12 @@ scan_scores_stream_kernel(const __grid_constant__ CUtensorMap db_map,
 
 template <int QT>
 int launch_stream(const float* q, const float* db, const int* ids,
-                  const float* norms, float* out, int B, int N, int D, int l2,
-                  cudaStream_t s) {
+                  const float* norms, float* out, int G, int B, int N, int D,
+                  int l2, cudaStream_t s) {
   using namespace scan_stream;
   CUtensorMap map;
-  int err = encode_rows(&map, db, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, N, D);
+  int err =
+      encode_lanes(&map, db, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, G, N, D);
   if (err) return err;
   const int box_k = BOX_BYTES / 4;
   const int qrow = (D + box_k - 1) / box_k * box_k * 2;
@@ -356,44 +377,46 @@ int launch_stream(const float* q, const float* db, const int* ids,
   const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
   const int n_qt = (B + QT - 1) / QT;
   const int gx = persistent_blocks(scan_scores_stream_kernel<QT>, smem,
-                                   n_tiles, n_qt, &err);
+                                   n_tiles, n_qt, G, &err);
   if (err) return err;
   scan_scores_stream_kernel<QT>
-      <<<dim3(gx, n_qt), scan_stream::THREADS, smem, s>>>(
+      <<<dim3(gx, n_qt, G), scan_stream::THREADS, smem, s>>>(
           map, q, ids, norms, out, B, N, D, l2, stages);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point (loaded through ctypes).  variant 1 = stream (the
-// caller has checked its shape and alignment rules), 0 = generic.  Launches
+// Plain C entry point (loaded through ctypes): G lanes of [B, D] queries
+// over [N, D] rows (G = 1: one scan).  variant 1 = stream (the caller has
+// checked its shape and alignment rules), 0 = generic.  Launches
 // on `stream` and returns cudaGetLastError() (or the setup's error) so the
 // caller can raise on a refused launch.
 extern "C" int scan_scores_launch(const float* q, const float* db,
                                   const int* ids, const float* norms,
-                                  float* out, int B, int N, int D, int l2,
-                                  int vec4, int variant, void* stream) {
+                                  float* out, int G, int B, int N, int D,
+                                  int l2, int vec4, int variant,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
     switch (scan_stream::query_tile(B)) {
       case 8:
-        return launch_stream<8>(q, db, ids, norms, out, B, N, D, l2, s);
+        return launch_stream<8>(q, db, ids, norms, out, G, B, N, D, l2, s);
       case 16:
-        return launch_stream<16>(q, db, ids, norms, out, B, N, D, l2, s);
+        return launch_stream<16>(q, db, ids, norms, out, G, B, N, D, l2, s);
       case 32:
-        return launch_stream<32>(q, db, ids, norms, out, B, N, D, l2, s);
+        return launch_stream<32>(q, db, ids, norms, out, G, B, N, D, l2, s);
       default:
-        return launch_stream<64>(q, db, ids, norms, out, B, N, D, l2, s);
+        return launch_stream<64>(q, db, ids, norms, out, G, B, N, D, l2, s);
     }
   }
   dim3 block(THREADS);
   if (B <= 16) {
-    dim3 grid((N + BN - 1) / BN, (B + 15) / 16);
+    dim3 grid((N + BN - 1) / BN, (B + 15) / 16, G);
     scan_scores_kernel<1><<<grid, block, 0, s>>>(q, db, ids, norms, out, B,
                                                  N, D, l2, vec4);
   } else {
-    dim3 grid((N + BN - 1) / BN, (B + 63) / 64);
+    dim3 grid((N + BN - 1) / BN, (B + 63) / 64, G);
     scan_scores_kernel<4><<<grid, block, 0, s>>>(q, db, ids, norms, out, B,
                                                  N, D, l2, vec4);
   }

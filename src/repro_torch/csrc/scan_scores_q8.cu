@@ -21,6 +21,12 @@
 // sends here (B = 1 probed, B = 64 full scan).  The f32 score matrix it
 // writes (4B bytes per row) is the second largest stream.
 //
+// A launch takes a lane axis (what the TPU kernel runs under `vmap` for a
+// cross-collection fused query): G same-shaped scans, QC [G, B, D] (sq,
+// corr [G, B]) against CODES [G, N, D] (ids, scales, zeros, norms [G, N];
+// scores [G, B, N]), lane g on blockIdx.z with every operand offset by its
+// lane stride and the arithmetic of a G = 1 launch on its operands.
+//
 // The TPU kernel's sequential depth grid axis and its int32 scratch
 // accumulator become a loop over all of D inside the block, with the
 // accumulator in registers.  Two variants, chosen by the wrapper from
@@ -105,6 +111,16 @@ scan_scores_q8_kernel(const int8_t* __restrict__ qc,
                       float* __restrict__ out, int B, int N, int D, int l2,
                       int vec16) {
   constexpr int BM = 16 * MF;
+  const size_t coll = blockIdx.z;  // the lane
+  qc += coll * B * D;
+  codes += coll * N * D;
+  ids += coll * N;
+  scales += coll * N;
+  zeros += coll * N;
+  if (l2) norms += coll * N;
+  sq += coll * B;
+  corr += coll * B;
+  out += coll * B * N;
   constexpr int TILE_BYTES = (BM + BN) * BK;
   constexpr int STAGE_BYTES = BM * STAGE_LD * 4;
   constexpr int SMEM = TILE_BYTES > STAGE_BYTES ? TILE_BYTES : STAGE_BYTES;
@@ -223,7 +239,8 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// QT = resident query rows per block (blockIdx.y selects the query tile).
+// QT = resident query rows per block (blockIdx.y selects the query tile,
+// blockIdx.z the lane).
 template <int QT>
 __global__ void __launch_bounds__(scan_stream::THREADS, 1)
 scan_scores_q8_stream_kernel(const __grid_constant__ CUtensorMap code_map,
@@ -238,6 +255,15 @@ scan_scores_q8_stream_kernel(const __grid_constant__ CUtensorMap code_map,
                              int l2, int stages) {
   using namespace scan_stream;
   constexpr int NB = QT / 8;                // n8 blocks of queries
+  const size_t coll = blockIdx.z;  // the lane; its codes come via code_map
+  qc += coll * B * D;
+  ids += coll * N;
+  scales += coll * N;
+  zeros += coll * N;
+  if (l2) norms += coll * N;
+  sq += coll * B;
+  corr += coll * B;
+  out += coll * B * N;
   extern __shared__ uint8_t smem_raw[];
   const Smem sm = carve_smem(smem_raw, stages);
   float* s_sq = reinterpret_cast<float*>(sm.rest);
@@ -379,11 +405,12 @@ scan_scores_q8_stream_kernel(const __grid_constant__ CUtensorMap code_map,
 template <int QT>
 int launch_stream(const int8_t* qc, const int8_t* codes, const int* ids,
                   const float* scales, const float* zeros, const float* norms,
-                  const float* sq, const float* corr, float* out, int B, int N,
-                  int D, int l2, cudaStream_t s) {
+                  const float* sq, const float* corr, float* out, int G, int B,
+                  int N, int D, int l2, cudaStream_t s) {
   using namespace scan_stream;
   CUtensorMap map;
-  int err = encode_rows(&map, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, N, D);
+  int err =
+      encode_lanes(&map, codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, G, N, D);
   if (err) return err;
   const int qrow = (D + BOX_BYTES - 1) / BOX_BYTES * BOX_BYTES;
   const int side = 2 * QT * 4;
@@ -393,10 +420,10 @@ int launch_stream(const int8_t* qc, const int8_t* codes, const int* ids,
   const int n_tiles = (N + TILE_ROWS - 1) / TILE_ROWS;
   const int n_qt = (B + QT - 1) / QT;
   const int gx = persistent_blocks(scan_scores_q8_stream_kernel<QT>, smem,
-                                   n_tiles, n_qt, &err);
+                                   n_tiles, n_qt, G, &err);
   if (err) return err;
   scan_scores_q8_stream_kernel<QT>
-      <<<dim3(gx, n_qt), scan_stream::THREADS, smem, s>>>(
+      <<<dim3(gx, n_qt, G), scan_stream::THREADS, smem, s>>>(
           map, qc, ids, scales, zeros, norms, sq, corr, out, B, N, D, l2,
           stages);
   return static_cast<int>(cudaGetLastError());
@@ -404,7 +431,8 @@ int launch_stream(const int8_t* qc, const int8_t* codes, const int* ids,
 
 }  // namespace
 
-// Plain C entry point (loaded through ctypes).  variant 1 = stream (the
+// Plain C entry point (loaded through ctypes): G lanes of [B, D] query
+// codes over [N, D] code rows (G = 1: one scan).  variant 1 = stream (the
 // caller has checked its shape and alignment rules), 0 = generic.  Launches
 // on `stream` and returns cudaGetLastError() (or the setup's error) so the
 // caller can raise on a refused launch.
@@ -412,13 +440,14 @@ extern "C" int scan_scores_q8_launch(const int8_t* qc, const int8_t* codes,
                                      const int* ids, const float* scales,
                                      const float* zeros, const float* norms,
                                      const float* sq, const float* corr,
-                                     float* out, int B, int N, int D, int l2,
-                                     int vec16, int variant, void* stream) {
+                                     float* out, int G, int B, int N, int D,
+                                     int l2, int vec16, int variant,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (variant == 1) {
 #define SCAN_Q8_STREAM(QT)                                                 \
   return launch_stream<QT>(qc, codes, ids, scales, zeros, norms, sq, corr, \
-                           out, B, N, D, l2, s)
+                           out, G, B, N, D, l2, s)
     switch (scan_stream::query_tile(B)) {
       case 8: SCAN_Q8_STREAM(8);
       case 16: SCAN_Q8_STREAM(16);
@@ -429,12 +458,12 @@ extern "C" int scan_scores_q8_launch(const int8_t* qc, const int8_t* codes,
   }
   dim3 block(THREADS);
   if (B <= 16) {
-    dim3 grid((N + BN - 1) / BN, (B + 15) / 16);
+    dim3 grid((N + BN - 1) / BN, (B + 15) / 16, G);
     scan_scores_q8_kernel<1><<<grid, block, 0, s>>>(
         qc, codes, ids, scales, zeros, norms, sq, corr, out, B, N, D, l2,
         vec16);
   } else {
-    dim3 grid((N + BN - 1) / BN, (B + 63) / 64);
+    dim3 grid((N + BN - 1) / BN, (B + 63) / 64, G);
     scan_scores_q8_kernel<4><<<grid, block, 0, s>>>(
         qc, codes, ids, scales, zeros, norms, sq, corr, out, B, N, D, l2,
         vec16);

@@ -9,6 +9,9 @@
 //  * a persistent grid: about one block per SM, each walking row tiles
 //    t = blockIdx.x, t += gridDim.x, so no block pays a cold start or an
 //    exposed drain per tile;
+//  * a lane axis on blockIdx.z: a launch scans G same-shaped collections
+//    ([G, N, D] rows), lane g only its own rows, and every block owns one
+//    (lane, query tile) pair for its whole life;
 //  * the block's query tile resident in shared memory, loaded (and
 //    converted) once before the stream starts;
 //  * one producer warp that keeps a ring of up to MAX_STAGES TMA boxes
@@ -22,7 +25,9 @@
 //    the stores of one tile overlap the loads and products of the next.
 //
 // TMA zero-fills boxes past the tensor's edge, so ragged N and a ragged
-// depth inside a 16-byte-aligned row stride need no padding.
+// depth inside a 16-byte-aligned row stride need no padding.  The rows are
+// a 3-D tensor map (depth, N, G) read in one-lane boxes, so the last tile
+// of lane g is zero-filled past N instead of reading lane g + 1's rows.
 //
 // The host-side sizes here are mirrored in kernels/scan_stream.py, which
 // chooses the variant before a launch.
@@ -124,24 +129,44 @@ inline int encode_2d(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The scans' boxes: TILE_ROWS rows x BOX_BYTES of depth.
-inline int encode_rows(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType dtype, int elem_bytes,
-                       long long n_rows, int d) {
-  return encode_2d(map, base, dtype, elem_bytes, n_rows, d,
-                   BOX_BYTES / elem_bytes, TILE_ROWS);
+// The scans' rows [G, n_rows, d] (lane stride n_rows * d elements, a
+// multiple of 16 bytes since the row stride is) as a 3-D map in boxes of
+// TILE_ROWS rows x BOX_BYTES of depth x one lane, 128-byte swizzled,
+// zero-filled past each lane's last row.  Returns 0 or a CUDA error code.
+inline int encode_lanes(CUtensorMap* map, const void* base,
+                        CUtensorMapDataType dtype, int elem_bytes, int G,
+                        long long n_rows, int d) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(d) * elem_bytes;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(n_rows),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[2] = {row_bytes,
+                                 row_bytes * static_cast<cuuint64_t>(n_rows)};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(BOX_BYTES / elem_bytes),
+                             static_cast<cuuint32_t>(TILE_ROWS), 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = enc(map, dtype, 3, const_cast<void*>(base), dims, strides,
+                         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The persistent grid's width: SMs x resident blocks per SM at `smem`
-// bytes, shared by the query tiles, at most one block per row tile.  The
-// residency is computed once per (card, kernel, smem) and the kernel's
-// shared-memory limit raised once to SMEM_LIMIT (never lowered, so
-// concurrent launches of other shapes stay valid): the probed path
-// launches a scan per query, and asking the runtime each time would cost
-// more host time than the kernel takes.  Returns 0 on an error (in *err).
+// bytes, shared by the n_qt query tiles of each of the G lanes, at least
+// one and at most one block per row tile.  The residency (which does not
+// depend on G or n_qt, so they stay out of the cache key) is computed once
+// per (card, kernel, smem) and the kernel's shared-memory limit raised once
+// to SMEM_LIMIT (never lowered, so concurrent launches of other shapes stay
+// valid): the probed path launches a scan per query, and asking the
+// runtime each time would cost more host time than the kernel takes.
+// Returns 0 on an error (in *err).
 template <typename Kernel>
 inline int persistent_blocks(Kernel kernel, int smem, int n_tiles, int n_qt,
-                             int* err) {
+                             int G, int* err) {
   static std::mutex mu;
   static std::map<std::tuple<int, const void*, int>, int> resident;
   int dev = 0, per_card = 0;
@@ -168,7 +193,7 @@ inline int persistent_blocks(Kernel kernel, int smem, int n_tiles, int n_qt,
   }
   *err = static_cast<int>(e);
   if (e != cudaSuccess) return 0;
-  int gx = per_card / n_qt;
+  int gx = per_card / (n_qt * G);
   gx = gx < 1 ? 1 : gx;
   return gx < n_tiles ? gx : n_tiles;
 }
@@ -221,6 +246,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// One TMA box of a 3-D map at (depth c0, row c1, lane c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -288,7 +325,8 @@ struct Ring {
 };
 
 // The producer warp's whole life: lane 0 streams every stage of every row
-// tile this block owns, in the order the consumer groups walk them.
+// tile this block owns in its lane (blockIdx.z), in the order the consumer
+// groups walk them.
 __device__ __forceinline__ void produce(const CUtensorMap* map, const Smem& sm,
                                         int stages, int n_tiles, int kb_n,
                                         int box_elems) {
@@ -298,8 +336,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const Smem& sm,
     for (int kb = 0; kb < kb_n; ++kb) {
       bar_wait(&sm.empty[r.stage], r.phase ^ 1u);
       bar_expect_tx(&sm.full[r.stage], STAGE_BYTES);
-      tma_load(sm.ring + r.stage * STAGE_BYTES, map, &sm.full[r.stage],
-               kb * box_elems, t * TILE_ROWS);
+      tma_load_3d(sm.ring + r.stage * STAGE_BYTES, map, &sm.full[r.stage],
+                  kb * box_elems, t * TILE_ROWS, blockIdx.z);
       r.advance();
     }
   }

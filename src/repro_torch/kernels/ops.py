@@ -21,15 +21,19 @@ from repro_torch.kernels import segsum_gemm as _segsum
 
 def scan_scores(q, db, ids, db_norms=None, *, metric="ip", use_kernel=True,
                 fused_conversion=True):
-    """Similarity scores f32[B, N] between queries and database rows."""
+    """Similarity scores f32[B, N] between queries and database rows; with
+    a leading lane axis on every operand (q [G, B, D], db [G, N, D], ids
+    and db_norms [G, N]) f32[G, B, N], lane g scanning only its own rows."""
     if not fused_conversion:
         # ablation baseline "C": materialise the converted copy first (an
         # extra full-matrix round trip), then an exact product
         q = _ref.round_bf16(q)
         db = _ref.round_bf16(db)
     if not use_kernel:
-        return _ref.scan_scores_ref(q, db, ids, db_norms, metric=metric,
-                                    fused_conversion=fused_conversion)
+        plain = _ref.scan_scores_lanes_ref if q.dim() == 3 else \
+            _ref.scan_scores_ref
+        return plain(q, db, ids, db_norms, metric=metric,
+                     fused_conversion=fused_conversion)
     return _scan.scan_scores(q, db, ids, db_norms, metric=metric)
 
 
@@ -37,8 +41,9 @@ def scan_scores_q8(q, codes, ids, scales, zeros, db_norms=None, *,
                    metric="ip", use_kernel=True):
     """Quantized coarse scan: f32[B, N] approximate scores of f32 queries
     q[B, D] against the affine int8 row store (per-row scales/zeros; for l2,
-    `db_norms` are the dequantized rows' norms).  The queries are quantized
-    here and `corr` is taken over the real D, so the kernel and the plain
+    `db_norms` are the dequantized rows' norms); with a leading lane axis
+    on every operand, f32[G, B, N].  The queries are quantized here, per
+    query, and `corr` is taken over the real D, so the kernel and the plain
     version consume identical integer operands."""
     if not use_kernel:
         return _ref.scan_scores_q8_ref(q, codes, ids, scales, zeros,

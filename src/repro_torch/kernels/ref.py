@@ -36,21 +36,37 @@ def scan_scores_ref(q, db, ids, db_norms=None, *, metric="ip",
     return torch.where((ids >= 0)[None, :], scores, mask_val)
 
 
+def _lane(t, g):
+    return None if t is None else t[g]
+
+
+def scan_scores_lanes_ref(q, db, ids, db_norms=None, *, metric="ip",
+                          fused_conversion=True):
+    """The lane scan f32[G, B, N]: lane g is `scan_scores_ref` of q[g]
+    f32[B, D] against db[g] f32[N, D] (ids[g], db_norms[g]); a loop over
+    the lanes, so each lane is the 2-D plain version's own arithmetic."""
+    return torch.stack([
+        scan_scores_ref(q[g], db[g], ids[g], _lane(db_norms, g),
+                        metric=metric, fused_conversion=fused_conversion)
+        for g in range(q.shape[0])])
+
+
 def quantize_queries(q):
     """Symmetric per-query int8 codes for the quantized coarse scan:
-    (codes i8[B, D], sq f32[B]) with q ~= sq[:, None] * codes.  Same
+    (codes i8[..., B, D], sq f32[..., B]) with q ~= sq[..., None] * codes,
+    one scale per query row (leading lane axes pass through).  Same
     operations as the reference (`torch.round` rounds half to even like
     `jnp.round`; a division, not a multiply by the reciprocal)."""
     q = q.float()
-    sq = torch.clamp(q.abs().amax(dim=1), min=1e-30) / 127.0
-    codes = torch.clamp(torch.round(q / sq[:, None]), -127, 127)
+    sq = torch.clamp(q.abs().amax(dim=-1), min=1e-30) / 127.0
+    codes = torch.clamp(torch.round(q / sq[..., None]), -127, 127)
     return codes.to(torch.int8), sq
 
 
 def query_corr(qc, sq):
     """sq * sum(qc) per query, over the real D: the affine zero-point term
     of the quantized scan."""
-    return sq * qc.to(torch.int32).sum(1).to(torch.float32)
+    return sq * qc.to(torch.int32).sum(-1).to(torch.float32)
 
 
 def scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq, corr,
@@ -77,13 +93,28 @@ def scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq, corr,
     return torch.where((ids >= 0)[None, :], scores, mask_val)
 
 
+def scan_scores_q8_lanes_plain(qc, codes, ids, scales, zeros, sq, corr,
+                               db_norms=None, *, metric="ip"):
+    """The lane quantized scan f32[G, B, N] over qc i8[G, B, D], codes
+    i8[G, N, D], ids/scales/zeros/db_norms [G, N], sq/corr f32[G, B]:
+    lane g is `scan_scores_q8_plain` of lane g's operands."""
+    return torch.stack([
+        scan_scores_q8_plain(qc[g], codes[g], ids[g], scales[g], zeros[g],
+                             sq[g], corr[g], _lane(db_norms, g),
+                             metric=metric)
+        for g in range(qc.shape[0])])
+
+
 def scan_scores_q8_ref(q, codes, ids, scales, zeros, db_norms=None, *,
                        metric="ip"):
     """Quantized coarse scores f32[B, N] of f32 queries against the affine
-    int8 row store (row_n ~= scales[n] * codes_n + zeros[n])."""
+    int8 row store (row_n ~= scales[n] * codes_n + zeros[n]); with a
+    leading lane axis on every operand, f32[G, B, N]."""
     qc, sq = quantize_queries(q)
-    return scan_scores_q8_plain(qc, codes, ids, scales, zeros, sq,
-                                query_corr(qc, sq), db_norms, metric=metric)
+    plain = scan_scores_q8_lanes_plain if q.dim() == 3 else \
+        scan_scores_q8_plain
+    return plain(qc, codes, ids, scales, zeros, sq, query_corr(qc, sq),
+                 db_norms, metric=metric)
 
 
 def kmeans_assign_ref(x, centroids, *, fused_conversion=True):

@@ -8,8 +8,15 @@ never on a failure: TMA needs a 16-byte-aligned base and a row stride that
 is a multiple of 16 bytes, and the resident query tile must leave room for
 at least `MIN_STAGES` ring stages in shared memory.  The sizes mirror
 ``csrc/scan_stream.cuh``.
+
+Both kernels also take a lane axis (blockIdx.z): one launch scans G
+same-shaped collections.  A lane launch takes the variant a 2-D launch of
+one lane would take; `launches_by_lanes` in each wrapper counts G = 1 and
+G > 1 launches apart.
 """
 from __future__ import annotations
+
+from repro_torch.kernels import build
 
 GROUP_WARPS = 4           # warps of a consumer group, 32 rows each
 TILE_ROWS = 32 * GROUP_WARPS  # DB rows per tile
@@ -22,6 +29,8 @@ QPAD = 16                 # bytes after each resident query row
 ALIGN = 1024
 SMEM_LIMIT = 232_448      # opt-in shared memory of a Hopper block
 VARIANTS = ("stream", "generic")
+LANE_KEYS = ("G=1", "G>1")
+MAX_LANES = 65_535        # gridDim.z
 
 
 def query_tile(b: int) -> int:
@@ -70,3 +79,18 @@ def check_forced(name: str, forced: str | None, chosen: str,
         raise ValueError(f"{name}: this shape/alignment cannot take the "
                          f"{forced} variant")
     return forced
+
+
+def lane_key(g: int) -> str:
+    """The `launches_by_lanes` entry a launch of `g` lanes counts in."""
+    return LANE_KEYS[0] if g == 1 else LANE_KEYS[1]
+
+
+def lane_counters() -> dict:
+    return {k: build.LaunchCounter() for k in LANE_KEYS}
+
+
+def check_lanes(name: str, g: int) -> None:
+    if not 1 <= g <= MAX_LANES:
+        raise ValueError(f"{name}: {g} lanes; a launch takes 1 to "
+                         f"{MAX_LANES}")

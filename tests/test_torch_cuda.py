@@ -417,3 +417,168 @@ def test_int8_service_lifecycle_and_save_load_on_the_card(dev, tmp_path):
         np.testing.assert_array_equal(got[1], want[1])
     finally:
         back.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the lane axis: G same-shaped scans in one launch (fused queries)
+# ---------------------------------------------------------------------------
+
+# (g, b, n, d): ragged G, B across query tiles, N around the 128-row tile,
+# D the stream variant takes for both kernels (1024, 256, 768), D = 1000
+# (stream for f32 rows, generic for int8 codes) and D the stream variant
+# cannot take (f32 130; int8 130 and 68)
+_LANE_STREAM = [(3, 5, 1000, 1024), (2, 1, 777, 1024), (4, 16, 3001, 256),
+                (3, 64, 129, 1024), (2, 97, 300, 768), (8, 1, 2000, 1024)]
+_LANE_OTHER = [(3, 5, 1000, 1000), (3, 5, 1000, 130), (2, 7, 300, 68)]
+
+
+def _lane_cases(kernel):
+    cases = []
+    for shape in _LANE_STREAM + _LANE_OTHER:
+        legal = (shape[3] * (4 if kernel == "f32" else 1)) % 16 == 0
+        cases += [(shape, v) for v in (("stream", "generic") if legal
+                                       else ("generic",))]
+    return cases
+
+
+def _lane_ids(dev, g, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.arange(n, dtype=torch.int32, device=dev).repeat(g, 1)
+    ids[torch.rand(g, n, generator=gen, device=dev) < 0.1] = -1
+    return ids
+
+
+def _lane_f32(dev, g, b, n, d, metric):
+    q, db = _randn(dev, g, b, d, seed=21), _randn(dev, g, n, d, seed=22)
+    norms = (db ** 2).sum(-1) if metric == "l2" else None
+    return q, db, _lane_ids(dev, g, n, 23), norms
+
+
+def _lane_q8(dev, g, b, n, d, metric):
+    gen = torch.Generator(device=dev).manual_seed(24)
+    qc = torch.randint(-127, 128, (g, b, d), generator=gen, device=dev,
+                       dtype=torch.int8)
+    codes = torch.randint(-127, 128, (g, n, d), generator=gen, device=dev,
+                          dtype=torch.int8)
+    sq = torch.rand(g, b, generator=gen, device=dev) * 1e-2 + 1e-3
+    norms = (torch.rand(g, n, generator=gen, device=dev) * 2
+             if metric == "l2" else None)
+    return (qc, codes, _lane_ids(dev, g, n, 25),
+            torch.rand(g, n, generator=gen, device=dev) * 1e-3 + 1e-4,
+            torch.randn(g, n, generator=gen, device=dev) * 1e-2, sq,
+            ref.query_corr(qc, sq), norms)
+
+
+def _lane(args, i):
+    return [None if a is None else a[i] for a in args]
+
+
+@pytest.mark.parametrize("shape,variant", _lane_cases("f32"))
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_lane_scan_scores_matches_plain_and_2d_launches(dev, shape, variant,
+                                                        metric):
+    """One launch for G lanes, against the lane plain version; lane g
+    equals the 2-D launch on lane g's operands bit for bit."""
+    g = shape[0]
+    args = _lane_f32(dev, *shape, metric)
+    before = (ss.launches.value, ss.launches_by_lanes["G>1"].value)
+    got = ss.scan_scores(*args, metric=metric, _variant=variant)
+    assert (ss.launches.value, ss.launches_by_lanes["G>1"].value) == \
+        (before[0] + 1, before[1] + (g > 1))
+    torch.cuda.synchronize()
+    assert got.shape == (g, shape[1], shape[2])
+    _check_f32(got, ref.scan_scores_lanes_ref(*args, metric=metric))
+    for i in range(g):
+        one = ss.scan_scores(*_lane(args, i), metric=metric, _variant=variant)
+        assert torch.equal(got[i], one), i
+
+
+@pytest.mark.parametrize("shape,variant", _lane_cases("q8"))
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_lane_scan_scores_q8_bit_equal_plain_and_2d_launches(dev, shape,
+                                                             variant, metric):
+    g = shape[0]
+    args = _lane_q8(dev, *shape, metric)
+    before = q8.launches_by_lanes["G>1"].value
+    got = q8.scan_scores_q8(*args, metric=metric, _variant=variant)
+    assert q8.launches_by_lanes["G>1"].value == before + (g > 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.scan_scores_q8_lanes_plain(*args,
+                                                           metric=metric))
+    for i in range(g):
+        one = q8.scan_scores_q8(*_lane(args, i), metric=metric,
+                                _variant=variant)
+        assert torch.equal(got[i], one), i
+
+
+@pytest.mark.parametrize("variant", ["stream", "generic"])
+@pytest.mark.parametrize("b", [1, 5, 16])
+def test_lane_rows_do_not_depend_on_the_query_tile(dev, variant, b):
+    """A padded lane launch (B = 40: query tile 64) and a launch of the
+    first b queries alone (tile 8 or 16) give the same bits for those
+    queries: the depth order of each output's sum ignores the tile."""
+    q, db, ids, _ = _lane_f32(dev, 3, 40, 1000, 1024, "ip")
+    got = ss.scan_scores(q, db, ids, _variant=variant)
+    args = _lane_q8(dev, 3, 40, 1000, 1024, "ip")
+    got8 = q8.scan_scores_q8(*args, _variant=variant)
+    for i in range(3):
+        one = ss.scan_scores(q[i, :b].contiguous(), db[i], ids[i],
+                             _variant=variant)
+        assert torch.equal(got[i, :b], one)
+        a = _lane(args, i)
+        one8 = q8.scan_scores_q8(a[0][:b].contiguous(), *a[1:5],
+                                 a[5][:b].contiguous(), a[6][:b].contiguous(),
+                                 _variant=variant)
+        assert torch.equal(got8[i, :b], one8)
+
+
+def test_lane_operands_are_checked(dev):
+    q, db, ids, _ = _lane_f32(dev, 2, 3, 100, 256, "ip")
+    with pytest.raises(ValueError, match="do not match"):
+        ss.scan_scores(q, db[:1], ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.scan_scores(q.transpose(1, 2).contiguous().transpose(1, 2), db,
+                       ids)
+    args = list(_lane_q8(dev, 2, 3, 100, 256, "ip"))
+    args[5] = args[5][:1]
+    with pytest.raises(ValueError, match="sq"):
+        q8.scan_scores_q8(*args)
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("path", ["full_scan", "probed"])
+def test_fused_window_equals_sync_on_the_card(dev, store_dtype, path):
+    """query_many over three tenants: one lane launch per scan step, and
+    the same ids and scores (1e-5) as the per-collection queries."""
+    from repro_torch.api import MemoryService
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3, store_dtype=store_dtype,
+                       rescore_k=32)
+    rng = np.random.default_rng(2)
+    with MemoryService(maintenance=False) as svc:
+        xs = {}
+        for i, name in enumerate(("a", "b", "c")):
+            svc.create_collection(name, cfg, seed=i)
+            xs[name] = rng.standard_normal((2000, 256)).astype(np.float32)
+            svc.build(name, xs[name], ids=np.arange(2000) + 10_000 * i)
+        reqs = [(n, xs[n][:b] + 0.01) for n, b in zip("abc", (1, 3, 6))]
+        want = [svc.query(n, q, path=path) for n, q in reqs]
+        scan = q8 if store_dtype == "int8" and path == "full_scan" else ss
+        before = {m: (m.launches.value, m.launches_by_lanes["G>1"].value)
+                  for m in (ss, q8)}
+        got = svc.query_many(reqs, path=path)
+        steps = 1 if path == "full_scan" else 1 + 6
+        for m in (ss, q8):
+            n_lanes = m.launches_by_lanes["G>1"].value - before[m][1]
+            n_all = m.launches.value - before[m][0]
+            assert n_lanes == n_all            # every scan a lane launch
+            if m is scan and path == "full_scan":
+                assert n_all == 1
+        if path == "probed":
+            probe = q8 if store_dtype == "int8" else ss
+            assert (ss.launches.value - before[ss][0]) + (
+                q8.launches.value - before[q8][0]) == steps
+            assert probe.launches.value - before[probe][0] >= 6
+        for (gi, gs), (wi, ws) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5)

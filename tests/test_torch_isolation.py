@@ -38,7 +38,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
-            "scan_scores.py", "scan_scores_q8.py", "checkpointer.py"} <= names
+            "scan_scores.py", "scan_scores_q8.py", "checkpointer.py",
+            "batch.py", "engine.py", "quickstart.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():

@@ -110,9 +110,6 @@ def test_future_errors_and_registry(service):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.submit(MemoryOp("query", "a", _corpus(1), batch=True)),
-    lambda s: s.flush(),
-    lambda s: s.query_many([("a", _corpus(1))]),
     lambda s: s.collection("a").set_ship_hook(None),
     lambda s: s.submit(MemoryOp("demote", "a")),
 ])

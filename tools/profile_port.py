@@ -7,6 +7,8 @@
 
     python3 tools/profile_port.py --assign-sweep [--out FILE]
 
+    python3 tools/profile_port.py --fused [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -27,6 +29,13 @@ slot), with launches queued behind a spin kernel and timed with CUDA
 events, beside the bf16 ``torch.mm`` of the same operands converted
 beforehand (the product alone: a lower yardstick) and the least time the
 card could take (operations at C = 1024, bytes at small M).
+
+``--fused`` profiles one cross-collection fused window per store policy at
+``chip_smoke.py`` phase 6a's size: eight f32 PAPER_100K tenants, then four
+int8 ones, each window one ``batch=True`` query per tenant of the phase's
+unequal batch sizes (full scans, then the probed template), the stack
+cache warmed first; beside each the same queries run per collection.
+Reports the same per-op breakdown.
 """
 from __future__ import annotations
 
@@ -148,12 +157,64 @@ def assign_sweep(seed: int) -> dict:
     return out
 
 
+def fused(seed: int) -> dict:
+    """Profiled fused windows (stack cache warm) and per-collection loops."""
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.configs.ame_paper import PAPER_100K
+
+    dev = torch.device("cuda")
+    out = {}
+    for cfg, sizes in ((PAPER_100K, (1, 2, 3, 5, 8, 13, 16, 21)),
+                       (dataclasses.replace(PAPER_100K, store_dtype="int8"),
+                        (2, 5, 13, 21))):
+        with MemoryService(batch_window=64, maintenance=False) as svc:
+            reqs = []
+            for i, b in enumerate(sizes):
+                g = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+                x = chip_smoke.make_corpus(100_000, cfg.dim, g)
+                svc.create_collection(f"t{i}", cfg, seed=seed + i)
+                svc.build(f"t{i}", x, ids=np.arange(100_000) + 1_000_000 * i)
+                pick = torch.randint(0, 100_000, (b,), generator=g,
+                                     device=dev)
+                reqs.append((f"t{i}", chip_smoke.perturb(x[pick], g)))
+                del x
+
+            def window(path=None):
+                futs = [svc.submit(MemoryOp("query", n, q, path=path,
+                                            batch=True)) for n, q in reqs]
+                svc.flush()
+                for f in futs:
+                    f.result(timeout=600)
+
+            def per_collection(path=None):
+                for n, q in reqs:
+                    svc.query(n, q, path=path)
+
+            window()
+            per_collection()
+            window("probed")
+            per_collection("probed")
+            torch.cuda.synchronize()
+            out[cfg.store_dtype] = {
+                "lanes": len(sizes), "batches": sizes,
+                f"fused window ({len(sizes)} lanes)": profiled(window),
+                "per-collection loop": profiled(per_collection),
+                "fused probed window": profiled(lambda: window("probed")),
+                "per-collection probed loop": profiled(
+                    lambda: per_collection("probed")),
+                "stack_cache": svc.stats()["stack_cache"]}
+        del svc
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
     ap.add_argument("--scan-sweep", action="store_true")
     ap.add_argument("--assign-sweep", action="store_true")
+    ap.add_argument("--fused", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -168,6 +229,11 @@ def main(argv=None) -> int:
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
                       "assign_sweep": assign_sweep(args.seed)}, args.out)
+    if args.fused:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "fused": fused(args.seed)}, args.out)
     from repro_torch.api import MemoryService
     from repro_torch.configs.ame_paper import PAPER_1M
 

@@ -33,6 +33,15 @@ Phases (any failure raises and the script exits non-zero):
    window, one lane launch per scan step, stack-cache hits, a write seen,
    the probed template, a drop evicting its stacks; every fused result
    equals the per-collection query.
+7. residency: a PAPER_1M f32 and a PAPER_1M int8 tenant demoted to host
+   memory and promoted three times each (the f32 one also to disk and back
+   through a query), every answer after a promotion bit-equal to the one
+   recorded before, the card's allocated memory down by at least 0.95 x
+   the state's bytes after every demotion; 24 PAPER_100K tenants under a
+   device budget of 8.5 tenants queried by a Zipf(1.1) trace of 240 B=1
+   queries (every answer the recorded one, the budget and the byte
+   breakdown held after every query); a batched window over 8 tenants, 2
+   of them demoted, flushes as 1 fused group + 2 promoting singletons.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -1138,6 +1147,272 @@ def phase_fused(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: residency tiers (HOT on the card, WARM in host memory, COLD on
+# disk) through MemoryService
+# ---------------------------------------------------------------------------
+
+N_TENANTS = 24          # 7b: PAPER_100K tenants, about a third of them HOT
+TENANT_ROWS = 100_000   # each 7b tenant's corpus: PAPER_100K's size
+BUDGET_TENANTS = 8.5    # 7b's device budget, in tenants' state bytes
+TRACE_LEN = 240         # 7b: B=1 queries drawn Zipf(ZIPF_S) over tenants
+ZIPF_S = 1.1
+
+
+def same_bits(got, want, what):
+    for (gi, gs), (wi, ws) in zip(got, want):
+        if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
+            raise AssertionError(f"{what}: the answer differs from the one "
+                                 "recorded before the demotion")
+
+
+def promote_s_total(st) -> float:
+    return (st["promote_s_mean"] or 0.0) * st["promotions"]
+
+
+def pct_ms(xs, p):
+    return 1e3 * float(np.percentile(xs, p)) if xs else None
+
+
+def phase_residency(seed: int, card: str) -> dict:
+    """Residency on the card.  7a: a PAPER_1M f32 and a PAPER_1M int8
+    tenant, each demoted to WARM and promoted three times (the first apart
+    from the steady state), the f32 one also demoted to COLD and promoted
+    by a query; every answer after a promotion bit-equal to the recorded
+    one, and `memory_allocated` down by >= 0.95 x the state's bytes after
+    every demotion.  7b: 24 PAPER_100K f32 tenants under a budget of 8.5
+    tenants and a Zipf(1.1) trace of 240 B=1 queries over them: every
+    answer the recorded one, the budget and the byte breakdown held after
+    every query, no over-budget admission.  7c: a batched window over 8
+    tenants of which 2 were demoted flushes as one fused group of 6 lanes
+    plus 2 self-promoting singletons."""
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.core import index as ivf
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    for m in kernels.values():
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    out = {"card": card}
+
+    def demote(svc, name, tier):
+        """Demote through the service; returns (seconds, bytes freed)."""
+        coll = svc.collection(name)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        r = svc.submit(MemoryOp("demote", name, tier=tier)).result(
+            timeout=600)
+        wall = time.perf_counter() - t0
+        freed = before - torch.cuda.memory_allocated()
+        if not r["demoted"] or coll.residency != tier:
+            raise AssertionError(f"{name} did not demote to {tier}: {r}")
+        if freed < 0.95 * coll.index_nbytes():
+            raise AssertionError(
+                f"demoting {name} to {tier} freed {freed} bytes of the "
+                f"card's memory, < 0.95 x its {coll.index_nbytes()}")
+        return wall, freed
+
+    def host_bytes(coll):
+        host = coll._host_state
+        leaves = [t for t in host if t is not None]
+        if not all(t.is_pinned() for t in leaves):
+            raise AssertionError(f"{coll.name}: a WARM leaf is not in "
+                                 "page-locked memory")
+        return sum(t.numel() * t.element_size() for t in leaves)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_residency_") as tmp:
+        # -- 7a ---------------------------------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        with MemoryService(maintenance=False, residency_dir=tmp) as svc:
+            for i, cfg in enumerate(
+                    (PAPER_1M, dataclasses.replace(PAPER_1M,
+                                                   store_dtype="int8"))):
+                name = f"r{cfg.store_dtype}"
+                coll = svc.create_collection(name, cfg, seed=seed + 30 + i)
+                g = torch.Generator(device=dev).manual_seed(seed + 30 + i)
+                x = make_corpus(N_ROWS, cfg.dim, g)
+                svc.build(name, x, ids=np.arange(N_ROWS, dtype=np.int32))
+                pick = torch.randint(0, N_ROWS, (80,), generator=g,
+                                     device=dev)
+                q = perturb(x[pick], g)
+                del x, pick
+                reqs = [(q[:64], "full_scan")] + [
+                    (q[64 + j:65 + j], "probed") for j in range(16)]
+
+                def answers():
+                    return [svc.query(name, qq, path=p) for qq, p in reqs]
+
+                want = answers()
+                nb = coll.index_nbytes()
+                rec = {"index_bytes": nb, "warm": []}
+                for rep in range(3):
+                    dem_s, freed = demote(svc, name, "warm")
+                    held = host_bytes(coll)
+                    alloc = torch.cuda.memory_allocated()
+                    reserved = torch.cuda.memory_reserved()
+                    t0 = time.perf_counter()
+                    if svc.promote(name) != "hot":
+                        raise AssertionError(f"{name} did not promote")
+                    pro_s = time.perf_counter() - t0
+                    same_bits(answers(), want,
+                              f"7a {name} after warm promotion {rep}")
+                    rec["warm"].append({
+                        "demote_s": dem_s, "demote_gbps": nb / dem_s / 1e9,
+                        "promote_s": pro_s, "promote_gbps": nb / pro_s / 1e9,
+                        "freed_bytes": freed, "host_bytes": held,
+                        "allocated_while_warm": alloc,
+                        "reserved_while_warm": reserved})
+                if not cfg.quantized:
+                    dem_s, freed = demote(svc, name, "cold")
+                    res = svc.residency.stats()
+                    t0 = time.perf_counter()
+                    got = svc.query(name, reqs[0][0], path="full_scan")
+                    hit_s = time.perf_counter() - t0
+                    # the promotion's own seconds, as ensure_hot timed it
+                    pro_s = promote_s_total(svc.residency.stats()) \
+                        - promote_s_total(res)
+                    if coll.residency != "hot":
+                        raise AssertionError("a query did not promote the "
+                                             "COLD tenant")
+                    same_bits([got] + answers()[1:], want,
+                              f"7a {name} after cold promotion")
+                    rec["cold"] = {
+                        "demote_s": dem_s, "demote_gbps": nb / dem_s / 1e9,
+                        "promote_by_query_s": hit_s,
+                        "promote_s": pro_s, "promote_gbps": nb / pro_s / 1e9,
+                        "freed_bytes": freed,
+                        "disk_bytes": res["disk_bytes"]}
+                out[f"7a_{cfg.store_dtype}"] = rec
+                # release this tenant's card memory before the next one
+                demote(svc, name, "warm")
+            out["7a_residency"] = svc.residency.stats()
+            if hasattr(torch.cuda, "host_memory_stats"):
+                out["7a_host_allocator"] = {
+                    k: v for k, v in torch.cuda.host_memory_stats().items()
+                    if k.endswith(".current") or k.endswith(".peak")}
+        del svc, coll, q, reqs, want, got
+        out["7a_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        release()
+
+        # -- 7b ---------------------------------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        nb = ivf.state_nbytes(PAPER_100K)
+        budget = int(BUDGET_TENANTS * nb)
+        names = [f"t{i:02d}" for i in range(N_TENANTS)]
+        with MemoryService(maintenance=False, batch_window=64,
+                           device_budget_bytes=budget,
+                           residency_dir=tmp) as svc:
+            def check_budget(what):
+                st = svc.residency.stats()
+                if st["device_bytes"] - st["stack_cache_bytes"] > budget:
+                    raise AssertionError(f"{what}: {st['device_bytes']} "
+                                         f"device bytes over the budget")
+                total = st["device_bytes"] + st["host_bytes"] \
+                    + st["disk_bytes"]
+                if total != len(st["tiers"]) * nb + st["stack_cache_bytes"]:
+                    raise AssertionError(f"{what}: tiers hold {total} bytes")
+                if st["over_budget_events"]:
+                    raise AssertionError(f"{what}: an over-budget admission")
+                return st
+
+            queries, want = {}, {}
+            t0 = time.perf_counter()
+            for i, name in enumerate(names):
+                coll = svc.create_collection(name, PAPER_100K,
+                                             seed=seed + 40 + i)
+                if coll.index_nbytes() != nb:
+                    raise AssertionError("PAPER_100K state bytes changed")
+                g = torch.Generator(device=dev).manual_seed(seed + 40 + i)
+                x = make_corpus(TENANT_ROWS, PAPER_100K.dim, g)
+                svc.build(name, x, ids=np.arange(TENANT_ROWS) + 1_000_000 * i)
+                pick = torch.randint(0, TENANT_ROWS, (4,), generator=g,
+                                     device=dev)
+                queries[name] = perturb(x[pick], g)
+                del x, pick
+                want[name] = [svc.query(name, queries[name][j:j + 1])
+                              for j in range(4)]
+                check_budget(f"7b build {name}")
+            out["7b_build_s"] = time.perf_counter() - t0
+            st0 = check_budget("7b builds")
+
+            rng = np.random.default_rng(seed)
+            popularity = rng.permutation(N_TENANTS)
+            p = 1.0 / (1.0 + popularity) ** ZIPF_S
+            trace = rng.choice(N_TENANTS, TRACE_LEN, p=p / p.sum())
+            which = rng.integers(0, 4, TRACE_LEN)
+            hot_s, cold_s = [], []
+            for t, j in zip(trace, which):
+                name = names[t]
+                was_hot = svc.collection(name).residency == "hot"
+                t0 = time.perf_counter()
+                got = svc.query(name, queries[name][j:j + 1])
+                (hot_s if was_hot else cold_s).append(
+                    time.perf_counter() - t0)
+                same_bits([got], [want[name][j]], f"7b {name} query {j}")
+                st = check_budget(f"7b trace ({name})")
+            out["7b"] = {
+                "tenants": N_TENANTS, "state_bytes": nb,
+                "budget_bytes": budget, "queries": TRACE_LEN,
+                "hot_hits": len(hot_s), "cold_hits": len(cold_s),
+                "hot_p50_ms": pct_ms(hot_s, 50), "hot_p99_ms": pct_ms(hot_s, 99),
+                "cold_p50_ms": pct_ms(cold_s, 50),
+                "cold_p99_ms": pct_ms(cold_s, 99),
+                "promotions": st["promotions"] - st0["promotions"],
+                "evictions": st["evictions"] - st0["evictions"],
+                "over_budget_events": st["over_budget_events"],
+                "device_bytes": st["device_bytes"],
+                "host_bytes": st["host_bytes"],
+                "peak_allocated_gib":
+                    torch.cuda.max_memory_allocated() / 2**30}
+
+            # -- 7c -----------------------------------------------------------
+            hot = [n for n in names if svc.collection(n).residency == "hot"]
+            if len(hot) != 8:
+                raise AssertionError(f"7b left {len(hot)} tenants HOT, not 8")
+            for name in hot[:2]:
+                demote(svc, name, "warm")
+            futs = [svc.submit(MemoryOp("query", n, queries[n][:1],
+                                        batch=True)) for n in hot]
+            n_disp = svc.flush()
+            got = [f.result(timeout=600) for f in futs]
+            if n_disp != 3:
+                raise AssertionError(f"7c flushed as {n_disp} dispatches, "
+                                     "not 3 (6 fused lanes + 2 singletons)")
+            for n, (gi, gs) in zip(hot, got):
+                wi, ws = want[n][0]
+                if not np.array_equal(gi, wi) or \
+                        not np.allclose(gs, ws, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(f"7c {n}: the answer differs")
+            same_bits(got[:2], [want[n][0] for n in hot[:2]],
+                      "7c singletons")
+            st = check_budget("7c")
+            out["7c"] = {"dispatches": n_disp,
+                         "fused_bit_equal": all(
+                             np.array_equal(g[1], want[n][0][1])
+                             for n, g in zip(hot, got)),
+                         "residency": {k: v for k, v in st.items()
+                                       if k != "tiers"}}
+        del svc, coll, queries, want, got, futs
+        release()
+    out["launches"] = {k: m.launches.value for k, m in kernels.items()}
+    out["launches_by_variant"] = {
+        k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"phase 7 never launched {k}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1195,6 +1470,13 @@ def main(argv=None) -> int:
     paths["fused"] = fused = phase_fused(args.seed, card)
     print(f"phase 6: fused windows in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(fused), flush=True)
+    release()
+    # 7. residency tiers (after phase 6's memory is freed), the counts set
+    # to 0 just before
+    t0 = time.perf_counter()
+    paths["residency"] = res = phase_residency(args.seed, card)
+    print(f"phase 7: residency in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(res), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -48,9 +48,10 @@ from repro_torch.device import as_tensor
 
 
 class NotResident(RuntimeError):
-    """A fused lane's collection has no device state (its snapshot is
-    None) — the stacked execution cannot proceed, and the group's futures
-    are settled with this error."""
+    """A fused lane's collection was demoted off the device between flush
+    and dispatch (its snapshot is None) — the stacked execution cannot
+    proceed.  The service catches this, re-promotes the lane and retries
+    (or falls back to per-lane queries, which promote themselves)."""
 
 
 def fused_query(stacked: ivf.IVFState, q: torch.Tensor, cfg: EngineConfig,

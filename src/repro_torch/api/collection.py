@@ -1,10 +1,11 @@
 """A named memory collection — one tenant's IVF state, id-space, counters.
 
-Port of ``src/repro/api/collection.py`` for one unsharded collection whose
-state (f32, or f32 plus the int8 scan store) lives on the device (the
-reference's HOT tier), with save/load in the reference's on-disk layout.
-The mesh-sharded tier, residency tiers, the HNSW graph and recall-adaptive
-routing and replication shipping are later slices of the port; they raise
+Port of ``src/repro/api/collection.py`` for one unsharded collection with
+either store policy (f32, or f32 plus the int8 scan store), its residency
+tier (HOT on the device, WARM in host memory, COLD on disk; see
+`repro_torch.api.residency`), and save/load in the reference's on-disk
+layout.  The mesh-sharded tier, the HNSW graph and recall-adaptive routing
+and replication shipping are later slices of the port; they raise
 NotImplementedError naming their ROADMAP item.
 
 Concurrency model (lost-update-safe writes, wait-free reads), as in the
@@ -24,15 +25,20 @@ reference:
   swaps.  No write that lands during a rebuild is ever lost.  If the log
   overflows, the rebuild restarts from a fresh snapshot; the final attempt
   runs with the writer lock held (writers briefly blocked, queries still
-  served).  A bulk `build()` bumps `_epoch`, so a rebuild racing it
-  detects that its snapshot is obsolete and aborts.
+  served).  A bulk `build()` or a demotion bumps `_epoch`, so a rebuild
+  racing it detects that its snapshot is obsolete and aborts.
 * Every swap bumps `_version`; `version()` lets callers assert freshness.
+* Residency transitions (`demote` / `promote`) serialize on the writer
+  lock.  A query or write against a non-HOT collection promotes it first;
+  `promote` asks the residency manager for room before it takes the
+  writer lock (lock order `_admit_lock > _writer_lock > _lock`).
 
 The per-shard bookkeeping (`_delta_logs`, `_shard_pressure`, ...) keeps the
 reference's one-entry-per-shard shape; an unsharded collection has one.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -65,6 +71,30 @@ def atomic_write_json(path: str, payload: dict) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
+
+
+def _copy_state(state: ivf.IVFState, device: torch.device, *,
+                pin: bool = False) -> ivf.IVFState:
+    """A copy of every leaf on `device` (dtype and shape kept, contiguous),
+    page-locked when `pin` (host copies of a CUDA state).  The copies run
+    on the current stream; a copy to or from the card is synchronised
+    before this returns, since an asynchronous copy into page-locked
+    memory is garbage until then."""
+    out = ivf.IVFState(*[
+        None if t is None else torch.empty(
+            t.shape, dtype=t.dtype, device=device, pin_memory=pin,
+        ).copy_(t, non_blocking=True)
+        for t in state])
+    for dev in {device, state.device}:
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+    return out
+
+
+def _host_tensors(arrays: ivf.IVFState) -> ivf.IVFState:
+    """IVFState of numpy arrays (a checkpoint restore) as CPU tensors."""
+    return ivf.IVFState(*[None if a is None else torch.from_numpy(a)
+                          for a in arrays])
 
 
 class Collection:
@@ -114,6 +144,20 @@ class Collection:
         self._delta_overflow = [False]
         self._shard_pressure = [{"tombstones": 0, "spilled": 0}]
         self._spill_floors = [0]
+        # Residency tier (see repro_torch.api.residency): "hot" = device
+        # state in _state; "warm" = host copy in _host_state (page-locked
+        # when the collection lives on the card); "cold" = checkpoint under
+        # _cold_dir only.  Transitions go through demote()/promote() under
+        # the writer lock; _index_nbytes is the exact byte size of the
+        # device state (what the budget charges), computed without
+        # allocation.
+        self._residency_tier = "hot"
+        self._host_state: Optional[ivf.IVFState] = None
+        self._cold_dir: Optional[str] = None
+        self._cold_step: Optional[int] = None
+        self._residency_mgr = None     # back-ref set by ResidencyManager
+        self._last_used = time.monotonic()
+        self._index_nbytes = ivf.state_nbytes(cfg, spill_capacity)
         # load_from installs the restored state itself: no device allocation
         self._state = (ivf.empty_state(cfg, spill_capacity, device=self.device)
                        if _alloc_state else None)
@@ -123,11 +167,197 @@ class Collection:
         with self._lock:
             return sum(self._spill_floors)
 
-    def demote(self, tier: str = "warm", **_) -> dict:
-        raise later_slice("residency tiers (demote)", "residency")
+    # ------------------------------------------------------------------
+    # Residency tier (device / host memory / disk — see
+    # repro_torch.api.residency)
+    # ------------------------------------------------------------------
+    @property
+    def residency(self) -> str:
+        """Current tier: "hot" | "warm" | "cold"."""
+        with self._lock:
+            return self._residency_tier
+
+    def last_used(self) -> float:
+        """monotonic() timestamp of the last query/write — the LRU key."""
+        with self._lock:
+            return self._last_used
+
+    def index_nbytes(self) -> int:
+        """Exact byte size of the device state (static shapes — constant
+        for the collection's lifetime; equals
+        `ivf.footprint(state)["index_bytes"]`)."""
+        return self._index_nbytes
+
+    def _host_view_locked(self) -> ivf.IVFState:
+        """Host representation of the current state; caller holds the
+        writer lock.  HOT: a fresh host copy (page-locked from the card);
+        WARM: the host copy held; COLD: the checkpoint read back (numpy)."""
+        with self._lock:
+            tier = self._residency_tier
+            state = self._state
+            host = self._host_state
+        if tier == "hot":
+            return _copy_state(state, torch.device("cpu"),
+                               pin=self.device.type == "cuda")
+        if tier == "warm":
+            return host
+        return self._read_cold_host()
+
+    def _read_cold_host(self) -> ivf.IVFState:
+        """Load the COLD checkpoint back into host numpy arrays (no device
+        allocation)."""
+        if self._cold_dir is None:
+            raise RuntimeError(
+                f"collection {self.name!r} is cold but has no checkpoint "
+                "directory — demote(tier='cold') requires one")
+        return self._read_host(self._cold_dir, self._cold_step)
+
+    def _read_host(self, directory: str, step: Optional[int]) -> ivf.IVFState:
+        """The state of checkpoint namespace `directory` as numpy arrays."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        template = ivf.empty_host_state(self.cfg,
+                                        self.spill_capacity)._asdict()
+        return ivf.IVFState(**Checkpointer(directory).restore(template,
+                                                              step=step))
+
+    def _write_host_state(self, directory: str, state, step: int) -> None:
+        """Write a state (host or device leaves) as a checkpoint namespace
+        in the reference's layout, as `save_into` does."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        os.makedirs(directory, exist_ok=True)
+        Checkpointer(directory).save(step, state._asdict())
+
+    def demote(self, tier: str = "warm", *, directory: Optional[str] = None,
+               step: int = 0) -> dict:
+        """Release the device state: "warm" keeps a host copy, "cold"
+        writes a disk checkpoint (`directory`, or the collection's existing
+        cold namespace) and keeps nothing in memory.
+
+        Serializes through the writer lock, so it can never tear an
+        in-flight write; bumps `_epoch` so an in-flight delta-replay
+        rebuild aborts instead of resurrecting the demoted state at its
+        swap.  Queries racing the demotion either grabbed the old snapshot
+        (still valid — the tensors outlive the swap) or re-promote on their
+        next snapshot read.  Demoting an already-colder collection is a
+        no-op ("cold" → demote("warm") does NOT load anything back).
+        """
+        if tier not in ("warm", "cold"):
+            raise ValueError(f"demote tier must be 'warm' or 'cold', "
+                             f"got {tier!r}")
+        t0 = time.perf_counter()
+        with self._writer_lock:
+            with self._lock:
+                cur = self._residency_tier
+            if cur == tier or cur == "cold":
+                return {"tier": cur, "demoted": False}
+            host = self._host_view_locked()
+            if tier == "cold":
+                directory = directory or self._cold_dir
+                if directory is None:
+                    raise ValueError(
+                        f"collection {self.name!r}: demote to cold needs a "
+                        "checkpoint directory (configure the service's "
+                        "residency_dir)")
+                self._write_host_state(directory, host, step)
+                host = None
+            with self._lock:
+                self._residency_tier = tier
+                self._host_state = host
+                if tier == "cold":
+                    self._cold_dir = directory
+                    self._cold_step = step
+                self._state = None
+                self._version += 1
+                self._epoch += 1    # obsoletes in-flight rebuild snapshots
+        out = {"tier": tier, "demoted": True,
+               "demote_s": time.perf_counter() - t0}
+        mgr = self._residency_mgr
+        if mgr is not None:
+            mgr._record_demotion(tier, out["demote_s"])
+        return out
 
     def promote(self) -> dict:
-        raise later_slice("residency tiers (promote)", "residency")
+        """Bring a WARM/COLD collection back to the device tier (HOT).
+
+        Asks the residency manager (when attached) to make room FIRST —
+        with no collection locks held, so the admission path's victim
+        demotions can never deadlock against us — then copies the state to
+        the device under the writer lock and publishes it once the copy
+        has synchronised.  No-op on a HOT collection.
+        """
+        with self._lock:
+            if self._residency_tier == "hot":
+                return {"tier": "hot", "promoted": False}
+        mgr = self._residency_mgr
+        if mgr is not None:
+            mgr.make_room_for(self)
+        t0 = time.perf_counter()
+        try:
+            with self._writer_lock:
+                with self._lock:
+                    tier = self._residency_tier
+                    host = self._host_state
+                if tier == "hot":     # raced another promoter — done
+                    return {"tier": "hot", "promoted": False}
+                if tier == "cold":
+                    host = _host_tensors(self._read_cold_host())
+                state = _copy_state(host, self.device)
+                with self._lock:
+                    self._state = state
+                    self._residency_tier = "hot"
+                    self._host_state = None
+                    self._last_used = time.monotonic()
+                    self._version += 1
+        finally:
+            if mgr is not None:
+                mgr.finish_admit(self)
+        out = {"tier": "hot", "promoted": True,
+               "promote_s": time.perf_counter() - t0}
+        if mgr is not None:
+            mgr._record_promotion(out["promote_s"])
+        return out
+
+    def _acquire_writer_hot(self) -> None:
+        """Acquire the writer lock with the collection HOT.
+
+        Promote happens BEFORE the lock acquisition (admission takes victim
+        writer locks — taking ours first would invert the lock order); if a
+        concurrent eviction demoted us between the promote and the acquire,
+        release and retry.  Terminates because evictions only happen on
+        other tenants' admissions, which are finite between our retries.
+        """
+        while True:
+            self.promote()
+            self._writer_lock.acquire()
+            with self._lock:
+                if self._residency_tier == "hot":
+                    return
+            self._writer_lock.release()
+
+    @contextlib.contextmanager
+    def _hot_writer(self):
+        self._acquire_writer_hot()
+        try:
+            yield
+        finally:
+            self._writer_lock.release()
+
+    def _query_state(self) -> ivf.IVFState:
+        """Snapshot for the query path: wait-free on a HOT collection,
+        promotes first otherwise (the cold-hit path).  Under adversarial
+        eviction thrash, falls back to pinning hotness with the writer
+        lock for the pointer read — bounded, and only ever on a collection
+        that was demoted several times mid-query."""
+        for _ in range(4):
+            with self._lock:
+                if self._residency_tier == "hot":
+                    self._last_used = time.monotonic()
+                    return self._state
+            self.promote()
+        with self._hot_writer():
+            with self._lock:
+                self._last_used = time.monotonic()
+                return self._state
 
     def set_ship_hook(self, hook) -> None:
         raise later_slice("replication shipping", "replication")
@@ -148,13 +378,17 @@ class Collection:
     # ------------------------------------------------------------------
     def save_into(self, directory: str, step: int = 0) -> None:
         """Write this collection's namespace directory.  Reads a consistent
-        snapshot under the writer lock; safe to call under live traffic."""
-        from repro_torch.checkpoint.checkpointer import Checkpointer
+        snapshot under the writer lock; safe to call under live traffic.
+
+        The metadata records the residency tier, and a WARM/COLD collection
+        saves from its host copy / cold checkpoint without touching the
+        device."""
         os.makedirs(directory, exist_ok=True)
         with self._writer_lock:
             with self._lock:
+                tier = self._residency_tier
                 state = self._state
-                # the keys and values of the reference's HOT unsharded
+                # the keys and values of the reference's unsharded
                 # collection (no recall probe here: probe_seq stays 0)
                 meta = {"name": self.name, "next_id": self._next_id,
                         "counters": dict(self.counters),
@@ -162,19 +396,24 @@ class Collection:
                         "spill_capacity": self.spill_capacity, "step": step,
                         "spill_floors": list(self._spill_floors),
                         "store_dtype": self.cfg.store_dtype,
-                        "residency": "hot",
+                        "residency": tier,
                         "pressure": [dict(p) for p in self._shard_pressure],
                         "approx_live": self._approx_live,
                         "probe_seq": 0}
-            Checkpointer(directory).save(step, state._asdict())
+            # a HOT state goes to disk leaf by leaf from the device
+            tree = state if tier == "hot" else self._host_view_locked()
+            self._write_host_state(directory, tree, step)
         atomic_write_json(os.path.join(directory, META_FILE), meta)
 
     @classmethod
     def load_from(cls, directory: str, name: str, cfg: EngineConfig, *,
                   step: Optional[int] = None, **kw) -> "Collection":
-        """Restore a HOT unsharded collection from its namespace directory
-        onto the device.  The snapshot's `store_dtype` wins over `cfg`'s:
-        the checkpoint carries (or lacks) the int8 store's leaves."""
+        """Restore an unsharded collection from its namespace directory in
+        the tier it was saved in: HOT onto the device, WARM into host
+        memory, COLD as a pointer to the namespace (no array read until
+        the first query promotes it).  The snapshot's `store_dtype` wins
+        over `cfg`'s: the checkpoint carries (or lacks) the int8 store's
+        leaves."""
         from repro_torch.checkpoint.checkpointer import Checkpointer
         mpath = os.path.join(directory, META_FILE)
         meta = {}
@@ -184,28 +423,44 @@ class Collection:
         if meta.get("sharded", False):
             raise later_slice("loading a sharded snapshot", "the sharded tier")
         residency = meta.get("residency", "hot")
-        if residency != "hot":
-            raise later_slice(f"loading a {residency} snapshot", "residency")
         spill_capacity = int(meta.get("spill_capacity", 4096))
         saved_dtype = meta.get("store_dtype")
         if saved_dtype is not None and saved_dtype != cfg.store_dtype:
             cfg = dataclasses.replace(cfg, store_dtype=saved_dtype)
         coll = cls(name, cfg, spill_capacity=spill_capacity,
                    _alloc_state=False, **kw)
-        template = ivf.empty_host_state(cfg, spill_capacity)._asdict()
-        state = ivf.IVFState(**Checkpointer(directory).restore(
-            template, step=step, device=coll.device))
+        state = None
+        if residency == "cold":
+            with coll._lock:
+                coll._cold_dir = directory
+                coll._cold_step = step
+                coll._residency_tier = "cold"
+        elif residency == "warm":
+            state = _host_tensors(coll._read_host(directory, step))
+            if coll.device.type == "cuda":
+                state = _copy_state(state, state.device, pin=True)
+            with coll._lock:
+                coll._host_state = state
+                coll._residency_tier = "warm"
+        else:
+            template = ivf.empty_host_state(cfg, spill_capacity)._asdict()
+            state = ivf.IVFState(**Checkpointer(directory).restore(
+                template, step=step, device=coll.device))
+            with coll._lock:
+                coll._state = state
         floors = meta.get("spill_floors") or [0]
         press = meta.get("pressure")
         if press is not None:
             p0 = press[0] if press else {}
             press = [{"tombstones": int(p0.get("tombstones", 0)),
                       "spilled": int(p0.get("spilled", 0))}]
-        else:
+        elif state is not None:
+            # snapshots without host counters were always saved HOT
             press = [{"tombstones": int(state.num_deleted),
                       "spilled": int(state.spill_size)}]
+        else:
+            press = [{"tombstones": 0, "spilled": 0}]
         with coll._lock:
-            coll._state = state
             coll._built = bool(meta.get("built", True))
             coll._next_id = int(meta.get("next_id", 0))
             coll.counters.update(meta.get("counters", {}))
@@ -218,9 +473,10 @@ class Collection:
     # Versioned state snapshot
     # ------------------------------------------------------------------
     def snapshot(self) -> ivf.IVFState:
-        """Wait-free versioned read of the current state pointer.  A writer
-        or rebuild swaps the pointer rather than mutating a published state,
-        so a snapshot stays internally consistent while it is read."""
+        """Wait-free versioned read of the current state pointer (None while
+        the collection is not HOT).  A writer or rebuild swaps the pointer
+        rather than mutating a published state, so a snapshot stays
+        internally consistent while it is read."""
         with self._lock:
             return self._state
 
@@ -240,9 +496,13 @@ class Collection:
             return self._state, self._version
 
     def _swap(self, state: ivf.IVFState, **counter_deltas) -> int:
-        """Atomically publish a new state; returns the new version."""
+        """Atomically publish a new state (the collection is HOT after it);
+        returns the new version."""
         with self._lock:
             self._state = state
+            self._residency_tier = "hot"
+            self._host_state = None
+            self._last_used = time.monotonic()
             self._version += 1
             for key, d in counter_deltas.items():
                 self.counters[key] += d
@@ -308,6 +568,19 @@ class Collection:
         x = self._rows(vectors)
         ids = self._ids_for(x.shape[0], ids)
         t0 = time.perf_counter()
+        # a build replaces the whole state from scratch — no need to promote
+        # a demoted one first, but the fresh device state must be admitted
+        # against the residency budget (same shapes, same byte charge)
+        mgr = self._residency_mgr
+        if mgr is not None:
+            mgr.make_room_for(self)
+        try:
+            return self._build_admitted(x, ids, t0)
+        finally:
+            if mgr is not None:
+                mgr.finish_admit(self)
+
+    def _build_admitted(self, x, ids, t0) -> dict:
         with self._writer_lock:
             # analyze: ok(LO002) ivf.build is the index module (takes no locks), not Collection.build
             state, spilled = ivf.build(self._split(), x, ids, self.cfg,
@@ -337,7 +610,7 @@ class Collection:
         x = self._rows(vectors)
         n = int(x.shape[0])
         ids = self._ids_for(n, ids)
-        with self._writer_lock:
+        with self._hot_writer():
             state, spilled = ivf.insert_shared(self._state, x, ids, self.cfg)
             spilled = int(spilled)      # sync: compute done before publish
             with self._lock:
@@ -352,7 +625,7 @@ class Collection:
         (ids not present contribute nothing).  Blocks until the tombstones
         are visible to new queries."""
         ids = as_tensor(ids, torch.int32, self.device).reshape(-1)
-        with self._writer_lock:
+        with self._hot_writer():
             state, n_hit = ivf.delete_shared(self._state, ids)
             n_hit = int(n_hit)          # sync: compute done before publish
             with self._lock:
@@ -367,14 +640,15 @@ class Collection:
               path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Returns host (ids i32[B, k], scores f32[B, k]).  Template-routed;
         `path` ("probed" | "full_scan") overrides the router.  Wait-free
-        w.r.t. writers: reads the current snapshot under the pointer lock
-        and never takes the writer lock."""
+        w.r.t. writers on a HOT collection: reads the current snapshot
+        under the pointer lock and never takes the writer lock.  On a
+        WARM/COLD collection this is the cold-hit path: the state is
+        promoted back to the device first, then the query runs as usual."""
         q = as_tensor(queries, torch.float32, self.device)
         if q.dim() == 1:
             q = q[None]
         k, nprobe, path = self.resolve_query(q.shape[0], k, nprobe, path)
-        with self._lock:
-            state = self._state
+        state = self._query_state()
         self._bump(queries=int(q.shape[0]))
         if path == "full_scan":
             ids, scores = ivf.query_full_scan(state, q, self.cfg, k)
@@ -411,7 +685,10 @@ class Collection:
             restarts = 0
             while True:
                 exclusive = restarts >= max_restarts
-                self._writer_lock.acquire()
+                # promote-then-acquire: a demoted collection has no device
+                # state to rebuild (and a demotion mid-rebuild bumps _epoch,
+                # aborting us at the publish step like a bulk build would)
+                self._acquire_writer_hot()
                 snap = self._state
                 epoch = self._epoch
                 if not exclusive:
@@ -442,8 +719,8 @@ class Collection:
                         self._delta_logs[0] = None
                         self._delta_overflow[0] = False
                     if self._epoch != epoch:
-                        # a bulk build replaced the index mid-rebuild; our
-                        # snapshot (and its tombstones) no longer exist
+                        # a bulk build replaced the index (or a demotion
+                        # released it) mid-rebuild: our snapshot is obsolete
                         return {"rebuild_s": time.perf_counter() - t0,
                                 "spilled": 0, "replayed": 0,
                                 "restarts": restarts, "aborted": True}
@@ -493,7 +770,10 @@ class Collection:
 
     def maintenance_due_shards(self) -> List[int]:
         """`[0]` when the tombstone/spill pressure crosses the thresholds."""
-        if not self._built:
+        if not self._built or self.residency != "hot":
+            # a demoted collection has no device state to compact; promoting
+            # it just to rebuild would fight the eviction policy — pressure
+            # keeps accruing and is served once a query promotes it
             return []
         tomb_limit, spill_limit = self._maintenance_limits()
         with self._lock:
@@ -556,13 +836,31 @@ class Collection:
         cheap but not free; poll `maintenance_pressure()` on hot paths."""
         with self._lock:
             state = self._state
+            tier = self._residency_tier
+            host = self._host_state
             counters = dict(self.counters)
             version = self._version
             pressure = [dict(p) for p in self._shard_pressure]
-        s = ivf.stats(state)
+        if tier == "hot":
+            s = ivf.stats(state)
+        else:
+            # no device state to sync; sizes are static, occupancy comes
+            # from the host copy when one is in memory (cold = disk only)
+            s = {"n_clusters": self.cfg.n_clusters, "dim": self.cfg.dim,
+                 "list_capacity": self.cfg.list_capacity,
+                 "index_bytes": self._index_nbytes,
+                 "bytes_per_row": self.cfg.dim * (5 if self.cfg.quantized
+                                                  else 4),
+                 "scan_bytes_per_row": self.cfg.dim * (
+                     1 if self.cfg.quantized else 4),
+                 "store_dtype": self.cfg.store_dtype}
+            if host is not None:
+                s["live"] = int(ivf.live_count(host))
+                s["spill"] = int(host.spill_size)
+                s["deleted"] = int(host.num_deleted)
         s.update(counters)
         s["version"] = version
-        s["residency"] = "hot"
+        s["residency"] = tier
         s["pressure"] = {"tombstones": sum(p["tombstones"] for p in pressure),
                          "spilled": sum(p["spilled"] for p in pressure),
                          "shards": pressure}

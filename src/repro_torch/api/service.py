@@ -20,10 +20,16 @@ runs each multi-lane group as one lane-batched dispatch
 (`repro_torch.api.batch`), where every scan is one launch of a scan kernel
 with a lane axis.  `query_many` is the batched entry point.
 
+Residency: a `ResidencyManager` (`repro_torch.api.residency`) keeps every
+collection in one tier — HOT on the device, WARM in host memory, COLD on
+disk — under an optional device byte budget with LRU eviction.  A query
+against a non-HOT collection promotes it inside its own scheduler task;
+the maintenance poll demotes idle tenants.
+
 Persistence: `save`/`load` write and read one namespace directory per
 collection under ``collections/`` plus a ``service.json`` registry, in the
-reference's layout.  Residency tiers and sharded collections are later
-slices of the port and raise NotImplementedError.
+reference's layout, each collection in its tier.  Sharded collections are
+a later slice of the port and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -42,6 +48,7 @@ from repro_torch.api import batch as fuse
 from repro_torch.api.collection import Collection, atomic_write_json, \
     later_slice
 from repro_torch.api.ops import MemoryOp, OpFuture
+from repro_torch.api.residency import ResidencyManager
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import locking
 from repro_torch.core import templates
@@ -59,7 +66,9 @@ class MaintenanceController:
     A daemon thread polls every collection's `maintenance_due_shards()`
     (pure host counters — no device sync) and schedules at most one
     in-flight rebuild per collection through the service's scheduler, on
-    the background backend class the rebuild template routes to.  Queries
+    the background backend class the rebuild template routes to, and
+    demotes the tenants the residency manager names (idle, or over the
+    device budget) as ordinary demote ops.  Queries
     are isolated from the rebuild both by the scheduler (latency workers
     never take index work) and by the collection (delta-replay rebuilds
     never hold the state lock through device compute).
@@ -73,12 +82,14 @@ class MaintenanceController:
         self.failure_backoff_s = failure_backoff_s
         self._stop = threading.Event()
         self._lock = locking.make_lock("_lock")
-        # keyed by (collection, slot); the slot of an unsharded rebuild is
-        # None — each slot has at most one op in flight
+        # keyed by (collection, slot): the slot of an unsharded rebuild is
+        # None, a residency demotion's "demote:<tier>" — each slot has at
+        # most one op in flight
         self._inflight: Dict[Tuple[str, object], Optional[OpFuture]] = {}
         # persistent rebuild failures must not re-submit every poll
         self._backoff_until: Dict[Tuple[str, object], float] = {}
         self.triggered = 0
+        self.demotions_triggered = 0
         self.failed = 0
         self.shed = 0
         self.last_error: Optional[BaseException] = None
@@ -141,8 +152,10 @@ class MaintenanceController:
         return True
 
     def poll_once(self) -> int:
-        """One maintenance sweep; returns the number of rebuilds scheduled.
-        Also callable directly; safe to race with the daemon poll."""
+        """One maintenance sweep; returns the number of ops scheduled
+        (rebuilds from tombstone/spill pressure, plus background residency
+        demotions of idle or over-budget tenants).  Also callable
+        directly; safe to race with the daemon poll."""
         n = 0
         for name in self._service.list_collections():
             try:
@@ -154,18 +167,35 @@ class MaintenanceController:
                     with self._lock:
                         self.triggered += 1
                     n += 1
+        # residency sweep: the manager names (collection, target-tier)
+        # pairs that should drain off the device tier in the background —
+        # HOT tenants idle past idle_demote_s, WARM ones idle past
+        # cold_after_s, and LRU tenants while the device tier is over
+        # budget.  Each rides the scheduler as an ordinary demote op.
+        for name, tier in self._service.residency.demotion_due():
+            key = (name, f"demote:{tier}")
+            if self._try_submit(key, MemoryOp("demote", name, tier=tier)):
+                with self._lock:
+                    self.demotions_triggered += 1
+                n += 1
         return n
 
     def stop(self, timeout: float = 5.0) -> None:
         self._stop.set()
         self._thread.join(timeout=timeout)
 
+    @staticmethod
+    def _slot_name(key: Tuple[str, object]) -> str:
+        name, slot = key
+        return name if slot is None else f"{name}[{slot}]"
+
     def stats(self) -> dict:
         with self._lock:
             return {"triggered": self.triggered, "failed": self.failed,
                     "shed": self.shed,
+                    "demotions_triggered": self.demotions_triggered,
                     "inflight": sorted(
-                        name for (name, _), f in self._inflight.items()
+                        self._slot_name(k) for k, f in self._inflight.items()
                         if f is None or not f.done()),
                     "last_error": repr(self.last_error)
                                   if self.last_error else None}
@@ -190,6 +220,11 @@ class MemoryService:
 
     Collections live on `device` (the CUDA card unless the caller names
     another; with no card and no device named, construction raises).
+
+    Residency knobs: `device_budget_bytes` caps the HOT tier (None =
+    unbounded), `residency_dir` enables the COLD disk tier,
+    `idle_demote_s` / `cold_after_s` drive background idle demotion via the
+    maintenance poll (see `repro_torch.api.residency`).
     """
 
     def __init__(self, *, scheduler: Optional[WindowedScheduler] = None,
@@ -201,9 +236,6 @@ class MemoryService:
                  cold_after_s: Optional[float] = None,
                  admission: Optional[AdmissionControl] = None,
                  device: DeviceLike = None):
-        if any(v is not None for v in (device_budget_bytes, residency_dir,
-                                       idle_demote_s, cold_after_s)):
-            raise later_slice("device residency tiers", "residency")
         self.device = resolve_device(device)
         self._admission = admission
         self._scheduler = scheduler
@@ -214,9 +246,17 @@ class MemoryService:
         self._pending: List[Tuple[MemoryOp, OpFuture]] = []
         # stacked G-states of fused groups, reused while no lane writes
         self._stack_cache = fuse.StackCache()
+        self._residency = ResidencyManager(
+            device_budget_bytes=device_budget_bytes,
+            spill_dir=residency_dir, idle_demote_s=idle_demote_s,
+            cold_after_s=cold_after_s, cache=self._stack_cache)
         self._maintenance_enabled = maintenance
         self._maintenance_poll_interval_s = maintenance_poll_interval_s
         self._maintenance: Optional[MaintenanceController] = None
+
+    @property
+    def residency(self) -> ResidencyManager:
+        return self._residency
 
     @property
     def maintenance(self) -> Optional[MaintenanceController]:
@@ -256,6 +296,7 @@ class MemoryService:
                               thresholds=thresholds, mesh=mesh,
                               device=self.device)
             self._collections[name] = coll
+        self._residency.register(coll)
         self._ensure_maintenance()
         return coll
 
@@ -274,6 +315,7 @@ class MemoryService:
             # a cached fused-group stack holds a full copy of the dropped
             # tenant's state — release it now, not at LRU churn
             self._stack_cache.evict(coll)
+            self._residency.forget(coll)
 
     def list_collections(self) -> List[str]:
         with self._lock:
@@ -288,9 +330,8 @@ class MemoryService:
     # ------------------------------------------------------------------
     def submit(self, op: MemoryOp) -> OpFuture:
         coll = self.collection(op.collection)     # missing tenant fails fast
-        if op.kind not in ("build", "insert", "delete", "query", "rebuild"):
-            raise later_slice(f"the {op.kind!r} op",
-                              "residency / adaptive routing")
+        if op.kind == "probe":
+            raise later_slice("the 'probe' op", "adaptive routing / HNSW")
         fut = OpFuture(op)
         if op.batch:                      # MemoryOp allows it on queries only
             fut._on_wait = self.flush     # waiting on a parked op flushes
@@ -329,10 +370,21 @@ class MemoryService:
         if op.kind == "delete":
             return coll.delete(op.payload if op.ids is None else op.ids)
         if op.kind == "query":
+            # a query against a non-HOT tenant chains promote -> query
+            # inside this ONE task (never two chained scheduler tasks —
+            # with one worker per backend class that could deadlock);
+            # ensure_hot also times the promotion, so cold-hit latency
+            # shows in the residency stats apart from hot queries
+            self._residency.ensure_hot(coll)
             return coll.query(op.payload, k=op.k, nprobe=op.nprobe,
                               path=op.path)
         if op.kind == "rebuild":
             return coll.rebuild(shard=op.shard)
+        if op.kind == "promote":
+            self._residency.ensure_hot(coll)
+            return coll.residency
+        if op.kind == "demote":
+            return self._residency.demote(coll, tier=op.tier or "warm")
         raise ValueError(f"unknown op kind {op.kind!r}")
 
     # ------------------------------------------------------------------
@@ -356,6 +408,12 @@ class MemoryService:
         parked op never hangs), `query_many`, `shutdown()`, or an explicit
         call.  Safe to race from several threads: the window is snatched
         under the registry lock, so every pending op is dispatched once.
+
+        Residency split: fusion only stacks HOT lanes.  A non-HOT lane's
+        state is off the device, and blocking the whole fused dispatch on
+        its (possibly disk-reading) promotion would make every hot tenant
+        in the group pay the cold tenant's latency, so non-HOT ops dispatch
+        as singletons that promote themselves.
 
         Error propagation: a signature failure (e.g. the collection was
         dropped between park and flush) settles that op's future with the
@@ -381,16 +439,34 @@ class MemoryService:
         n = 0
         for sig, ops in groups.items():
             cfg, _dtype, _spill, _mesh, k, nprobe, path = sig
+            hot, demoted = [], []
+            for op, fut in ops:
+                try:
+                    resident = (self.collection(op.collection).residency
+                                == "hot")
+                except BaseException as e:  # noqa: BLE001 — dropped tenant
+                    fut._set_error(e)
+                    continue
+                (hot if resident else demoted).append((op, fut))
+            for op, fut in demoted:
+                try:
+                    self._submit_single_query(op, fut, k, nprobe, path)
+                    n += 1
+                except BaseException as e:  # noqa: BLE001
+                    if not fut.done():
+                        fut._set_error(e)
+            if not hot:
+                continue
             try:
-                if len(ops) == 1:
+                if len(hot) == 1:
                     # a lone op has nothing to fuse with: the per-op path
-                    op, fut = ops[0]
+                    op, fut = hot[0]
                     self._submit_single_query(op, fut, k, nprobe, path)
                 else:
-                    self._submit_fused(ops, cfg, k, nprobe, path)
+                    self._submit_fused(hot, cfg, k, nprobe, path)
                 n += 1
             except BaseException as e:    # noqa: BLE001 — e.g. a concurrent
-                for _, fut in ops:        # drop_collection; never strand a
+                for _, fut in hot:        # drop_collection; never strand a
                     if not fut.done():    # future in a dead group
                         fut._set_error(e)
         return n
@@ -401,6 +477,9 @@ class MemoryService:
 
         def fn():
             try:
+                # promote-then-query inside ONE task (see _execute): a lane
+                # left out of fusion for being non-HOT is admitted here
+                self._residency.ensure_hot(coll)
                 out = coll.query(op.payload, k=k, nprobe=nprobe, path=path)
             except BaseException as e:    # noqa: BLE001
                 fut._set_error(e)
@@ -427,9 +506,11 @@ class MemoryService:
 
         The task routes through `templates.route(..., fused_lanes=G)` —
         fused dispatches are throughput-class regardless of per-lane batch.
-        Error propagation mirrors `flush`: any failure inside the task
-        (`execute_group`'s ValueError for `path="hnsw"` lanes, its
-        `NotResident` for a lane without a state) settles every
+        A lane demoted between flush and dispatch is promoted again and the
+        stacked dispatch retried (three attempts), then the lanes fall back
+        to per-lane queries, which promote themselves.  Error propagation
+        mirrors `flush`: any other failure inside the task (e.g.
+        `execute_group`'s ValueError for `path="hnsw"` lanes) settles every
         still-pending future in the group before re-raising to the
         scheduler.
         """
@@ -451,8 +532,25 @@ class MemoryService:
             try:
                 colls = [lanes[nm]["coll"] for nm in order]
                 qs = [torch.cat(lanes[nm]["qs"]) for nm in order]
-                results = fuse.execute_group(colls, qs, cfg, k, nprobe, path,
-                                             cache=self._stack_cache)
+                results = None
+                # a lane can demote between flush and dispatch (background
+                # idle demotion / eviction races the scheduler queue):
+                # re-promote and retry the stacked dispatch a few times,
+                # then fall back to per-lane queries, which promote
+                # themselves under the writer lock and cannot lose the race
+                for _ in range(3):
+                    for c in colls:
+                        self._residency.ensure_hot(c)
+                    try:
+                        results = fuse.execute_group(
+                            colls, qs, cfg, k, nprobe, path,
+                            cache=self._stack_cache)
+                        break
+                    except fuse.NotResident:
+                        continue
+                if results is None:
+                    results = [c.query(q, k=k, nprobe=nprobe, path=path)
+                               for c, q in zip(colls, qs)]
                 fuse.demux([lanes[nm]["entries"] for nm in order], results)
             except BaseException as e:    # noqa: BLE001
                 for fut in futs:
@@ -511,6 +609,20 @@ class MemoryService:
         return self.submit(MemoryOp("rebuild", collection,
                                     shard=shard)).result()
 
+    def promote(self, collection: str) -> str:
+        """Bring a collection onto the device tier (blocks); returns its
+        residency tier afterwards ("hot").  Queries promote on demand —
+        this is the explicit warm-up for latency-sensitive tenants."""
+        return self.submit(MemoryOp("promote", collection)).result()
+
+    def demote(self, collection: str, tier: str = "warm") -> str:
+        """Evict a collection off the device tier (blocks): "warm" parks
+        its state in host memory, "cold" leaves only its disk checkpoint
+        (requires the service's `residency_dir`).  Returns the resulting
+        tier.  The next query transparently promotes it back."""
+        return self.submit(MemoryOp("demote", collection,
+                                    tier=tier)).result()["tier"]
+
     # ------------------------------------------------------------------
     def stats(self) -> dict:
         with self._lock:
@@ -520,7 +632,8 @@ class MemoryService:
         return {"collections": {n: c.stats() for n, c in colls.items()},
                 "scheduler": sched.stats() if sched is not None else {},
                 "maintenance": maint.stats() if maint is not None else {},
-                "stack_cache": self._stack_cache.stats()}
+                "stack_cache": self._stack_cache.stats(),
+                "residency": self._residency.stats()}
 
     def shutdown(self) -> None:
         with self._lock:
@@ -569,7 +682,12 @@ class MemoryService:
              idle_demote_s: Optional[float] = None,
              cold_after_s: Optional[float] = None,
              device: DeviceLike = None) -> "MemoryService":
-        """Restore a saved service: each collection HOT on `device`."""
+        """Restore a saved service on `device`.  A collection saved WARM
+        restores host-side, one saved COLD as a pointer to its own
+        checkpoint namespace without reading the arrays — the first query
+        promotes either back.  The residency knobs configure the restored
+        service's manager, which every loaded collection registers with;
+        HOT restores count against the budget immediately."""
         if mesh is not None or reshard:
             raise later_slice("sharded snapshots (mesh / reshard)",
                               "the sharded tier")
@@ -590,6 +708,7 @@ class MemoryService:
                 step=step, device=svc.device)
             with svc._lock:
                 svc._collections[name] = coll
+            svc._residency.register(coll)
         if registry["collections"]:
             svc._ensure_maintenance()
         return svc

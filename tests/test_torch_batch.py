@@ -472,15 +472,25 @@ def test_unfusable_groups_settle_every_future(svc, monkeypatch):
     for f in futs:
         with pytest.raises(ValueError, match="hnsw"):
             f.result(timeout=10)
-    # a lane without a device state: NotResident, no per-lane fallback
+    # a lane whose state is gone at every dispatch: three NotResident
+    # retries, then the per-lane fallback answers as the sync query does
+    want = {n: svc.query(n, _corpus(2)) for n in ("t0", "t1")}
     coll = svc.collection("t1")
-    monkeypatch.setattr(coll, "versioned_snapshot", lambda: (None, 0))
-    futs = [svc.submit(MemoryOp("query", n, _corpus(2), batch=True))
-            for n in ("t0", "t1")]
+    calls = []
+
+    def gone():
+        calls.append(1)
+        return None, 0
+
+    monkeypatch.setattr(coll, "versioned_snapshot", gone)
+    futs = {n: svc.submit(MemoryOp("query", n, _corpus(2), batch=True))
+            for n in ("t0", "t1")}
     assert svc.flush() == 1
-    for f in futs:
-        with pytest.raises(fuse.NotResident, match="t1"):
-            f.result(timeout=10)
+    for n, f in futs.items():
+        got = f.result(timeout=10)
+        np.testing.assert_array_equal(got[0], want[n][0])
+        np.testing.assert_array_equal(got[1], want[n][1])
+    assert len(calls) == 3
 
 
 def test_waiting_on_a_parked_future_flushes_and_shutdown_flushes():

@@ -205,8 +205,7 @@ def test_save_async_keep_n_and_device_restore(tmp_path):
     assert out["n"].dtype == torch.int32 and int(out["n"]) == 4
 
 
-@pytest.mark.parametrize("meta", [{"sharded": True}, {"residency": "warm"},
-                                  {"residency": "cold"}])
+@pytest.mark.parametrize("meta", [{"sharded": True}])
 def test_sharded_and_non_hot_snapshots_name_their_item(tmp_path, meta):
     coll = Collection("c", EngineConfig(**ARGS), device="cpu")
     coll.build(_corpus(200, seed=5))
@@ -217,6 +216,33 @@ def test_sharded_and_non_hot_snapshots_name_their_item(tmp_path, meta):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Collection.load_from(str(tmp_path), "c", EngineConfig(**ARGS),
                              device="cpu")
+
+
+@pytest.mark.parametrize("tier", ["warm", "cold"])
+def test_warm_and_cold_snapshots_load_in_their_tier(tmp_path, tier):
+    """A WARM or COLD collection saves from its host copy or its cold
+    checkpoint and loads back in that tier (COLD as a pointer, no array
+    read); its first query promotes it and answers as the HOT original."""
+    coll = _written(Collection("c", EngineConfig(**ARGS), device="cpu"),
+                    np.asarray)
+    q = _queries()
+    want = coll.query(q)
+    kw = {"directory": str(tmp_path / "cold")} if tier == "cold" else {}
+    assert coll.demote(tier, **kw)["demoted"]
+    coll.save_into(str(tmp_path / "snap"))
+    assert coll.snapshot() is None                 # saving did not promote
+    saved = json.loads((tmp_path / "snap" / "collection.json").read_text())
+    assert saved["residency"] == tier
+    back = Collection.load_from(str(tmp_path / "snap"), "c",
+                                EngineConfig(**ARGS), device="cpu")
+    assert back.residency == tier and back.snapshot() is None
+    assert (back._host_state is None) == (tier == "cold")
+    assert back.maintenance_pressure() == coll.maintenance_pressure()
+    got = back.query(q)
+    assert back.residency == "hot"
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert back.stats()["live"] == 317
 
 
 def test_load_restores_pressure_and_spill_floor(tmp_path):

@@ -582,3 +582,117 @@ def test_fused_window_equals_sync_on_the_card(dev, store_dtype, path):
         for (gi, gs), (wi, ws) in zip(got, want):
             np.testing.assert_array_equal(gi, wi)
             np.testing.assert_allclose(gs, ws, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# residency tiers: HOT on the card, WARM in host memory, COLD on disk
+# ---------------------------------------------------------------------------
+
+def _resident_service(tmp_path, store_dtype, names=("a",)):
+    from repro_torch.api import MemoryService
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3, store_dtype=store_dtype,
+                       rescore_k=32)
+    rng = np.random.default_rng(3)
+    svc = MemoryService(maintenance=False, residency_dir=str(tmp_path))
+    xs = {}
+    for i, name in enumerate(names):
+        svc.create_collection(name, cfg, seed=i)
+        xs[name] = rng.standard_normal((2000, 256)).astype(np.float32)
+        svc.build(name, xs[name], ids=np.arange(2000) + 10_000 * i)
+    return svc, xs
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "int8"])
+def test_warm_and_cold_round_trips_are_bitwise_on_the_card(dev, tmp_path,
+                                                          store_dtype):
+    svc, xs = _resident_service(tmp_path, store_dtype)
+    try:
+        coll = svc.collection("a")
+        reqs = [(xs["a"][:1] + 0.01, "probed"), (xs["a"][:8] + 0.01, None)]
+        want = [svc.query("a", q, path=p) for q, p in reqs]
+        before = [None if t is None else t.clone() for t in coll.snapshot()]
+        for tier in ("warm", "cold", "warm"):
+            assert svc.demote("a", tier=tier) == tier
+            assert coll.snapshot() is None
+            for (q, p), (wi, ws) in zip(reqs, want):
+                gi, gs = svc.query("a", q, path=p)    # promotes first
+                np.testing.assert_array_equal(gi, wi)
+                np.testing.assert_array_equal(gs, ws)
+            after = coll.snapshot()
+            for a, b in zip(after, before):
+                assert (a is None) == (b is None)
+                if b is not None:
+                    assert a.is_cuda and a.dtype == b.dtype
+                    assert a.is_contiguous() and torch.equal(a, b)
+    finally:
+        svc.shutdown()
+
+
+def test_demote_frees_the_state_on_the_card(dev, tmp_path):
+    svc, xs = _resident_service(tmp_path, "float32")
+    try:
+        coll = svc.collection("a")
+        svc.query("a", xs["a"][:1] + 0.01)
+        nb = coll.index_nbytes()
+        for tier in ("warm", "cold"):
+            svc.promote("a")
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            svc.demote("a", tier=tier)
+            assert before - torch.cuda.memory_allocated() >= 0.95 * nb
+    finally:
+        svc.shutdown()
+
+
+def test_warm_copy_is_page_locked(dev, tmp_path):
+    """The design keeps a WARM state in page-locked host memory (PERF.md,
+    residency): every leaf pinned, on the CPU, the same bytes."""
+    svc, _ = _resident_service(tmp_path, "int8")
+    try:
+        coll = svc.collection("a")
+        hot = [None if t is None else t.cpu() for t in coll.snapshot()]
+        svc.demote("a")
+        for h, t in zip(coll._host_state, hot):
+            assert (h is None) == (t is None)
+            if t is not None:
+                assert h.device.type == "cpu" and h.is_pinned()
+                assert torch.equal(h, t)
+    finally:
+        svc.shutdown()
+
+
+def test_promotion_races_queries_on_another_tenant(dev, tmp_path):
+    """Tenant a is demoted and promoted over and over on one scheduler
+    worker while another worker serves queries on tenant b: every answer
+    of both is exact."""
+    import threading
+    svc, xs = _resident_service(tmp_path, "float32", names=("a", "b"))
+    try:
+        qa, qb = xs["a"][:1] + 0.01, xs["b"][:1] + 0.01
+        want_a, want_b = svc.query("a", qa), svc.query("b", qb)
+        errors, stop = [], threading.Event()
+
+        def churn():
+            try:
+                while not stop.is_set():
+                    svc.demote("a")
+                    assert svc.promote("a") == "hot"
+                    got = svc.query("a", qa)
+                    np.testing.assert_array_equal(got[0], want_a[0])
+                    np.testing.assert_array_equal(got[1], want_a[1])
+            except BaseException as e:   # noqa: BLE001
+                errors.append(e)
+
+        t = threading.Thread(target=churn)
+        t.start()
+        for _ in range(200):
+            got = svc.query("b", qb)
+            np.testing.assert_array_equal(got[0], want_b[0])
+            np.testing.assert_array_equal(got[1], want_b[1])
+        stop.set()
+        t.join(timeout=120)
+        assert not t.is_alive() and not errors, errors
+        assert svc.stats()["residency"]["promotions"] > 0
+    finally:
+        svc.shutdown()

@@ -1,7 +1,7 @@
-"""The port stands alone: no file of `repro_torch`, nor `chip_smoke.py` or
-`tools/profile_port.py`, imports jax or anything of the JAX package
-`repro`; importing the port leaves jax unloaded; its EngineConfig has
-exactly the reference's fields.
+"""The port stands alone: no file of `repro_torch`, nor `chip_smoke.py`,
+`tools/profile_port.py` or `tools/ab_phases.py`, imports jax or anything
+of the JAX package `repro`; importing the port leaves jax unloaded; its
+EngineConfig has exactly the reference's fields.
 """
 import ast
 import dataclasses
@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "profile_port.py",
+    ROOT / "tools" / "ab_phases.py"]
 
 
 def _imports(path):

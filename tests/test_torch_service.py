@@ -111,7 +111,7 @@ def test_future_errors_and_registry(service):
 
 @pytest.mark.parametrize("call", [
     lambda s: s.collection("a").set_ship_hook(None),
-    lambda s: s.submit(MemoryOp("demote", "a")),
+    lambda s: s.collection("a").apply_delta_batch([]),
 ])
 def test_later_slices_raise_not_implemented(service, call):
     service.create_collection("a", CFG)

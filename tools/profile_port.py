@@ -9,6 +9,8 @@
 
     python3 tools/profile_port.py --fused [--out FILE]
 
+    python3 tools/profile_port.py --host-copy [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -36,6 +38,18 @@ int8 ones, each window one ``batch=True`` query per tenant of the phase's
 unequal batch sizes (full scans, then the probed template), the stack
 cache warmed first; beside each the same queries run per collection.
 Reports the same per-op breakdown.
+
+``--host-copy`` times the three ways a residency tier can hold a PAPER_1M
+state (f32, then int8) in host memory, each leaf copied on the current
+stream and the stream synchronised: (a) pageable — ``Tensor.cpu()`` down,
+``Tensor.to("cuda")`` up; (b) page-locked, allocated per demotion
+(``torch.empty(..., pin_memory=True)``: the first allocation pins fresh
+pages, later ones are served from PyTorch's caching host allocator; the
+run also times a fresh pin after ``torch._C._host_emptyCache()``, where
+that exists); (c) one page-locked buffer per collection, allocated once
+and reused (copies only).  Three demote/promote round trips each, the
+first apart; reports seconds, GB/s and host bytes (pinned allocations
+rounded up by the caching host allocator).
 """
 from __future__ import annotations
 
@@ -208,6 +222,83 @@ def fused(seed: int) -> dict:
     return out
 
 
+def host_copy(seed: int) -> dict:
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.core import index as ivf
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sync = torch.cuda.synchronize
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t0, out
+
+    def pinned_like(state):
+        return [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in state]
+
+    def down_into(bufs, state):
+        return [b.copy_(t, non_blocking=True) for b, t in zip(bufs, state)]
+
+    def up(host):
+        return [torch.empty(h.shape, dtype=h.dtype, device=dev).copy_(
+            h, non_blocking=True) for h in host]
+
+    empty_host_cache = getattr(torch._C, "_host_emptyCache", None)
+    out = {}
+    for cfg in (PAPER_1M, dataclasses.replace(PAPER_1M, store_dtype="int8")):
+        if empty_host_cache is not None:    # the first pin is a fresh one
+            empty_host_cache()
+        state = [t for t in ivf.empty_state(cfg, 4096, device=dev)
+                 if t is not None]
+        for t in state:            # random bits, not zero pages
+            if t.dtype.is_floating_point:
+                t.normal_(generator=g)
+            else:
+                t.random_(-100, 100, generator=g)
+        nb = sum(t.numel() * t.element_size() for t in state)
+        res = {"state_bytes": nb,
+               # the caching host allocator's power-of-two blocks
+               "pinned_host_bytes_pow2": sum(
+                   1 << max(0, (t.numel() * t.element_size() - 1).bit_length())
+                   for t in state)}
+        reused = pinned_like(state)
+        modes = {
+            "pageable": lambda: [t.cpu() for t in state],
+            "pinned_per_demote": lambda: down_into(pinned_like(state), state),
+            "pinned_reused": lambda: down_into(reused, state),
+        }
+        for mode, down in modes.items():
+            runs = []
+            for _ in range(3):
+                dem, host = timed(down)
+                pro, back = timed(lambda: up(host))
+                if not all(torch.equal(a, b) for a, b in zip(back, state)):
+                    raise AssertionError(f"{mode}: the round trip differs")
+                runs.append({"demote_s": dem, "demote_gbps": nb / dem / 1e9,
+                             "promote_s": pro,
+                             "promote_gbps": nb / pro / 1e9})
+                del host, back
+            res[mode] = runs
+        if empty_host_cache is not None:
+            empty_host_cache()
+            dem, host = timed(lambda: down_into(pinned_like(state), state))
+            res["pinned_fresh_after_empty_cache_s"] = dem
+            del host
+        if hasattr(torch.cuda, "host_memory_stats"):
+            res["host_allocator"] = {
+                k: v for k, v in torch.cuda.host_memory_stats().items()
+                if k.endswith(".current") or k.endswith(".peak")}
+        out[cfg.store_dtype] = res
+        del state, reused
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -215,6 +306,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scan-sweep", action="store_true")
     ap.add_argument("--assign-sweep", action="store_true")
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--host-copy", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -229,6 +321,10 @@ def main(argv=None) -> int:
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
                       "assign_sweep": assign_sweep(args.seed)}, args.out)
+    if args.host_copy:
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "host_copy": host_copy(args.seed)}, args.out)
     if args.fused:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

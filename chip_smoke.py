@@ -42,6 +42,16 @@ Phases (any failure raises and the script exits non-zero):
    queries (every answer the recorded one, the budget and the byte
    breakdown held after every query); a batched window over 8 tenants, 2
    of them demoted, flushes as 1 fused group + 2 promoting singletons.
+8. routing: a PAPER_1M f32 and int8 tenant with target recall 0.95 from
+   nprobe 4, probed through ``MemoryOp("probe")`` until the knob settles
+   (the walk equals a fresh tuner's, recall@k at the knob over 256 fresh
+   rows against the card's oracle, B=1 p50 at nprobe 64 and at the knob),
+   with B=1 queries from a thread meanwhile and a probe the maintenance
+   poll schedules; PAPER_100K tenants under the flat, auto (flat -> ivf
+   -> hnsw by inserts) and hnsw policies, the probe tuning ef, the graph
+   mirroring writes and dropped by a rebuild and a demotion; a window
+   over two tenants tuned apart and two graph tenants flushing as 3
+   dispatches; the tuned tenant saved and loaded with its knob.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -254,9 +264,13 @@ def phase_kernels(seed: int, cfg) -> dict:
                                                      metric=metric,
                                                      _variant=v), want))
     scan_times = {}
-    for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full)):
+    # probed slab B=1, full scan B=64, and the recall probe's centroid scan
+    # (phase 8: its 64 sampled rows against the C centroids)
+    for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full),
+                        ("probe_centroids", 64, c)):
         q, db, ids = randn(b, d), randn(n, d), ids_with_holes(n)
-        if ss.variant_for(b, n, d, q.data_ptr(), db.data_ptr()) != "stream":
+        picked = ss.variant_for(b, n, d, q.data_ptr(), db.data_ptr())
+        if picked != "stream" and label != "probe_centroids":
             raise AssertionError(f"scan_scores at PAPER_1M {label} does not "
                                  "take the stream variant")
         want = ref.scan_scores_ref(q, db, ids)
@@ -280,9 +294,17 @@ def phase_kernels(seed: int, cfg) -> dict:
             "shape": f"B={b} N={n} D={d} ip", "ms": ms, "variant_ms": var_ms,
             "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
             "library_ms": lib, "library_f32_ms": f32}
+        if label == "probe_centroids":
+            # launch-sized: device times only, queued behind a spin kernel
+            with tf32_on():
+                lib_q = queued_ms(lambda: torch.mm(q, db.T), reps)
+            scan_times[label].update(variant=picked,
+                                     library_queued_ms=lib_q)
         del q, db, ids
         torch.cuda.empty_cache()
     full, probed = scan_times["full"], scan_times["probed"]
+    print(f"  scan_scores probe centroids: {scan_times['probe_centroids']}",
+          flush=True)
     out["scan_scores"] = {
         "name": "scan_scores", "route": "cuda",
         "source": "src/repro_torch/csrc/scan_scores.cu",
@@ -294,6 +316,7 @@ def phase_kernels(seed: int, cfg) -> dict:
         # without TF32 runs on the CUDA cores and is bound by operations
         "library_call": "torch.mm(q, db.T) f32 inputs, TF32 on",
         "probed": probed,
+        "probe_centroids": scan_times["probe_centroids"],
     }
 
     # -- scan_scores_q8 ---------------------------------------------------
@@ -1413,6 +1436,515 @@ def phase_residency(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: recall-adaptive routing (the recall probe, the nprobe/ef tuners,
+# the index policies, the derived HNSW graph tier) through MemoryService
+# ---------------------------------------------------------------------------
+
+PROBE_TARGET = 0.95     # 8a, 8c: the tuned tenants' target recall@k
+PROBE_NPROBE0 = 4       # 8a: starting nprobe, lowered from 64 (a deviation
+#                         from PAPER_1M) so that the tuner has to seek
+MAX_PROBES = 12         # a tuner settles after two probes that leave its
+#                         knob alone, or stops after this many
+AUTO_FLAT_MAX = 2048    # 8c: the auto tenant's policy thresholds
+AUTO_HNSW_MIN = 3072
+# 8c: the hnsw tenant's rows, cut from PAPER_100K's 100,000: the host graph
+# pays an O(N) np.concatenate and a per-node Python search for every row
+# it adds (src/repro_torch/core/hnsw.py, a copy of the reference's), tens
+# of milliseconds a row at d = 1024, and the auto tenant already builds
+# one graph of AUTO_HNSW_MIN rows
+HNSW_ROWS = 1000
+HNSW2_ROWS = 300        # 8c, 8d: a second graph tenant of the same config
+# the keys of a saved tuner (`RecallTuner.to_dict` in both packages)
+TUNER_KEYS = {"target", "lo", "hi", "slack", "knob", "floor", "probes",
+              "raises", "backoffs", "last_recall"}
+
+
+def phase_routing(seed: int, card: str) -> dict:
+    """Recall-adaptive routing on the card.  8a: a PAPER_1M f32 tenant and
+    then an int8 one, target recall 0.95 from nprobe 4, probed through the
+    service until the knob settles; the knob walk equals a fresh tuner fed
+    the measured recalls, recall@k at the settled knob over 256 fresh live
+    rows (the card oracle) is at least the target less the tuner's slack,
+    and every such query's own row comes first.  8b: B=1 queries from a
+    thread while the f32 tenant's probes retune it, and the maintenance
+    poll's probe once 512 ops have passed: none fails, 99 % find their row.
+    8c: PAPER_100K tenants under each policy: flat (every query a full
+    scan), auto (flat -> ivf -> hnsw by inserts, the policy and the
+    executed path agreeing at each step), hnsw (the probe tuning ef), and
+    the graph's lifecycle (it mirrors an insert and a delete; a rebuild and
+    a WARM demotion drop it, the next graph query rebuilds it; a probe on
+    the demoted tenant is skipped).  8d: two PAPER_100K tenants at target
+    0.80 and 0.99 probed until their knobs differ and a window over them
+    and the two graph tenants (3 dispatches, every answer the sync one bit
+    for bit); then the 8a f32 tenant saved and loaded with its knob."""
+    import threading
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.core import metrics, templates
+    from repro_torch.core.tuner import RecallTuner
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    scans = ("scan_scores", "scan_scores_q8")
+    for m in kernels.values():
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    out = {"card": card, "deviations": [
+        f"8a: PAPER_1M starts at nprobe {PROBE_NPROBE0}, not 64 (the router "
+        "keeps PAPER_1M's thresholds)",
+        f"8c: the hnsw tenant holds {HNSW_ROWS} rows and a second one "
+        f"{HNSW2_ROWS}, not 100,000: the host graph's per-row add"]}
+
+    def variants():
+        return {k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+                for k in scans}
+
+    def since(before):
+        now = variants()
+        return {k: {v: now[k][v] - before[k][v] for v in now[k]}
+                for k in scans}
+
+    def served(coll):
+        """The path the probe measures: the policy's steady-state one."""
+        return {"flat": "full_scan", "hnsw": "hnsw"}.get(
+            coll.index_policy(), "probed")
+
+    def knob_of(coll, path):
+        return coll.tuned_ef() if path == "hnsw" else coll.tuned_nprobe()
+
+    def settle(svc, name, what):
+        """Probe ops until two in a row leave the knob alone (or
+        MAX_PROBES): per probe the knob before and after, the recall, the
+        wall ms and the scan launches by variant."""
+        coll = svc.collection(name)
+        log, still = [], 0
+        for _ in range(MAX_PROBES):
+            path = served(coll)
+            before, v0 = knob_of(coll, path), variants()
+            t0 = time.perf_counter()
+            r = svc.submit(MemoryOp("probe", name)).result(timeout=900)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if r["recall"] is None or r["path"] != path:
+                raise AssertionError(f"{what}: probe {r} on path {path}")
+            # scans by variant while the probe ran (queries running beside
+            # it, at the same knob, count too)
+            e = {"path": r["path"], "before": before, "after": r["knob"],
+                 "recall": r["recall"], "ms": ms, "sample": r["sample"],
+                 "launches_by_variant": since(v0)}
+            if path == "probed":
+                e["slab_rows"] = before * coll.cfg.list_capacity \
+                    + coll.spill_capacity
+            log.append(e)
+            print(f"  {what} probe {len(log)}: {path} knob {before} -> "
+                  f"{r['knob']} recall {r['recall']:.4f} {ms:.1f} ms "
+                  f"{e['launches_by_variant']} [{card}]", flush=True)
+            still = 0 if r["retuned"] else still + 1
+            if still == 2:
+                break
+        return log
+
+    def replay(log, tuner, what):
+        """The knob walk equals a fresh port tuner fed the same recalls."""
+        for e in log:
+            if tuner.knob != e["before"] or \
+                    tuner.observe(e["recall"]) != e["after"]:
+                raise AssertionError(f"{what}: the knob walk {log} is not "
+                                     "a fresh tuner's")
+
+    def nprobe_tuner(cfg):
+        return RecallTuner(cfg.target_recall,
+                           max(1, min(cfg.nprobe, cfg.n_clusters)), 1,
+                           cfg.n_clusters)
+
+    def ef_tuner(cfg):
+        lo, hi = max(1, cfg.k), max(1024, 8 * max(cfg.hnsw_ef, cfg.k))
+        return RecallTuner(cfg.target_recall, min(max(cfg.hnsw_ef, lo), hi),
+                           lo, hi)
+
+    def fresh_recall(svc, name, rows, g, what, n=256, own_first=True):
+        """recall@k of the served path at the tuned knob over n live rows
+        drawn apart from the probes' samples, against the oracle on the
+        card, and the share of queries whose own row comes first (all of
+        them must, on the probed path)."""
+        coll = svc.collection(name)
+        sel = torch.randperm(rows.shape[0], generator=g, device=dev)[:n]
+        qs = rows[sel]
+        truth = metrics.brute_force_topk(
+            qs, rows, torch.arange(rows.shape[0], device=dev), coll.cfg.k,
+            coll.cfg.metric, device=dev)
+        got, _ = svc.query(name, qs, path=served(coll))
+        rec = metrics.recall_at_k(got, truth)
+        own = float(np.mean(got[:, 0] == sel.cpu().numpy()))
+        if rec < coll.cfg.target_recall - 0.03 or (own_first and own < 1.0):
+            raise AssertionError(f"{what}: recall@{coll.cfg.k} {rec:.4f} at "
+                                 f"the tuned knob, own row first on {own}")
+        return rec, own
+
+    def p50_ms(svc, name, rows, g, nprobe=None, reps=50):
+        lat = []
+        for i in range(reps + 3):
+            t = torch.randint(0, rows.shape[0], (1,), generator=g,
+                              device=dev)
+            q = perturb(rows[t], g)
+            t0 = time.perf_counter()
+            svc.query(name, q, nprobe=nprobe)
+            if i >= 3:
+                lat.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(lat))
+
+    # -- 8a, 8b -----------------------------------------------------------
+    g = torch.Generator(device=dev).manual_seed(seed + 80)
+    x = make_corpus(N_ROWS, PAPER_1M.dim, g)
+    ids = np.arange(N_ROWS, dtype=np.int32)
+    th_1m = templates.TemplateThresholds.from_profile(PAPER_1M)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_routing_") as saved:
+        # the daemon poll never runs (an hour between polls): 8b calls
+        # poll_once itself, so that no probe lands between 8a's
+        with MemoryService(maintenance_poll_interval_s=3600.0) as svc:
+            for store in ("float32", "int8"):
+                name = f"p{store}"
+                cfg = dataclasses.replace(
+                    PAPER_1M, store_dtype=store, nprobe=PROBE_NPROBE0,
+                    target_recall=PROBE_TARGET)
+                coll = svc.create_collection(name, cfg, seed=seed + 80,
+                                             thresholds=th_1m)
+                t0 = time.perf_counter()
+                svc.build(name, x, ids=ids)
+                rec = {"build_s": time.perf_counter() - t0}
+                stop, errors, hits = threading.Event(), [], [0, 0]
+
+                def serve():
+                    rng = np.random.default_rng(seed + 81)
+                    while not stop.is_set():
+                        i = int(rng.integers(N_ROWS))
+                        try:
+                            got, _ = svc.query(name, x[i:i + 1])
+                        except Exception as e:   # noqa: BLE001 — counted
+                            errors.append(e)
+                            return
+                        hits[0] += int(got[0, 0] == i)
+                        hits[1] += 1
+
+                thread = threading.Thread(target=serve)
+                if store == "float32":           # 8b: queries while tuning
+                    thread.start()
+                try:
+                    v0 = variants()
+                    rec["probes"] = settle(svc, name, f"8a {store}")
+                    rec["launches_by_variant"] = since(v0)
+                    if store == "float32":
+                        # 8b: the poll schedules a probe once 512 ops passed
+                        t0 = time.perf_counter()
+                        while not coll.recall_probe_due():
+                            if time.perf_counter() - t0 > 300:
+                                raise AssertionError("8b: 512 ops never "
+                                                     "passed")
+                            time.sleep(0.01)
+                        seq = coll.stats()["last_probe"]["seq"]
+                        before = coll.tuned_nprobe()
+                        if svc.maintenance.poll_once() < 1:
+                            raise AssertionError("8b: the poll scheduled "
+                                                 "nothing")
+                        while coll.stats()["last_probe"]["seq"] == seq:
+                            if time.perf_counter() - t0 > 600:
+                                raise AssertionError("8b: the polled probe "
+                                                     "never ran")
+                            time.sleep(0.01)
+                        # the polled probe is one more step of the walk
+                        polled = coll.stats()["last_probe"]
+                        rec["probes"].append({
+                            "path": polled["path"], "before": before,
+                            "after": polled["knob"],
+                            "recall": polled["recall"], "polled": True})
+                finally:
+                    stop.set()
+                    if thread.is_alive():
+                        thread.join(timeout=600)
+                if thread.is_alive():
+                    raise AssertionError("8b: the query thread hung")
+                if store == "float32":
+                    maint = svc.stats()["maintenance"]
+                    self_hit = hits[0] / max(1, hits[1])
+                    if errors or maint["probes_triggered"] < 1 or \
+                            self_hit < 0.99:
+                        raise AssertionError(
+                            f"8b: {len(errors)} failed queries "
+                            f"{errors[:1]}, {maint['probes_triggered']} "
+                            f"polled probes, self-hit {self_hit:.4f}")
+                    out["8b"] = {"queries": hits[1], "self_hit": self_hit,
+                                 "failed": len(errors),
+                                 "probes_triggered":
+                                     maint["probes_triggered"],
+                                 "polled_probe": coll.stats()["last_probe"]}
+                replay(rec["probes"], nprobe_tuner(cfg), f"8a {store}")
+                n_scan = sum(sum(v.values()) for v in
+                             rec["launches_by_variant"].values())
+                if n_scan <= 0 or (store == "int8" and sum(
+                        rec["launches_by_variant"]["scan_scores_q8"]
+                        .values()) <= 0):
+                    raise AssertionError(f"8a {store}: the probes launched "
+                                         f"no scan {rec}")
+                rec["settled_nprobe"] = coll.tuned_nprobe()
+                rec["recall_at_knob"], rec["own_row_first"] = fresh_recall(
+                    svc, name, x, g, f"8a {store}")
+                rec["p50_ms_nprobe64"] = p50_ms(svc, name, x, g, nprobe=64)
+                rec["p50_ms_settled"] = p50_ms(svc, name, x, g)
+                out[f"8a_{store}"] = rec
+                print(f"  8a {store}: settled nprobe "
+                      f"{rec['settled_nprobe']} recall@{cfg.k} "
+                      f"{rec['recall_at_knob']:.4f}, B=1 probed p50 "
+                      f"{rec['p50_ms_nprobe64']:.3f} ms at 64, "
+                      f"{rec['p50_ms_settled']:.3f} ms settled [{card}]",
+                      flush=True)
+            out["8a_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            # 8d (second half): the f32 tenant saved and loaded
+            svc.drop_collection("pint8")
+            coll = svc.collection("pfloat32")
+            knob, stats = coll.tuned_nprobe(), coll.stats()
+            svc.save(saved)
+        del svc, coll
+        release()
+        with open(os.path.join(saved, "collections", "pfloat32",
+                               "collection.json")) as f:
+            meta = json.load(f)
+        if set(meta.get("tuners", {})) != {"nprobe", "ef"} or any(
+                set(t) != TUNER_KEYS for t in meta["tuners"].values()) or \
+                meta.get("probe_seq") != stats["last_probe"]["seq"] + 1:
+            raise AssertionError(f"8d: saved metadata {meta}")
+        with MemoryService.load(saved, maintenance=False) as back:
+            bc = back.collection("pfloat32")
+            if bc.tuned_nprobe() != knob or \
+                    bc.stats()["tuner"] != stats["tuner"]:
+                raise AssertionError("8d: the loaded tenant lost its knob")
+        out["8d_save_load"] = {"nprobe": knob,
+                               "probe_seq": meta["probe_seq"]}
+    del x, back, bc
+    release()
+
+    # -- 8c, 8d -----------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    with MemoryService(batch_window=64, maintenance=False) as svc:
+        def corpus(i, n):
+            gi = torch.Generator(device=dev).manual_seed(seed + 90 + i)
+            return make_corpus(n, PAPER_100K.dim, gi), gi
+
+        def launched(fn):
+            n0 = ss.launches.value
+            r = fn()
+            return r, ss.launches.value - n0
+
+        def same(a, b, what):
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+                raise AssertionError(f"{what}: the answers differ")
+
+        # flat: every query is a full scan
+        cfg = dataclasses.replace(PAPER_100K, index_policy="flat")
+        svc.create_collection("flat", cfg, seed=seed + 90)
+        xf, gf = corpus(0, TENANT_ROWS)
+        svc.build("flat", xf, ids=np.arange(TENANT_ROWS))
+        coll = svc.collection("flat")
+        for b in (1, 4, 64):
+            q = perturb(xf[:b], gf)
+            if coll.resolve_query(b, None, None, None)[2] != "full_scan":
+                raise AssertionError("8c flat: not routed to the full scan")
+            got, n = launched(lambda: svc.query("flat", q))
+            same(got, svc.query("flat", q, path="full_scan"), "8c flat")
+            if n != 1 or not np.array_equal(got[0][:, 0], np.arange(b)):
+                raise AssertionError(f"8c flat: {n} scans for B={b}")
+        out["8c_flat"] = {"rows": TENANT_ROWS, "full_scans": True}
+        del xf
+
+        # auto: flat -> ivf -> hnsw as inserts grow it
+        cfg = dataclasses.replace(PAPER_100K, index_policy="auto")
+        # the constructor's full_scan_batch (32) keeps B=1 on the probed
+        # path under "ivf" (PAPER_100K's profile would give 1)
+        th = templates.TemplateThresholds(flat_max_rows=AUTO_FLAT_MAX,
+                                          hnsw_min_rows=AUTO_HNSW_MIN)
+        coll = svc.create_collection("auto", cfg, seed=seed + 91,
+                                     thresholds=th)
+        xa, ga = corpus(1, AUTO_HNSW_MIN)
+        steps = []
+        for lo, hi, policy, path, n_scans in (
+                (0, AUTO_FLAT_MAX * 3 // 4, "flat", "full_scan", 1),
+                (AUTO_FLAT_MAX * 3 // 4, (AUTO_FLAT_MAX + AUTO_HNSW_MIN) // 2,
+                 "ivf", "probed", 2),
+                ((AUTO_FLAT_MAX + AUTO_HNSW_MIN) // 2, AUTO_HNSW_MIN,
+                 "hnsw", "hnsw", 0)):
+            op = svc.build if lo == 0 else svc.insert
+            op("auto", xa[lo:hi], ids=np.arange(lo, hi))
+            q = xa[lo:lo + 1]
+            t0 = time.perf_counter()
+            got, n = launched(lambda: svc.query("auto", q))
+            wall = time.perf_counter() - t0
+            if coll.index_policy() != policy or n != n_scans or \
+                    coll.resolve_query(1, None, None, None)[2] != path or \
+                    int(got[0][0, 0]) != lo:
+                raise AssertionError(
+                    f"8c auto at {hi} rows: policy {coll.index_policy()}, "
+                    f"{n} scans, first id {got[0][0, 0]}; want {policy} "
+                    f"({path}, {n_scans} scans)")
+            same(got, svc.query("auto", q, path=path), f"8c auto {policy}")
+            steps.append({"rows": hi, "policy": policy, "path": path,
+                          "scans": n, "first_query_s": wall})
+        out["8c_auto"] = {"thresholds": [AUTO_FLAT_MAX, AUTO_HNSW_MIN],
+                          "steps": steps,
+                          "graph_build_s_host": steps[-1]["first_query_s"]}
+        del xa
+
+        # hnsw: the probe tunes ef
+        cfg_h = dataclasses.replace(PAPER_100K, index_policy="hnsw",
+                                    target_recall=PROBE_TARGET)
+        coll = svc.create_collection("h", cfg_h, seed=seed + 92)
+        xh, gh = corpus(2, HNSW_ROWS)
+        svc.build("h", xh, ids=np.arange(HNSW_ROWS))
+        t0 = time.perf_counter()
+        svc.query("h", xh[:1])                   # builds the graph
+        first = time.perf_counter() - t0
+        lat = []
+        for i in range(20):
+            q = perturb(xh[i + 1:i + 2], gh)
+            t0 = time.perf_counter()
+            got = svc.query("h", q)
+            lat.append(time.perf_counter() - t0)
+        rec = {"rows": HNSW_ROWS,
+               "graph_build_s_host": first - float(np.median(lat)),
+               "query_ms_host_ef_default": 1e3 * float(np.median(lat))}
+        rec["probes"] = settle(svc, "h", "8c hnsw")
+        replay(rec["probes"], ef_tuner(cfg_h), "8c hnsw")
+        rec["settled_ef"] = coll.tuned_ef()
+        rec["recall_at_ef"], rec["own_row_first"] = fresh_recall(
+            svc, "h", xh, gh, "8c hnsw", own_first=False)
+        lat = []
+        for i in range(20):
+            q = perturb(xh[i + 1:i + 2], gh)
+            t0 = time.perf_counter()
+            svc.query("h", q)
+            lat.append(time.perf_counter() - t0)
+        rec["query_ms_host_settled"] = 1e3 * float(np.median(lat))
+        out["8c_hnsw"] = rec
+        print(f"  8c hnsw: graph build {rec['graph_build_s_host']:.1f} s "
+              f"(host), settled ef {rec['settled_ef']} recall "
+              f"{rec['recall_at_ef']:.4f}, query "
+              f"{rec['query_ms_host_settled']:.2f} ms (host)", flush=True)
+
+        # the graph's lifecycle on a second graph tenant of the same config
+        c2 = svc.create_collection("h2", cfg_h, seed=seed + 93)
+        x2, g2 = corpus(3, HNSW2_ROWS + 16)
+        svc.build("h2", x2[:HNSW2_ROWS], ids=np.arange(HNSW2_ROWS))
+        svc.query("h2", x2[:1])
+
+        def graph_matches(what):
+            st = c2.snapshot()
+            slots = torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+            live = set(slots[slots >= 0].tolist())
+            if c2._graph is None or \
+                    set(c2._graph.live_ids().tolist()) != live:
+                raise AssertionError(f"8c graph {what}: the graph's ids "
+                                     "are not the index's")
+
+        new = np.arange(HNSW2_ROWS, HNSW2_ROWS + 16)
+        svc.insert("h2", x2[HNSW2_ROWS:], ids=new)
+        graph_matches("after an insert")
+        got, _ = svc.query("h2", x2[HNSW2_ROWS:])
+        if not np.array_equal(got[:, 0], new):
+            raise AssertionError("8c graph: an inserted row is not found")
+        gone = np.concatenate([new[:8], np.arange(8)])
+        svc.delete("h2", gone)
+        graph_matches("after a delete")
+        probes_q = torch.cat([x2[HNSW2_ROWS:HNSW2_ROWS + 8], x2[:8]])
+
+        def no_deleted(what):
+            got, _ = svc.query("h2", probes_q)
+            if np.isin(got, gone).any():
+                raise AssertionError(f"8c graph {what}: a deleted id came "
+                                     "back")
+
+        no_deleted("after a delete")
+        t0 = time.perf_counter()
+        svc.demote("h2", "warm")
+        dropped_by_demotion = c2._graph is None
+        skipped = svc.submit(MemoryOp("probe", "h2")).result(timeout=60)
+        no_deleted("after a promotion")
+        graph_matches("after a promotion")
+        r = svc.rebuild("h2")
+        dropped_by_rebuild = c2._graph is None
+        no_deleted("after a rebuild")
+        graph_matches("after a rebuild")
+        if not (dropped_by_demotion and dropped_by_rebuild) or \
+                skipped != {"skipped": "warm", "recall": None} or \
+                r["aborted"]:
+            raise AssertionError(f"8c graph: demotion dropped it "
+                                 f"{dropped_by_demotion}, rebuild "
+                                 f"{dropped_by_rebuild}, probe {skipped}")
+        out["8c_graph_lifecycle"] = {
+            "rows": HNSW2_ROWS, "inserted": 16, "deleted": len(gone),
+            "dropped_by_demotion": dropped_by_demotion,
+            "dropped_by_rebuild": dropped_by_rebuild,
+            "probe_when_warm": skipped,
+            "s_host": time.perf_counter() - t0}
+
+        # 8d: two probed tenants tuned apart, one window with the graphs
+        for i, target in enumerate((0.80, 0.99)):
+            name = f"t{int(target * 100)}"
+            svc.create_collection(
+                name, dataclasses.replace(PAPER_100K, target_recall=target),
+                seed=seed + 94 + i)
+            xt, _ = corpus(4 + i, TENANT_ROWS)
+            svc.build(name, xt, ids=np.arange(TENANT_ROWS))
+            del xt
+        knobs = []
+        for _ in range(MAX_PROBES):
+            for name in ("t80", "t99"):
+                svc.submit(MemoryOp("probe", name)).result(timeout=600)
+            knobs.append([svc.collection(n).tuned_nprobe()
+                          for n in ("t80", "t99")])
+            if knobs[-1][0] != knobs[-1][1]:
+                break
+        sig = [svc.collection(n).batch_signature(1, None, None, "probed")
+               for n in ("t80", "t99")]
+        if sig[0][5] == sig[1][5]:
+            raise AssertionError(f"8d: the knobs never differed {knobs}")
+        gq = torch.Generator(device=dev).manual_seed(seed + 99)
+        reqs = []
+        for name in ("t80", "t80", "t99", "t99"):
+            reqs.append((name, torch.nn.functional.normalize(
+                torch.randn(1, PAPER_100K.dim, generator=gq, device=dev),
+                dim=1), "probed"))
+        reqs += [("h", perturb(xh[:1], gh), None),
+                 ("h2", perturb(x2[20:21], g2), None)]
+        futs = [svc.submit(MemoryOp("query", n, q, path=p, batch=True))
+                for n, q, p in reqs]
+        n_disp = svc.flush()
+        got = [f.result(timeout=600) for f in futs]
+        for (n, q, p), a in zip(reqs, got):
+            same(a, svc.query(n, q, path=p), f"8d {n}")
+        if n_disp != 3:
+            raise AssertionError(f"8d: the window flushed as {n_disp} "
+                                 "dispatches, not 3")
+        out["8d_window"] = {"knobs": knobs, "dispatches": n_disp,
+                            "nprobe": [s[5] for s in sig],
+                            "bit_equal": True}
+    out["8cd_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del svc, coll, c2, xh, x2
+    release()
+    out["launches"] = {k: m.launches.value for k, m in kernels.items()}
+    out["launches_by_variant"] = {
+        k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k, n in out["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"phase 8 never launched {k}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1477,6 +2009,13 @@ def main(argv=None) -> int:
     paths["residency"] = res = phase_residency(args.seed, card)
     print(f"phase 7: residency in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(res), flush=True)
+    release()
+    # 8. recall-adaptive routing (after phase 7's memory is freed), the
+    # counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["routing"] = rt = phase_routing(args.seed, card)
+    print(f"phase 8: routing in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(rt), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -3,9 +3,10 @@
 Port of ``src/repro/api/collection.py`` for one unsharded collection with
 either store policy (f32, or f32 plus the int8 scan store), its residency
 tier (HOT on the device, WARM in host memory, COLD on disk; see
-`repro_torch.api.residency`), and save/load in the reference's on-disk
-layout.  The mesh-sharded tier, the HNSW graph and recall-adaptive routing
-and replication shipping are later slices of the port; they raise
+`repro_torch.api.residency`), recall-adaptive routing (the index policy,
+the recall probe and its knob tuners, the derived HNSW graph tier), and
+save/load in the reference's on-disk layout.  The mesh-sharded tier and
+replication shipping are later slices of the port; they raise
 NotImplementedError naming their ROADMAP item.
 
 Concurrency model (lost-update-safe writes, wait-free reads), as in the
@@ -43,6 +44,7 @@ import dataclasses
 import json
 import os
 import time
+import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -51,7 +53,10 @@ import torch
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core import index as ivf
 from repro_torch.core import locking
+from repro_torch.core import metrics
 from repro_torch.core import templates
+from repro_torch.core.hnsw import HNSW
+from repro_torch.core.tuner import RecallTuner
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
 
@@ -91,6 +96,11 @@ def _copy_state(state: ivf.IVFState, device: torch.device, *,
     return out
 
 
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or host array as a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def _host_tensors(arrays: ivf.IVFState) -> ivf.IVFState:
     """IVFState of numpy arrays (a checkpoint restore) as CPU tensors."""
     return ivf.IVFState(*[None if a is None else torch.from_numpy(a)
@@ -106,12 +116,6 @@ class Collection:
         if cfg.shard_db or mesh is not None:
             raise later_slice("the mesh-sharded tier (shard_db / mesh)",
                               "the sharded tier")
-        if cfg.index_policy not in ("ivf", "flat"):
-            raise later_slice(f"index_policy={cfg.index_policy!r}",
-                              "adaptive routing / HNSW")
-        if cfg.target_recall > 0:
-            raise later_slice("target_recall (recall probe + tuner)",
-                              "adaptive routing / HNSW")
         self.name = name
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -158,6 +162,32 @@ class Collection:
         self._residency_mgr = None     # back-ref set by ResidencyManager
         self._last_used = time.monotonic()
         self._index_nbytes = ivf.state_nbytes(cfg, spill_capacity)
+        # Recall-adaptive routing: the HNSW graph is a DERIVED host-side
+        # accelerator for the "hnsw" index policy — the IVF row store stays
+        # the single source of truth for durability, delta replay,
+        # residency and save/load.  The graph is (re)built lazily from the
+        # live rows (`_ensure_graph`), mirrored by writers under the writer
+        # lock (`_graph_apply`), and invalidated whenever a bulk operation
+        # republishes the store wholesale (build / rebuild / demote).
+        # `_graph_lock` is a leaf: it only ever wraps graph work.
+        self._graph: Optional[HNSW] = None
+        self._graph_lock = locking.make_lock("_lock")
+        self._probe_ops = 0            # ops since the last recall probe
+        self._probe_seq = 0            # deterministic probe RNG stream
+        self._last_probe: Optional[dict] = None
+        # target_recall > 0 arms the probe + per-path knob tuners
+        if cfg.target_recall > 0:
+            self._nprobe_tuner: Optional[RecallTuner] = RecallTuner(
+                cfg.target_recall,
+                max(1, min(cfg.nprobe, cfg.n_clusters)), 1, cfg.n_clusters)
+            ef_lo = max(1, cfg.k)
+            ef_hi = max(1024, 8 * max(cfg.hnsw_ef, cfg.k))
+            self._ef_tuner: Optional[RecallTuner] = RecallTuner(
+                cfg.target_recall,
+                min(max(cfg.hnsw_ef, ef_lo), ef_hi), ef_lo, ef_hi)
+        else:
+            self._nprobe_tuner = None
+            self._ef_tuner = None
         # load_from installs the restored state itself: no device allocation
         self._state = (ivf.empty_state(cfg, spill_capacity, device=self.device)
                        if _alloc_state else None)
@@ -269,6 +299,9 @@ class Collection:
                 self._state = None
                 self._version += 1
                 self._epoch += 1    # obsoletes in-flight rebuild snapshots
+            # the derived graph only serves the HOT tier; free it with the
+            # device state (promote + next graph query rebuild it)
+            self._graph_invalidate()
         out = {"tier": tier, "demoted": True,
                "demote_s": time.perf_counter() - t0}
         mgr = self._residency_mgr
@@ -368,9 +401,6 @@ class Collection:
     def apply_delta_batch(self, ops) -> dict:
         raise later_slice("replication shipping", "replication")
 
-    def recall_probe(self, sample=None, k=None) -> dict:
-        raise later_slice("the recall probe", "adaptive routing / HNSW")
-
     # ------------------------------------------------------------------
     # Persistence — one namespace directory per collection, in the
     # reference's layout (a Checkpointer step dir + `collection.json`), so
@@ -388,8 +418,7 @@ class Collection:
             with self._lock:
                 tier = self._residency_tier
                 state = self._state
-                # the keys and values of the reference's unsharded
-                # collection (no recall probe here: probe_seq stays 0)
+                # the keys and values of the reference's unsharded collection
                 meta = {"name": self.name, "next_id": self._next_id,
                         "counters": dict(self.counters),
                         "built": self._built,
@@ -399,7 +428,12 @@ class Collection:
                         "residency": tier,
                         "pressure": [dict(p) for p in self._shard_pressure],
                         "approx_live": self._approx_live,
-                        "probe_seq": 0}
+                        "probe_seq": self._probe_seq}
+            # tuner state round-trips so a restored collection keeps its
+            # learned effort knobs instead of re-seeking from the defaults
+            if self._nprobe_tuner is not None:
+                meta["tuners"] = {"nprobe": self._nprobe_tuner.to_dict(),
+                                  "ef": self._ef_tuner.to_dict()}
             # a HOT state goes to disk leaf by leaf from the device
             tree = state if tier == "hot" else self._host_view_locked()
             self._write_host_state(directory, tree, step)
@@ -467,6 +501,16 @@ class Collection:
             coll._approx_live = int(meta.get("approx_live", 0))
             coll._shard_pressure = press
             coll._spill_floors = [int(floors[0])]
+            coll._probe_seq = int(meta.get("probe_seq", 0))
+        # restore learned tuner knobs under the CALLER's target_recall (the
+        # cfg wins over the snapshot's target, but the knob/floor survive)
+        tuners = meta.get("tuners")
+        if tuners is not None and coll._nprobe_tuner is not None:
+            for attr, key in (("_nprobe_tuner", "nprobe"),
+                              ("_ef_tuner", "ef")):
+                d = dict(tuners[key])
+                d["target"] = cfg.target_recall
+                setattr(coll, attr, RecallTuner.from_dict(d))
         return coll
 
     # ------------------------------------------------------------------
@@ -506,6 +550,7 @@ class Collection:
             self._version += 1
             for key, d in counter_deltas.items():
                 self.counters[key] += d
+                self._probe_ops += d    # recall-probe cadence counter
             return self._version
 
     # ------------------------------------------------------------------
@@ -545,6 +590,7 @@ class Collection:
         with self._lock:
             for key, d in deltas.items():
                 self.counters[key] += d
+                self._probe_ops += d    # recall-probe cadence counter
 
     def _log_delta(self, kind: str, rows, ids) -> None:
         """Record a write for an in-flight rebuild.  Caller holds
@@ -592,7 +638,10 @@ class Collection:
                 self._shard_pressure = [{"tombstones": 0, "spilled": spilled}]
                 self._spill_floors = [spilled]
                 self._approx_live = int(x.shape[0])
+                # a fresh index deserves a prompt recall measurement
+                self._probe_ops = self.thresholds.probe_interval_ops
             self._swap(state, rebuilds=1, spilled=spilled)
+            self._graph_invalidate()   # derived graph lazily rebuilds
         return {"build_s": time.perf_counter() - t0, "spilled": spilled}
 
     def insert(self, vectors, ids=None) -> int:
@@ -618,6 +667,9 @@ class Collection:
                 self._approx_live += n
             self._swap(state, inserts=n, spilled=spilled)
             self._log_delta("insert", x, ids)
+            # mirror into the derived HNSW graph (no-op until one exists);
+            # still under the writer lock, so graph order == state order
+            self._graph_apply("insert", x, ids)
         return spilled
 
     def delete(self, ids) -> int:
@@ -633,13 +685,17 @@ class Collection:
                 self._approx_live = max(0, self._approx_live - n_hit)
             self._swap(state, deletes=n_hit)
             self._log_delta("delete", None, ids)
+            # graph delete is idempotent per id — absent ids are a no-op,
+            # matching the state's "ids not present contribute nothing"
+            self._graph_apply("delete", None, ids)
         return n_hit
 
     def query(self, queries, k: Optional[int] = None,
               nprobe: Optional[int] = None,
               path: Optional[str] = None) -> Tuple[np.ndarray, np.ndarray]:
         """Returns host (ids i32[B, k], scores f32[B, k]).  Template-routed;
-        `path` ("probed" | "full_scan") overrides the router.  Wait-free
+        `path` ("probed" | "full_scan" | "hnsw") overrides the router; the
+        graph path answers from the host-side HNSW graph (ids i64).  Wait-free
         w.r.t. writers on a HOT collection: reads the current snapshot
         under the pointer lock and never takes the writer lock.  On a
         WARM/COLD collection this is the cold-hit path: the state is
@@ -655,7 +711,9 @@ class Collection:
         elif path == "probed":
             ids, scores = ivf.query_probed(state, q, self.cfg, k, nprobe)
         elif path == "hnsw":
-            raise later_slice("the HNSW graph path", "adaptive routing / HNSW")
+            # derived-graph path: host-side serial beam search at the
+            # tuner-owned ef (the paper's pointer-chasing baseline, live)
+            return self._query_graph(q.cpu().numpy(), k)
         else:
             raise ValueError(f"unknown query path {path!r}")
         return ids.cpu().numpy(), scores.cpu().numpy()
@@ -742,6 +800,11 @@ class Collection:
                         self._spill_floors[0] = spilled
                     spilled += extra
                     self._swap(new, rebuilds=1)
+                    # the rebuilt store may have repacked/dropped slots the
+                    # mirrored graph still reflects — drop the derived
+                    # graph; the next graph query rebuilds it from the
+                    # post-replay live rows
+                    self._graph_invalidate()
                     return {"rebuild_s": time.perf_counter() - t0,
                             "spilled": spilled, "replayed": replayed,
                             "restarts": restarts, "aborted": False}
@@ -791,30 +854,232 @@ class Collection:
         return bool(self.maintenance_due_shards())
 
     # ------------------------------------------------------------------
+    # Index policy + derived HNSW graph tier (recall-adaptive routing)
+    # ------------------------------------------------------------------
     def index_policy(self) -> str:
-        """The collection's index policy ("ivf" or "flat")."""
-        return self.cfg.index_policy
+        """Resolved index policy for the collection's CURRENT size.
 
+        "auto" follows the host-side live-row estimate across the template
+        thresholds: <= `flat_max_rows` -> "flat" (exact full scan),
+        >= `hnsw_min_rows` -> "hnsw" (derived graph), else "ivf".
+        """
+        pol = self.cfg.index_policy
+        if pol != "auto":
+            return pol
+        with self._lock:
+            n = self._approx_live
+        if n <= self.thresholds.flat_max_rows:
+            return "flat"
+        if n >= self.thresholds.hnsw_min_rows:
+            return "hnsw"
+        return "ivf"
+
+    def tuned_nprobe(self) -> int:
+        """The tuner-owned nprobe (cfg default until a tuner exists)."""
+        t = self._nprobe_tuner
+        return self.cfg.nprobe if t is None else t.knob
+
+    def tuned_ef(self, k: Optional[int] = None) -> int:
+        """The tuner-owned HNSW beam width, floored at k."""
+        t = self._ef_tuner
+        ef = self.cfg.hnsw_ef if t is None else t.knob
+        return max(ef, k or self.cfg.k)
+
+    def _graph_invalidate(self) -> None:
+        with self._graph_lock:
+            self._graph = None
+
+    def _graph_apply(self, kind: str, rows, ids) -> None:
+        """Incrementally mirror one write into the derived graph.  Caller
+        holds the writer lock, so graph mutation order == state order; a
+        no-op until a graph exists (it then rebuilds lazily including this
+        write).  `rows` f32[N, D] for inserts and `ids` are tensors or host
+        arrays; they come to the host only when a graph exists."""
+        with self._graph_lock:
+            g = self._graph
+            if g is None:
+                return
+            ids = np.atleast_1d(_host(ids))
+            if kind == "insert":
+                for r, i in zip(_host(rows), ids):
+                    g.add(r, int(i))
+            else:
+                for i in ids:
+                    g.delete(int(i))
+
+    def _build_graph_from(self, state: ivf.IVFState) -> HNSW:
+        """Fresh HNSW graph over the live rows of `state`.  The graph is
+        host numpy, so this is the one place the rows come to the host."""
+        rows, ids = ivf.flat_rows_host(state)
+        live = np.nonzero(ids >= 0)[0]
+        g = HNSW(self.cfg.dim, m=self.cfg.hnsw_m,
+                 ef_construction=max(self.cfg.hnsw_ef, 2 * self.cfg.hnsw_m),
+                 metric=self.cfg.metric)
+        g.build(rows[live], ids[live])
+        return g
+
+    def _ensure_graph(self) -> HNSW:
+        """The derived graph, (re)building it from the live rows if absent.
+
+        The build runs under the writer lock (serialized against mutators,
+        so no mirror update can be lost between the snapshot read and the
+        install) — the cost lands on the first graph query after an
+        invalidation.  Queries against an existing graph never touch the
+        writer lock.
+        """
+        with self._graph_lock:
+            g = self._graph
+        if g is not None:
+            return g
+        with self._hot_writer():
+            with self._graph_lock:
+                g = self._graph
+            if g is None:
+                g = self._build_graph_from(self._state)
+                with self._graph_lock:
+                    self._graph = g
+            return g
+
+    def _query_graph(self, q: np.ndarray, k: int,
+                     ef: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """Serve a host query batch from the HNSW graph (path "hnsw").
+
+        Returns (ids i64[B, k], scores f32[B, k]) in the engine's score
+        convention (larger = better; "ip" scores are raw inner products,
+        "l2" scores are negated distances so rankings match the IVF paths).
+        Searches serialize on the graph lock — the single-threaded
+        pointer-chasing baseline the paper measures against.
+        """
+        g = self._ensure_graph()
+        ef = ef or self.tuned_ef(k)
+        with self._graph_lock:
+            ids, ds = g.search_batch_scored(q, k, ef=ef)
+        scores = np.where(np.isfinite(ds), -ds, -np.inf).astype(np.float32)
+        return ids, scores
+
+    # ------------------------------------------------------------------
+    # Recall probe (background MemoryOp kind "probe")
+    # ------------------------------------------------------------------
+    def recall_probe_due(self) -> bool:
+        """True when the recall tuner wants a fresh measurement: probing
+        armed (`cfg.target_recall > 0`), built, HOT, and at least
+        `thresholds.probe_interval_ops` ops since the last probe."""
+        if self.cfg.target_recall <= 0:
+            return False
+        with self._lock:
+            return (self._built and self._residency_tier == "hot"
+                    and self._probe_ops >= self.thresholds.probe_interval_ops)
+
+    def recall_probe(self, sample: Optional[int] = None,
+                     k: Optional[int] = None) -> dict:
+        """One recall measurement + tuner step (the "probe" op kind).
+
+        Snapshots the state, samples live rows as queries, runs them down
+        the collection's LIVE serving path, scores against the exact
+        brute-force oracle on the same snapshot, and feeds recall@k to the
+        path's knob tuner (`nprobe` on the probed path, `ef` on the graph
+        path; the flat path is exact — measured, never retuned).  Read-only
+        w.r.t. the row store: no writer lock, no state swap — retuning has
+        zero query downtime (in-flight queries keep the knob they resolved;
+        later ones pick up the new value atomically).
+
+        The snapshot stays on its device: the flat rows, the sampled
+        queries, the oracle and the served path all run there, and only
+        the ids come to the host, to draw the sample (the graph path's
+        queries go to the host, where the graph is).
+        """
+        k = k or self.cfg.k
+        sample = sample or self.thresholds.probe_sample
+        with self._lock:
+            if not self._built or self._residency_tier != "hot":
+                return {"skipped": self._residency_tier, "recall": None}
+            state = self._state
+            self._probe_ops = 0
+            seq = self._probe_seq
+            self._probe_seq += 1
+        # the flat view of the snapshot (list tier, then spill) is the
+        # oracle's ground truth, in the reference's slot order
+        rows, ids = ivf._flat_rows(state)
+        live = np.nonzero(ids.cpu().numpy() >= 0)[0]
+        # Probe the path the policy serves steady traffic with — NOT the
+        # batch router's choice for the probe's own batch size: a
+        # probe_sample-row batch would route to the exact full scan and the
+        # nprobe tuner would never observe the probed path it owns.
+        pol = self.index_policy()
+        if pol == "flat":
+            path, nprobe = "full_scan", 0
+        elif pol == "hnsw":
+            path, nprobe = "hnsw", 0
+        else:
+            path = "probed"
+            nprobe = max(1, min(self.tuned_nprobe(), self.cfg.n_clusters))
+        out = {"path": path, "k": k, "sample": 0, "recall": 1.0,
+               "knob": None, "retuned": False, "seq": seq}
+        if len(live) == 0:            # nothing to measure — vacuously met
+            with self._lock:
+                self._last_probe = out
+            return out
+        rng = np.random.default_rng(
+            (zlib.crc32(self.name.encode()) + seq) & 0x7FFFFFFF)
+        sel = rng.choice(live, size=min(sample, len(live)), replace=False)
+        qs = rows[torch.from_numpy(sel).to(rows.device)]
+        true = metrics.brute_force_topk(qs, rows, ids, k, self.cfg.metric,
+                                        device=rows.device)
+        del rows, ids        # free the flat copy before the served path
+        tuner = None
+        if path == "full_scan":
+            got, _ = ivf.query_full_scan(state, qs, self.cfg, k)
+        elif path == "hnsw":
+            tuner = self._ef_tuner
+            got, _ = self._query_graph(qs.cpu().numpy(), k)
+        else:
+            tuner = self._nprobe_tuner
+            got, _ = ivf.query_probed(state, qs, self.cfg, k, nprobe)
+        rec = metrics.recall_at_k(_host(got), true)
+        out.update(recall=rec, sample=int(len(sel)))
+        if tuner is not None:
+            before = tuner.knob
+            after = tuner.observe(rec)
+            out.update(knob=after, retuned=after != before)
+        with self._lock:
+            self._last_probe = out
+        return out
+
+    # ------------------------------------------------------------------
     def resolve_query(self, batch: int, k, nprobe, path) -> Tuple[int, int, str]:
         """Resolve query params against collection defaults + the router.
 
-        nprobe is clamped exactly like `ivf.query_probed` clamps it, so the
-        resolved value is the executed value; off the probe path it is
-        pinned to 0.  "flat" always full-scans; "ivf" takes the template
-        route.
+        The resolved triple is part of the batch signature, so sync,
+        future, and cross-collection-batched execution of the same request
+        all take the identical execution path.
+
+        nprobe is tuner-owned: a caller passing None gets the recall
+        tuner's current knob (cfg default until a tuner exists), clamped
+        exactly like `ivf.query_probed` clamps it — the resolved value IS
+        the executed value, so two tenants tuned to different nprobe split
+        fusion groups cleanly.  Off the probe path nprobe is not an
+        execution parameter and is pinned to 0, so tuner divergence never
+        splits full-scan or graph-path groups.
+
+        The execution path follows the resolved index policy: "flat"
+        always full-scans, "hnsw" serves from the derived graph, "ivf"
+        keeps the template route.
         """
         k = k or self.cfg.k
         if not nprobe:
-            nprobe = self.cfg.nprobe
+            nprobe = self.tuned_nprobe()
         nprobe = max(1, min(int(nprobe), self.cfg.n_clusters))
         if path is None:
-            if self.index_policy() == "flat":
+            policy = self.index_policy()
+            if policy == "flat":
                 path = "full_scan"
+            elif policy == "hnsw":
+                path = "hnsw"
             else:
                 path = templates.route("query", batch, self.cfg,
                                        self.thresholds).path
         if path != "probed":
-            nprobe = 0
+            nprobe = 0        # unused off the probe path; keep groups whole
         return k, nprobe, path
 
     def batch_signature(self, batch: int, k, nprobe, path):
@@ -865,4 +1130,10 @@ class Collection:
                          "spilled": sum(p["spilled"] for p in pressure),
                          "shards": pressure}
         s["index_policy"] = self.index_policy()
+        if self._nprobe_tuner is not None:
+            s["tuner"] = {"nprobe": self._nprobe_tuner.stats(),
+                          "ef": self._ef_tuner.stats()}
+        with self._lock:
+            s["last_probe"] = (None if self._last_probe is None
+                               else dict(self._last_probe))
         return s

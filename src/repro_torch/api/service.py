@@ -12,7 +12,8 @@ collection unless `maintenance=False`) polls each collection's host-side
 tombstone/spill pressure counters and, past the thresholds in its
 `templates.TemplateThresholds`, submits a background-class rebuild through
 the scheduler — the delta-replay rebuild in `Collection` makes that safe
-under concurrent inserts/deletes.
+under concurrent inserts/deletes.  The same poll submits a recall probe
+(the ``probe`` op) for every collection whose tuner cadence is due.
 
 Cross-collection batching: queries submitted with ``batch=True`` park in
 a pending window; `flush` groups them by `Collection.batch_signature` and
@@ -66,9 +67,10 @@ class MaintenanceController:
     A daemon thread polls every collection's `maintenance_due_shards()`
     (pure host counters — no device sync) and schedules at most one
     in-flight rebuild per collection through the service's scheduler, on
-    the background backend class the rebuild template routes to, and
-    demotes the tenants the residency manager names (idle, or over the
-    device budget) as ordinary demote ops.  Queries
+    the background backend class the rebuild template routes to, schedules
+    at most one in-flight recall probe per collection whose cadence is
+    due, and demotes the tenants the residency manager names (idle, or
+    over the device budget) as ordinary demote ops.  Queries
     are isolated from the rebuild both by the scheduler (latency workers
     never take index work) and by the collection (delta-replay rebuilds
     never hold the state lock through device compute).
@@ -83,13 +85,14 @@ class MaintenanceController:
         self._stop = threading.Event()
         self._lock = locking.make_lock("_lock")
         # keyed by (collection, slot): the slot of an unsharded rebuild is
-        # None, a residency demotion's "demote:<tier>" — each slot has at
-        # most one op in flight
+        # None, a recall probe's "probe", a residency demotion's
+        # "demote:<tier>" — each slot has at most one op in flight
         self._inflight: Dict[Tuple[str, object], Optional[OpFuture]] = {}
         # persistent rebuild failures must not re-submit every poll
         self._backoff_until: Dict[Tuple[str, object], float] = {}
         self.triggered = 0
         self.demotions_triggered = 0
+        self.probes_triggered = 0
         self.failed = 0
         self.shed = 0
         self.last_error: Optional[BaseException] = None
@@ -153,7 +156,8 @@ class MaintenanceController:
 
     def poll_once(self) -> int:
         """One maintenance sweep; returns the number of ops scheduled
-        (rebuilds from tombstone/spill pressure, plus background residency
+        (rebuilds from tombstone/spill pressure, recall probes for
+        collections whose tuner cadence is due, plus background residency
         demotions of idle or over-budget tenants).  Also callable
         directly; safe to race with the daemon poll."""
         n = 0
@@ -166,6 +170,13 @@ class MaintenanceController:
                 if self._try_submit((name, None), MemoryOp("rebuild", name)):
                     with self._lock:
                         self.triggered += 1
+                    n += 1
+            # recall probe: the tuner's measurement cadence rides the same
+            # slot protocol — at most one in-flight probe per collection
+            if coll.recall_probe_due():
+                if self._try_submit((name, "probe"), MemoryOp("probe", name)):
+                    with self._lock:
+                        self.probes_triggered += 1
                     n += 1
         # residency sweep: the manager names (collection, target-tier)
         # pairs that should drain off the device tier in the background —
@@ -194,6 +205,7 @@ class MaintenanceController:
             return {"triggered": self.triggered, "failed": self.failed,
                     "shed": self.shed,
                     "demotions_triggered": self.demotions_triggered,
+                    "probes_triggered": self.probes_triggered,
                     "inflight": sorted(
                         self._slot_name(k) for k, f in self._inflight.items()
                         if f is None or not f.done()),
@@ -330,8 +342,6 @@ class MemoryService:
     # ------------------------------------------------------------------
     def submit(self, op: MemoryOp) -> OpFuture:
         coll = self.collection(op.collection)     # missing tenant fails fast
-        if op.kind == "probe":
-            raise later_slice("the 'probe' op", "adaptive routing / HNSW")
         fut = OpFuture(op)
         if op.batch:                      # MemoryOp allows it on queries only
             fut._on_wait = self.flush     # waiting on a parked op flushes
@@ -385,6 +395,10 @@ class MemoryService:
             return coll.residency
         if op.kind == "demote":
             return self._residency.demote(coll, tier=op.tier or "warm")
+        if op.kind == "probe":
+            # background recall measurement + tuner step; read-only w.r.t.
+            # the row store, so it never contends with serving traffic
+            return coll.recall_probe()
         raise ValueError(f"unknown op kind {op.kind!r}")
 
     # ------------------------------------------------------------------
@@ -506,13 +520,14 @@ class MemoryService:
 
         The task routes through `templates.route(..., fused_lanes=G)` —
         fused dispatches are throughput-class regardless of per-lane batch.
-        A lane demoted between flush and dispatch is promoted again and the
-        stacked dispatch retried (three attempts), then the lanes fall back
-        to per-lane queries, which promote themselves.  Error propagation
-        mirrors `flush`: any other failure inside the task (e.g.
-        `execute_group`'s ValueError for `path="hnsw"` lanes) settles every
-        still-pending future in the group before re-raising to the
-        scheduler.
+        A `path="hnsw"` group never reaches the stacked dispatch: a host
+        beam search has no product to stack, so the task serves its lanes
+        in sequence, each from its own graph.  A lane demoted between flush
+        and dispatch is promoted again and the stacked dispatch retried
+        (three attempts), then the lanes fall back to per-lane queries,
+        which promote themselves.  Error propagation mirrors `flush`: any
+        other failure inside the task settles every still-pending future
+        in the group before re-raising to the scheduler.
         """
         lanes: Dict[str, dict] = {}
         for op, fut in ops:
@@ -533,6 +548,16 @@ class MemoryService:
                 colls = [lanes[nm]["coll"] for nm in order]
                 qs = [torch.cat(lanes[nm]["qs"]) for nm in order]
                 results = None
+                if path == "hnsw":
+                    # graph-path lanes share the group (same signature) and
+                    # the single scheduler dispatch, but a host-side beam
+                    # search has no GEMM to stack — the task serves the
+                    # lanes in sequence, each from its own derived graph
+                    results = [c.query(q, k=k, path=path)
+                               for c, q in zip(colls, qs)]
+                    fuse.demux([lanes[nm]["entries"] for nm in order],
+                               results)
+                    return len(results)
                 # a lane can demote between flush and dispatch (background
                 # idle demotion / eviction races the scheduler queue):
                 # re-promote and retry the stacked dispatch a few times,

@@ -7,15 +7,41 @@ import torch
 
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
+# rows per f64 block of the oracle's product (a 1024-wide block is 0.5 GB)
+_ORACLE_BLOCK_ELEMS = 1 << 26
+
+
+def _exact_scores(q: torch.Tensor, r: torch.Tensor, metric: str
+                  ) -> torch.Tensor:
+    """f32 [B, N] scores whose products accumulate in f64, block by block
+    of rows.  An f32 product on the card follows the process-wide
+    ``torch.backends.cuda.matmul.allow_tf32`` / ``float32_matmul_precision``
+    setting, and TF32 keeps 10 mantissa bits; f64 products have no reduced
+    mode, so the oracle is exact whatever those settings say."""
+    q64 = q.double()
+    out = torch.empty((q.shape[0], r.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    step = max(1, _ORACLE_BLOCK_ELEMS // max(1, r.shape[1]))
+    for s in range(0, r.shape[0], step):
+        blk = r[s:s + step].double()
+        dots = q64 @ blk.T
+        if metric == "l2":
+            dots = -((blk * blk).sum(1)[None, :] - 2.0 * dots)
+        out[:, s:s + step] = dots
+        del blk, dots
+    return out
+
 
 def brute_force_topk(queries, rows, ids, k: int, metric: str = "ip", *,
                      device: DeviceLike = None) -> np.ndarray:
-    """Exact fp32 ground truth (the paper's Flat baseline), as host int64.
+    """Exact ground truth (the paper's Flat baseline), as host int64.
 
-    Tombstoned / empty slots (ids < 0) are masked out.  When k exceeds the
-    number of rows the result is right-padded with -1, so the oracle stays
-    total on tiny or heavily-deleted collections.  Ties go to the lower row
-    index, as ``lax.top_k`` breaks them in the reference.
+    Scores are f64 dot products rounded to f32 (`_exact_scores`), on any
+    device and under any matmul precision setting.  Tombstoned / empty
+    slots (ids < 0) are masked out.  When k exceeds the number of rows the
+    result is right-padded with -1, so the oracle stays total on tiny or
+    heavily-deleted collections.  Ties go to the lower row index, as
+    ``lax.top_k`` breaks them in the reference.
     """
     dev = resolve_device(device)
     q = as_tensor(queries, torch.float32, dev)
@@ -24,10 +50,8 @@ def brute_force_topk(queries, rows, ids, k: int, metric: str = "ip", *,
     n = int(r.shape[0])
     if n == 0:
         return np.full((int(q.shape[0]), k), -1, dtype=np.int64)
-    scores = q @ r.T
-    if metric == "l2":
-        scores = -((r * r).sum(1)[None, :] - 2.0 * scores)
-    scores = torch.where((ids >= 0)[None, :], scores, float("-inf"))
+    scores = _exact_scores(q, r, metric)
+    scores.masked_fill_((ids < 0)[None, :], float("-inf"))
     kk = min(k, n)
     # stable descending sort: equal scores keep ascending row order
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices

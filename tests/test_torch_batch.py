@@ -465,13 +465,29 @@ def test_stack_cache_keeps_one_entry_per_group():
 
 
 def test_unfusable_groups_settle_every_future(svc, monkeypatch):
-    # graph-path lanes have no scan to stack: execute_group refuses them
+    # graph-path lanes have no scan to stack: the fused task serves them
+    # lane by lane from each collection's own graph (never execute_group,
+    # which refuses them); a lane that fails there settles every future
+    served = []
+
+    def graph_t0(q, k, ef=None):
+        served.append("t0")
+        return (np.zeros((len(q), k), np.int64),
+                np.zeros((len(q), k), np.float32))
+
+    def graph_t1(q, k, ef=None):
+        served.append("t1")
+        raise ValueError("hnsw graph unavailable")
+
+    monkeypatch.setattr(svc.collection("t0"), "_query_graph", graph_t0)
+    monkeypatch.setattr(svc.collection("t1"), "_query_graph", graph_t1)
     futs = [svc.submit(MemoryOp("query", n, _corpus(1), path="hnsw",
                                 batch=True)) for n in ("t0", "t1")]
     assert svc.flush() == 1
     for f in futs:
         with pytest.raises(ValueError, match="hnsw"):
             f.result(timeout=10)
+    assert served == ["t0", "t1"]
     # a lane whose state is gone at every dispatch: three NotResident
     # retries, then the per-lane fallback answers as the sync query does
     want = {n: svc.query(n, _corpus(2)) for n in ("t0", "t1")}

@@ -696,3 +696,92 @@ def test_promotion_races_queries_on_another_tenant(dev, tmp_path):
         assert svc.stats()["residency"]["promotions"] > 0
     finally:
         svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# recall-adaptive routing: the probe keeps its snapshot on the card
+# ---------------------------------------------------------------------------
+
+def _routing_service(cfg, n, seed=0):
+    from repro_torch.api import MemoryService
+    svc = MemoryService(maintenance=False)
+    svc.create_collection("r", cfg)
+    x = np.random.default_rng(seed).standard_normal((n, cfg.dim)) \
+        .astype(np.float32)
+    svc.build("r", x)
+    return svc, x
+
+
+@pytest.mark.parametrize("policy", ["ivf", "flat"])
+@pytest.mark.parametrize("store_dtype", ["float32", "int8"])
+def test_probe_never_copies_the_state_to_the_host(dev, monkeypatch, policy,
+                                                  store_dtype):
+    """The reference's probe brings the flat rows to the host; the port's
+    keeps them, the oracle and the served path on the card."""
+    from repro_torch.core import index as ivf
+
+    def refuse(state):
+        raise AssertionError("recall_probe copied the state to the host")
+
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=2,
+                       k=8, kmeans_iters=3, target_recall=0.9,
+                       index_policy=policy, store_dtype=store_dtype,
+                       rescore_k=32)
+    svc, _ = _routing_service(cfg, 2000)
+    try:
+        monkeypatch.setattr(ivf, "flat_rows_host", refuse)
+        before = ss.launches.value + q8.launches.value
+        out = svc.collection("r").recall_probe()
+        assert out["recall"] is not None and out["sample"] == 64
+        assert out["path"] == ("probed" if policy == "ivf" else "full_scan")
+        assert ss.launches.value + q8.launches.value > before
+    finally:
+        svc.shutdown()
+
+
+def test_oracle_ids_do_not_depend_on_tf32(dev):
+    """Rows closer to the queries than TF32's 10 mantissa bits resolve:
+    the oracle ranks them the same with TF32 on and off, and as on the
+    CPU."""
+    from repro_torch.core import metrics
+    q = torch.nn.functional.normalize(_randn(dev, 16, 1024, seed=4), dim=1)
+    noise = _randn(dev, 16, 512, 1024, seed=5) * 1e-4
+    rows = (q[:, None, :] + noise).reshape(-1, 1024)
+    ids = torch.arange(rows.shape[0], device=dev)
+    got = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            got[tf32] = metrics.brute_force_topk(q, rows, ids, 32, device=dev)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = metrics.brute_force_topk(q.cpu(), rows.cpu(), ids.cpu(), 32,
+                                   device="cpu")
+    np.testing.assert_array_equal(got[True], got[False])
+    np.testing.assert_array_equal(got[False], cpu)
+
+
+@pytest.mark.parametrize("nprobe", [1, 3, 27, 48, 1024])
+def test_probed_query_at_tuned_nprobe_matches_plain(dev, nprobe):
+    """The probed template at the knob values the tuner visits (doubling,
+    the 3/4 back-off's odd values, all of C) on the card, against the plain
+    versions on the same state on the CPU."""
+    from repro_torch.convert import ivf_state_from_numpy, ivf_state_to_numpy
+    from repro_torch.core import index as ivf
+    cfg = EngineConfig(dim=256, n_clusters=1024, list_capacity=8, nprobe=8,
+                       k=16, kmeans_iters=2)
+    x = _randn(dev, 6000, 256, seed=6)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, _ = ivf.build(gen, x, torch.arange(6000, dtype=torch.int32,
+                                              device=dev), cfg,
+                         spill_capacity=512)
+    host = ivf_state_from_numpy(ivf_state_to_numpy(state), device="cpu")
+    q = x[:4] + 0.05 * _randn(dev, 4, 256, seed=7)
+    before = ss.launches.value
+    ids, scores = ivf.query_probed(state, q, cfg, cfg.k, nprobe)
+    assert ss.launches.value - before == 1 + 4
+    want_ids, want_scores = ivf.query_probed(host, q.cpu(), cfg, cfg.k,
+                                             nprobe)
+    np.testing.assert_array_equal(ids.cpu().numpy(), want_ids.numpy())
+    torch.testing.assert_close(scores.cpu(), want_scores, rtol=1e-5,
+                               atol=1e-5)

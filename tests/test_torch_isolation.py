@@ -40,7 +40,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
             "scan_scores.py", "scan_scores_q8.py", "checkpointer.py",
-            "batch.py", "engine.py", "quickstart.py"} <= names
+            "batch.py", "engine.py", "quickstart.py", "tuner.py",
+            "hnsw.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
@@ -107,3 +108,41 @@ def test_templates_route_matches_reference():
                         ("delete", 3), ("build", 100), ("rebuild", 1)):
         assert dataclasses.asdict(t.route(kind, batch, PAPER_1M)) == \
             dataclasses.asdict(jt.route(kind, batch, J1M))
+
+
+def test_routing_thresholds_match_reference():
+    """The index-policy and recall-probe thresholds keep the reference's
+    defaults, field for field."""
+    from repro.core import templates as jt
+    from repro_torch.core import templates as t
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(t.TemplateThresholds) == fields(jt.TemplateThresholds)
+    for name in ("flat_max_rows", "hnsw_min_rows", "probe_interval_ops",
+                 "probe_sample"):
+        assert getattr(t.TemplateThresholds(), name) == \
+            getattr(jt.TemplateThresholds(), name), name
+
+
+@pytest.mark.parametrize("module,cls", [("tuner", "RecallTuner"),
+                                        ("hnsw", "HNSW")])
+def test_copied_classes_keep_the_reference_public_names(module, cls):
+    """`core/tuner.py` and `core/hnsw.py` are copies: the same public
+    classes with the same public methods and signatures."""
+    import importlib
+    import inspect
+    mine = importlib.import_module(f"repro_torch.core.{module}")
+    ref = importlib.import_module(f"repro.core.{module}")
+    assert getattr(mine, "__all__", None) == getattr(ref, "__all__", None)
+    a, b = getattr(mine, cls), getattr(ref, cls)
+
+    def public(c):
+        return {n: str(inspect.signature(getattr(c, n)))
+                for n in dir(c) if not n.startswith("_")
+                and callable(getattr(c, n))}
+
+    assert public(a) == public(b)
+    assert str(inspect.signature(a.__init__)) == \
+        str(inspect.signature(b.__init__))

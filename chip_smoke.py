@@ -52,6 +52,16 @@ Phases (any failure raises and the script exits non-zero):
    mirroring writes and dropped by a rebuild and a demotion; a window
    over two tenants tuned apart and two graph tenants flushing as 3
    dispatches; the tuned tenant saved and loaded with its knob.
+9. replication: a ``ReplicaSet`` of two replicas on the card over a fresh
+   service before the PAPER_1M build (the build ships, the replicas catch
+   up leaf for leaf), inserts and a delete with pumps between while
+   threads query the replicas and the primary, insert rows/s with the
+   ship hook and without in turns; scripted drop, delay and duplicate,
+   the primary killed with writes pending (``failover`` replays them, no
+   acknowledged write lost, the survivor ends bit-equal), a replica killed
+   mid-apply (atomic); a planned failover replays nothing; a query shed to
+   a replica when admission control rejects it on the primary; an int8
+   set bit-equal and an hnsw replica whose graph mirrors shipped writes.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -1946,6 +1956,516 @@ def phase_routing(seed: int, card: str) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 9: replication (shipping log, replica apply, failover, shedding)
+# ---------------------------------------------------------------------------
+
+REPL_INSERTS = 8        # 9a: 1024-row inserts under queries, pumps between
+REPL_DELETES = 10_000   # 9a: corpus ids deleted after the inserts
+GRAPH_ROWS = 300        # 9e: the hnsw tenant (the host graph's per-row add)
+
+
+class ScriptedFaults:
+    """A fault plan for `ReplicaSet.pump`: `ship` maps (replica, first seq
+    of a shipped batch) to "drop" / "delay" / "duplicate", `kill_at` maps
+    a replica to the seq whose apply kills it; each fires once."""
+
+    def __init__(self):
+        self.ship, self.kill_at, self.fired = {}, {}, []
+
+    def on_ship(self, replica, collection, entries):
+        verdict = self.ship.pop((replica, entries[0].seq), "ok")
+        if verdict != "ok":
+            self.fired.append((replica, entries[0].seq, verdict))
+        return verdict
+
+    def on_apply(self, replica, collection, entry):
+        from repro_torch.api.replication import ReplicaDead
+        if self.kill_at.get(replica) == entry.seq:
+            del self.kill_at[replica]
+            self.fired.append((replica, entry.seq, "kill"))
+            raise ReplicaDead(f"{replica} killed applying seq {entry.seq}")
+
+
+def same_leaves(a, b, what) -> None:
+    """Every IVFState leaf of `a` equal to `b`'s, bit for bit."""
+    for f, x, y in zip(a._fields, a, b):
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x, y)):
+            raise AssertionError(f"{what}: leaf {f} differs")
+
+
+def phase_replication(seed: int, card: str, build_s_phase4: float) -> dict:
+    """Replication on the card.  9a: a ReplicaSet of two replicas over a
+    fresh service, created before phase 4's 1,000,000-row PAPER_1M build;
+    the build ships and both replicas catch up leaf for leaf; 8 x 1024-row
+    inserts and a 10,000-id delete with pumps between, while one thread
+    queries the replicas and another the primary (none fails, 99 % find
+    their row first); afterwards every leaf and the probed B=1 and full
+    scan B=64 answers are equal across the three services; insert rows/s
+    with the ship hook and without, in turns on one collection.  9b:
+    scripted drop, delay and duplicate on 9a's set (lag, never loss); the
+    primary killed with writes pending after `pump(max_batches=1)` (a
+    write raises PrimaryDead, `failover` replays them, every acknowledged
+    id is live on the promoted primary, which equals the dead one leaf for
+    leaf); a new insert ships to the survivor, which ends bit-equal; then
+    the survivor killed mid-apply keeps its pre-batch leaves and
+    watermark.  9c/9d: a fresh PAPER_100K set whose primary has admission
+    control: a wedged primary raises Overloaded and `rs.query` sheds to a
+    replica; a planned failover replays nothing, and a new insert ships to
+    the survivor.  9e: a PAPER_1M int8 set (codes and scales bit-equal
+    after build, churn, pump) and a PAPER_100K hnsw tenant of 300 rows
+    whose replica graph mirrors shipped inserts and deletes."""
+    import threading
+    from repro_torch.api import (AdmissionControl, MemoryService, Overloaded,
+                                 ReplicaSet)
+    from repro_torch.api.replication import PrimaryDead, ShippingLog
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.core.scheduler import Task
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    for m in kernels.values():
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    out = {"card": card, "deviations": [
+        "the primaries run without background maintenance: a rebuild is "
+        "not shipped, so a primary rebuild would end the replicas' "
+        "leaf-for-leaf equality (their live sets stay equal)",
+        "9c/9d run on PAPER_100K (100,000 rows), 9e's graph tenant on "
+        f"{GRAPH_ROWS} rows: the host graph's per-row add"]}
+    n, d = N_ROWS, PAPER_1M.dim
+    g = torch.Generator(device=dev).manual_seed(seed + 1)   # phase 4's corpus
+    x = make_corpus(n, d, g)
+    live = np.zeros(n + 200_000, dtype=bool)
+    live[:n] = True
+    gone = np.random.default_rng(seed).choice(n, REPL_DELETES, replace=False)
+    keep = np.setdiff1d(np.arange(n), gone)                 # query targets
+    next_id = n
+
+    def fresh(b, dim=d, gen=g):
+        nonlocal next_id
+        rows = torch.nn.functional.normalize(
+            torch.randn(b, dim, generator=gen, device=dev), dim=1)
+        ids = np.arange(next_id, next_id + b, dtype=np.int32)
+        next_id += b
+        return rows, ids
+
+    def check_live(svc, name, what):
+        st = svc.collection(name).snapshot()
+        ids = torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+        got = torch.sort(ids[ids >= 0]).values
+        want = torch.from_numpy(np.nonzero(live)[0].astype(np.int32)).to(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: {got.numel()} live ids vs "
+                                 f"{want.numel()} acknowledged")
+
+    def all_equal(rs, name, what):
+        prim = rs.primary.collection(name).snapshot()
+        for rep in rs.replicas:
+            if rep.alive:
+                same_leaves(rep.service.collection(name).snapshot(), prim,
+                            f"{what}: {rep.name}")
+
+    def timed_ship(coll, into):
+        """Time the collection's `_ship` of each hooked insert."""
+        orig = coll._ship
+
+        def ship(*args):
+            t0 = time.perf_counter()
+            orig(*args)
+            if args[0] == "insert" and coll._ship_hook is not None:
+                into.append(1e3 * (time.perf_counter() - t0))
+        coll._ship = ship
+
+    torch.cuda.reset_peak_memory_stats()
+    # -- 9a ---------------------------------------------------------------
+    t_a = time.perf_counter()
+    svc = MemoryService(maintenance=False)
+    faults = ScriptedFaults()
+    rs = ReplicaSet(svc, n_replicas=2, ship_batch=64, fault_injector=faults)
+    if svc.device.type != "cuda" or any(
+            r.service.device != svc.device for r in rs.replicas):
+        raise AssertionError("a replica is not on the primary's card")
+    prim = rs.create_collection("mem", PAPER_1M, seed=seed)
+    ship_ms = []
+    timed_ship(prim, ship_ms)
+    t0 = time.perf_counter()
+    rs.build("mem", x, ids=np.arange(n, dtype=np.int32))
+    a = {"build_ack_s": time.perf_counter() - t0,
+         "phase4_build_s": build_s_phase4}
+    entry = rs._logs["mem"].tail(0)[0]
+    a["build_entry_gb"] = (entry.rows.nbytes + entry.ids.nbytes) / 1e9
+    del entry
+    t0 = time.perf_counter()
+    rs.pump()
+    a["pump_s"] = time.perf_counter() - t0
+    a["catch_up_s"] = {r.name: r.monitor.durations[-1] for r in rs.replicas}
+    all_equal(rs, "mem", "9a after the build")
+    check_live(svc, "mem", "9a build")
+
+    def query_loop(prefer, stop, res):
+        qg = torch.Generator(device=dev).manual_seed(
+            seed + (11 if prefer == "replica" else 12))
+        while not stop.is_set() or res["n"] < 64:
+            t = int(keep[torch.randint(0, len(keep), (1,), generator=qg,
+                                       device=dev).item()])
+            q = perturb(x[t:t + 1], qg)
+            try:
+                ids, _ = rs.query("mem", q, prefer=prefer)
+                res["hits"] += int(ids[0, 0] == t)
+            except Exception as e:   # noqa: BLE001 — counted, raised below
+                res["failed"].append(repr(e))
+            res["n"] += 1
+
+    stop = threading.Event()
+    res = {p: {"n": 0, "hits": 0, "failed": []}
+           for p in ("replica", "primary")}
+    threads = [threading.Thread(target=query_loop, args=(p, stop, res[p]))
+               for p in res]
+    for th in threads:
+        th.start()
+    t0 = time.perf_counter()
+    try:
+        for _ in range(REPL_INSERTS):
+            rows, ids = fresh(1024)
+            rs.insert("mem", rows, ids=ids)
+            live[ids] = True
+            rs.pump()
+        rs.delete("mem", gone.astype(np.int32))
+        live[gone] = False
+        rs.pump()
+    finally:
+        stop.set()
+        for th in threads:
+            th.join()
+    a["churn_s"] = time.perf_counter() - t0
+    for p, r in res.items():
+        if r["failed"]:
+            raise AssertionError(f"9a: {len(r['failed'])} {p} queries "
+                                 f"failed: {r['failed'][:3]}")
+        a[f"{p}_queries"] = r["n"]
+        a[f"{p}_self_hit"] = r["hits"] / r["n"]
+        if r["hits"] < 0.99 * r["n"]:
+            raise AssertionError(f"9a: {p} queries found their row first on "
+                                 f"{r['hits']} of {r['n']}")
+    all_equal(rs, "mem", "9a after the churn")
+    for s in [svc] + [r.service for r in rs.replicas]:
+        check_live(s, "mem", "9a churn")
+    gq = torch.Generator(device=dev).manual_seed(seed + 13)
+    q64 = perturb(x[torch.from_numpy(keep[:64]).to(dev)], gq)
+    if prim.resolve_query(1, None, None, None)[2] != "probed" or \
+            prim.resolve_query(64, None, None, None)[2] != "full_scan":
+        raise AssertionError("9a: PAPER_1M routing changed")
+    want = [svc.query("mem", q64[:1]), svc.query("mem", q64)]
+    for rep in rs.replicas:
+        got = [rep.service.query("mem", q64[:1]),
+               rep.service.query("mem", q64)]
+        for (gi, gs), (wi, ws) in zip(got, want):
+            if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
+                raise AssertionError(f"9a: {rep.name} answers differ")
+    st = rs.stats()
+    a["log_retained"] = st["log_retained"]["mem"]
+    a["apply_s"] = {r: st["replicas"][r]["straggler"] for r in st["replicas"]}
+    if a["log_retained"] != 0 or any(st["lag"]["mem"].values()):
+        raise AssertionError(f"9a: replicas not caught up: {st['lag']}")
+    a["ship_ms_per_insert"] = {"p50": float(np.median(ship_ms)),
+                               "max": max(ship_ms), "n": len(ship_ms)}
+
+    # insert rows/s with and without the ship hook, in turns on one
+    # collection (not replicated, so the unhooked writes lose nothing)
+    tcoll = svc.create_collection("turns", PAPER_1M, seed=seed + 1)
+    svc.build("turns", x, ids=np.arange(n, dtype=np.int32))
+    turn_log = ShippingLog("turns")
+    turn_ship = []
+    timed_ship(tcoll, turn_ship)
+    turns = {"hooked": [], "unhooked": []}
+    tg = torch.Generator(device=dev).manual_seed(seed + 14)
+    tid = 2 * n
+    for arm in ("hooked", "unhooked", "unhooked", "hooked"):
+        tcoll.set_ship_hook(turn_log.append if arm == "hooked" else None)
+        batches = [torch.nn.functional.normalize(
+            torch.randn(1024, d, generator=tg, device=dev), dim=1)
+            for _ in range(REPL_INSERTS)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for rows in batches:
+            svc.insert("turns", rows, ids=np.arange(tid, tid + 1024))
+            tid += 1024
+        turns[arm].append(REPL_INSERTS * 1024 / (time.perf_counter() - t0))
+    if turn_log.retained() != 2 * REPL_INSERTS:
+        raise AssertionError("9a: the hooked turns did not ship every insert")
+    a["insert_rows_per_s"] = turns
+    a["turn_ship_ms_p50"] = float(np.median(turn_ship))
+    svc.drop_collection("turns")
+    del tcoll, turn_log, batches
+    release()
+    a["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    a["s"] = time.perf_counter() - t_a
+    out["9a"] = a
+    print(f"  9a ship+parity [{card}]: build ack {a['build_ack_s']:.3f} s "
+          f"(phase 4 build {build_s_phase4:.3f} s), entry "
+          f"{a['build_entry_gb']:.3f} GB, catch-up "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in a["catch_up_s"].items())
+          + f"; _ship {a['ship_ms_per_insert']['p50']:.3f} ms/insert; rows/s "
+          f"hooked {turns['hooked']} unhooked {turns['unhooked']}; queries "
+          f"{a['replica_queries']} replica / {a['primary_queries']} primary; "
+          f"peak {a['peak_gib']:.1f} GiB", flush=True)
+
+    # -- 9b ---------------------------------------------------------------
+    t_b = time.perf_counter()
+    b = {}
+    log = rs._logs["mem"]
+
+    def insert_batch():
+        rows, ids = fresh(1024)
+        rs.insert("mem", rows, ids=ids)
+        live[ids] = True
+
+    s0 = log.last_seq()
+    faults.ship = {("replica-0", s0 + 1): "drop",
+                   ("replica-1", s0 + 1): "duplicate"}
+    insert_batch()
+    rs.pump()
+    lag1 = dict(rs.lag("mem")["mem"])
+    faults.ship = {("replica-1", s0 + 2): "delay"}
+    insert_batch()
+    rs.pump()
+    lag2 = dict(rs.lag("mem")["mem"])
+    rs.pump()
+    if lag1 != {"replica-0": 1, "replica-1": 0} or \
+            lag2 != {"replica-0": 0, "replica-1": 1}:
+        raise AssertionError(f"9b: lag after drop {lag1}, after delay {lag2}")
+    counts = rs.stats()["fault_counts"]
+    if (counts["drop"], counts["delay"], counts["duplicate"]) != (1, 1, 1):
+        raise AssertionError(f"9b: fault counts {counts}")
+    all_equal(rs, "mem", "9b after drop/delay/duplicate")
+    b["lag_after_drop"], b["lag_after_delay"] = lag1, lag2
+
+    # the primary dies with writes pending, replica-1 behind by a delay
+    for _ in range(2):
+        insert_batch()
+    faults.ship = {("replica-1", log.last_seq() - 1): "delay"}
+    rs.pump(max_batches=1)
+    pending = 2
+    for _ in range(pending):
+        insert_batch()
+    old = rs.primary
+    rs.kill_primary()
+    try:
+        rs.insert("mem", fresh(8)[0])
+    except PrimaryDead:
+        pass
+    else:
+        raise AssertionError("9b: a write reached a dead primary")
+    fo = rs.failover()
+    if fo["replayed"] != pending or fo["promoted"] != "replica-0":
+        raise AssertionError(f"9b: failover {fo}")
+    same_leaves(rs.primary.collection("mem").snapshot(),
+                old.collection("mem").snapshot(),
+                "9b: the promoted primary against the dead one")
+    check_live(rs.primary, "mem", "9b failover")
+    old.shutdown()
+    del old
+    release()
+    b["failover"] = fo
+    insert_batch()                      # ships to the survivor (replica-1)
+    rs.pump()
+    (surv,) = [r for r in rs.replicas if r.alive]
+    all_equal(rs, "mem", "9b survivor")
+    check_live(surv.service, "mem", "9b survivor")
+    # the survivor killed mid-apply keeps its pre-batch leaves and watermark
+    mark = surv.watermark("mem")
+    scoll = surv.service.collection("mem")
+    snap = scoll.snapshot()
+    kept = [None if t is None else t.clone() for t in snap]
+    for _ in range(2):
+        insert_batch()
+    faults.kill_at = {surv.name: mark + 2}
+    rs.pump()
+    if surv.alive or surv.watermark("mem") != mark or \
+            rs.stats()["fault_counts"]["kill"] != 1:
+        raise AssertionError("9b: the kill mid-apply was not atomic")
+    same_leaves(scoll.snapshot(), snap._make(kept), "9b killed replica")
+    del kept, snap
+    b["killed"] = {"replica": surv.name, "watermark": mark}
+    b["fault_counts"] = rs.stats()["fault_counts"]
+    b["s"] = time.perf_counter() - t_b
+    out["9b"] = b
+    print(f"  9b faults [{card}]: {b['fault_counts']}, failover "
+          f"{fo['failover_ms']:.3f} ms replayed {fo['replayed']} "
+          f"(promoted {fo['promoted']}), survivor bit-equal, "
+          f"{surv.name} killed mid-apply atomically", flush=True)
+    rs.shutdown()
+    del rs, svc, prim, scoll, surv, x
+    release()
+
+    # -- 9c, 9d -----------------------------------------------------------
+    t_c = time.perf_counter()
+    adm = AdmissionControl(max_queue_depth=2, max_queue_wait_s=None)
+    svc = MemoryService(maintenance=False, admission=adm)
+    rs = ReplicaSet(svc, n_replicas=2, ship_batch=64)
+    rs.create_collection("t", PAPER_100K, seed=seed + 2)
+    g2 = torch.Generator(device=dev).manual_seed(seed + 15)
+    xt = make_corpus(100_000, PAPER_100K.dim, g2)
+    rs.build("t", xt, ids=np.arange(100_000))
+    for _ in range(3):
+        rs.insert("t", fresh(1024, gen=g2)[0])
+    rs.delete("t", np.arange(0, 5000, 2))
+    rs.pump()
+    all_equal(rs, "t", "9c after churn")
+    # 9d: wedge every worker and fill both query queues to the limit
+    gate = threading.Event()
+
+    def wedge(started):
+        started.set()
+        gate.wait()
+
+    sched = svc.scheduler
+    try:
+        for backend in ("background", "throughput", "latency"):
+            started = threading.Event()
+            sched.submit(Task(fn=lambda ev=started: wedge(ev), kind="query",
+                              backend=backend))
+            if not started.wait(timeout=30):
+                raise AssertionError(f"9d: the {backend} wedge never ran")
+        for backend in ("latency", "throughput"):
+            for _ in range(adm.max_queue_depth):
+                sched.submit(Task(fn=lambda: None, kind="query",
+                                  backend=backend))
+        qs = perturb(xt[10:12], g2)
+        try:
+            svc.query("t", qs)
+        except Overloaded:
+            pass
+        else:
+            raise AssertionError("9d: the wedged primary admitted a query")
+        got = rs.query("t", qs)
+        picked = rs._pick_replica("t")
+        own = picked.service.query("t", qs)
+    finally:
+        gate.set()
+    if not (np.array_equal(got[0], own[0]) and np.array_equal(got[1], own[1])):
+        raise AssertionError("9d: the shed answer is not the replica's own")
+    if rs.stats()["shed_to_replica"] != 1:
+        raise AssertionError(f"9d: shed {rs.stats()['shed_to_replica']}")
+    out["9d"] = {"shed_to_replica": 1, "answered_by": picked.name,
+                 "same_answer": True}
+    print(f"  9d shedding [{card}]: Overloaded on the primary, shed to "
+          f"{picked.name}, answer equal to its own", flush=True)
+    pf = rs.planned_failover()
+    if pf["replayed"] != 0 or rs.guard.should_checkpoint:
+        raise AssertionError(f"9c: planned failover {pf}, guard "
+                             f"{rs.guard.should_checkpoint}")
+    old = svc
+    rs.insert("t", fresh(1024, gen=g2)[0])
+    rs.pump()
+    all_equal(rs, "t", "9c survivor")
+    out["9c"] = {"planned_failover": pf, "survivor_bit_equal": True,
+                 "s": time.perf_counter() - t_c}
+    print(f"  9c planned failover [{card}]: replayed {pf['replayed']} in "
+          f"{pf['failover_ms']:.3f} ms, guard cleared, survivor bit-equal",
+          flush=True)
+    rs.shutdown()
+    old.shutdown()
+    del rs, svc, old, xt, picked
+    release()
+
+    # -- 9e ---------------------------------------------------------------
+    t_e = time.perf_counter()
+    e = {}
+    cfg8 = dataclasses.replace(PAPER_1M, store_dtype="int8")
+    svc = MemoryService(maintenance=False)
+    rs = ReplicaSet(svc, n_replicas=1, ship_batch=64)
+    rs.create_collection("q", cfg8, seed=seed + 3)
+    g3 = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = make_corpus(n, d, g3)
+    rs.build("q", x, ids=np.arange(n, dtype=np.int32))
+    del x
+    for _ in range(4):
+        rs.insert("q", fresh(1024, gen=g3)[0])
+    rs.delete("q", gone[:5000].astype(np.int32))
+    rs.pump()
+    all_equal(rs, "q", "9e int8")
+    if svc.collection("q").snapshot().q_lists.dtype != torch.int8:
+        raise AssertionError("9e: the int8 store is missing")
+    qq = torch.nn.functional.normalize(
+        torch.randn(64, d, generator=g3, device=dev), dim=1)
+    want = [svc.query("q", qq[:1]), svc.query("q", qq)]
+    got = [rs.replicas[0].service.query("q", qq[:1]),
+           rs.replicas[0].service.query("q", qq)]
+    for (gi, gs), (wi, ws) in zip(got, want):
+        if not (np.array_equal(gi, wi) and np.array_equal(gs, ws)):
+            raise AssertionError("9e: int8 answers differ")
+    e["int8_bit_equal"] = True
+    rs.shutdown()
+    del rs, svc
+    release()
+    cfg_h = dataclasses.replace(PAPER_100K, index_policy="hnsw")
+    svc = MemoryService(maintenance=False)
+    rs = ReplicaSet(svc, n_replicas=1, ship_batch=64)
+    rs.create_collection("h", cfg_h, seed=seed + 4)
+    g4 = torch.Generator(device=dev).manual_seed(seed + 16)
+    xh = make_corpus(GRAPH_ROWS + 16, cfg_h.dim, g4)
+    rs.build("h", xh[:GRAPH_ROWS], ids=np.arange(GRAPH_ROWS))
+    rs.pump()
+    rcoll = rs.replicas[0].service.collection("h")
+    t0 = time.perf_counter()
+    for s in (svc, rs.replicas[0].service):
+        s.query("h", xh[:1])                          # builds each graph
+    e["graph_builds_s_host"] = time.perf_counter() - t0
+    graph = rcoll._graph
+    new = np.arange(GRAPH_ROWS, GRAPH_ROWS + 16)
+    rs.insert("h", xh[GRAPH_ROWS:], ids=new)
+    hgone = np.concatenate([new[:8], np.arange(8)])
+    rs.delete("h", hgone)
+    rs.pump()
+    have = set(graph.live_ids().tolist()) if graph is not None else set()
+    if graph is None or rcoll._graph is not graph or \
+            not set(new[8:].tolist()) <= have or set(hgone.tolist()) & have:
+        raise AssertionError("9e: the replica graph did not mirror the "
+                             "shipped writes")
+    probe = torch.cat([xh[GRAPH_ROWS:], xh[:8]])
+    want = svc.query("h", probe)
+    got = rs.replicas[0].service.query("h", probe)
+    if not (np.array_equal(got[0], want[0]) and
+            np.array_equal(got[1], want[1])):
+        raise AssertionError("9e: graph answers differ")
+    if np.isin(got[0], hgone).any():
+        raise AssertionError("9e: a deleted id came back")
+    if not np.array_equal(got[0][8:16, 0], new[8:]):
+        raise AssertionError("9e: an inserted row is not found")
+    e["graph_mirrored"] = True
+    e["s"] = time.perf_counter() - t_e
+    out["9e"] = e
+    print(f"  9e int8 + graph [{card}]: int8 leaves and answers bit-equal; "
+          f"graph "
+          f"mirrored 16 inserts and {len(hgone)} deletes, answers equal "
+          f"(graph builds {e['graph_builds_s_host']:.1f} s host)", flush=True)
+    rs.shutdown()
+    del rs, svc, rcoll, graph, xh
+    release()
+    out["launches"] = {k: m.launches.value for k, m in kernels.items()}
+    out["launches_by_variant"] = {
+        k: {v: c.value for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k, cnt in out["launches"].items():
+        if cnt <= 0:
+            raise AssertionError(f"phase 9 never launched {k}")
+    for k, by in out["launches_by_variant"].items():
+        fast = next(iter(by))
+        if by["generic"] or by[fast] != out["launches"][k]:
+            raise AssertionError(f"phase 9 {k} launches by variant {by}: "
+                                 f"not all {fast}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2016,6 +2536,14 @@ def main(argv=None) -> int:
     paths["routing"] = rt = phase_routing(args.seed, card)
     print(f"phase 8: routing in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(rt), flush=True)
+    release()
+    # 9. replication (after phase 8's memory is freed), the counts set to 0
+    # just before
+    t0 = time.perf_counter()
+    paths["replication"] = rp = phase_replication(
+        args.seed, card, paths["float32"]["build_s"])
+    print(f"phase 9: replication in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(rp), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -10,10 +10,11 @@
 """
 from repro_torch.api.collection import Collection
 from repro_torch.api.ops import MemoryOp, OpFuture
+from repro_torch.api.replication import ReplicaSet
 from repro_torch.api.residency import ResidencyManager
 from repro_torch.api.service import MaintenanceController, MemoryService
 from repro_torch.core.scheduler import AdmissionControl, Overloaded
 
 __all__ = ["AdmissionControl", "Collection", "MaintenanceController",
            "MemoryOp", "MemoryService", "OpFuture", "Overloaded",
-           "ResidencyManager"]
+           "ReplicaSet", "ResidencyManager"]

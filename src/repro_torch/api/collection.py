@@ -4,10 +4,12 @@ Port of ``src/repro/api/collection.py`` for one unsharded collection with
 either store policy (f32, or f32 plus the int8 scan store), its residency
 tier (HOT on the device, WARM in host memory, COLD on disk; see
 `repro_torch.api.residency`), recall-adaptive routing (the index policy,
-the recall probe and its knob tuners, the derived HNSW graph tier), and
-save/load in the reference's on-disk layout.  The mesh-sharded tier and
-replication shipping are later slices of the port; they raise
-NotImplementedError naming their ROADMAP item.
+the recall probe and its knob tuners, the derived HNSW graph tier),
+replication shipping (the ship hook, the bootstrap snapshot and the
+replica-side `apply_delta_batch`; see `repro_torch.api.replication`), and
+save/load in the reference's on-disk layout.  The mesh-sharded tier is a
+later slice of the port; it raises NotImplementedError naming its ROADMAP
+item.
 
 Concurrency model (lost-update-safe writes, wait-free reads), as in the
 reference:
@@ -45,7 +47,7 @@ import json
 import os
 import time
 import zlib
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +101,20 @@ def _copy_state(state: ivf.IVFState, device: torch.device, *,
 def _host(x) -> np.ndarray:
     """A tensor (on any device) or host array as a numpy array."""
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _ship_copy(src, t: torch.Tensor, dtype) -> np.ndarray:
+    """The ship payload of one written leaf (rows or ids): a private host
+    array with the bits the write stored, made by one copy — of the
+    caller's host buffer `src` when the write came from the host, else one
+    device-to-host copy of `t`, the tensor the write used.  It aliases
+    neither the caller's buffer nor the device state."""
+    if src is None or (isinstance(src, torch.Tensor)
+                       and src.device.type != "cpu"):
+        if t.device.type != "cpu":
+            return t.cpu().numpy()
+        src = t
+    return np.array(src, dtype=dtype).reshape(t.shape)
 
 
 def _host_tensors(arrays: ivf.IVFState) -> ivf.IVFState:
@@ -175,6 +191,13 @@ class Collection:
         self._probe_ops = 0            # ops since the last recall probe
         self._probe_seq = 0            # deterministic probe RNG stream
         self._last_probe: Optional[dict] = None
+        # Replication shipping hook (repro_torch.api.replication): when set,
+        # every acked write (build/insert/delete) is reported — host-side
+        # rows/ids — from inside the writer critical section, AFTER its
+        # state swap, so hook call order == publication order and an op is
+        # shipped iff it was acked.  The hook must only descend to
+        # _ship_lock (15).
+        self._ship_hook = None
         # target_recall > 0 arms the probe + per-path knob tuners
         if cfg.target_recall > 0:
             self._nprobe_tuner: Optional[RecallTuner] = RecallTuner(
@@ -392,14 +415,126 @@ class Collection:
                 self._last_used = time.monotonic()
                 return self._state
 
+    # ------------------------------------------------------------------
+    # Replication shipping (repro_torch.api.replication)
+    # ------------------------------------------------------------------
     def set_ship_hook(self, hook) -> None:
-        raise later_slice("replication shipping", "replication")
+        """Install/remove (`None`) the replication shipping hook.
+
+        `hook(kind, rows, ids)` is called with host numpy arrays (rows
+        f32[B, D] or None, ids i32[B]) from inside the writer critical
+        section after each acked write's state swap; it must be fast and
+        may only take locks below the writer level (the shipping log's
+        `_ship_lock`, 15).  Prefer `attach_shipper` when a consistent
+        bootstrap snapshot is needed.
+        """
+        with self._lock:
+            self._ship_hook = hook
 
     def attach_shipper(self, hook) -> dict:
-        raise later_slice("replication shipping", "replication")
+        """Install `hook` and return a consistent bootstrap snapshot.
 
-    def apply_delta_batch(self, ops) -> dict:
-        raise later_slice("replication shipping", "replication")
+        Runs under the writer lock, so no write can land between the
+        snapshot read and the hook install: every write is either in the
+        returned snapshot or will be reported through the hook.  Returns
+        ``{"built", "rows", "ids", "key", "next_id"}``; rows/ids are the
+        flat host slot arrays (ids < 0 = dead slots) when built, else None.
+        ``"key"`` is what `_split` continues the random stream from — the
+        reference's PRNG key: ``{"seed", "n_draws"}``.
+        """
+        with self._hot_writer():
+            with self._lock:
+                self._ship_hook = hook
+                built = self._built
+                state = self._state
+                key = {"seed": self.seed, "n_draws": self._n_draws}
+                next_id = self._next_id
+            rows = ids = None
+            if built:
+                rows, ids = ivf.flat_rows_host(state)
+        return {"built": built, "rows": rows, "ids": ids, "key": key,
+                "next_id": next_id}
+
+    def _ship(self, kind: str, rows, ids, src_rows=None, src_ids=None) -> None:
+        """Report one acked write to the shipping hook (no-op when unset).
+        Caller holds `_writer_lock`; `rows`/`ids` are the tensors the write
+        used, `src_rows`/`src_ids` what the caller passed (see
+        `_ship_copy`)."""
+        with self._lock:
+            hook = self._ship_hook
+        if hook is None:
+            return
+        hook(kind,
+             None if rows is None else _ship_copy(src_rows, rows, np.float32),
+             _ship_copy(src_ids, ids, np.int32))
+
+    def apply_delta_batch(self, ops: Sequence[ivf.DeltaOp]) -> dict:
+        """Apply a shipped delta batch in order with ONE state swap.
+
+        The replica-side apply path: the first op runs through the copying
+        kernel (`insert_shared` / `delete_shared`) — concurrent readers may
+        hold the published snapshot — which yields a sole-owned
+        intermediate state; the remaining ops replay onto it in place
+        (`ivf.replay`), and the result publishes atomically after one wait
+        for the device.  A crash mid-batch leaves the published state
+        intact: batches are all-or-nothing, which is what lets the
+        replication watermark advance only on entry boundaries.  Every op
+        is logged for an in-flight rebuild and mirrored into the derived
+        graph.  Never calls the shipping hook — applying shipped writes on
+        a replica must not re-ship them.
+
+        Returns ``{"applied", "inserted", "spilled", "tombstoned"}``.
+        """
+        if not ops:
+            return {"applied": 0, "inserted": 0, "spilled": 0,
+                    "tombstoned": 0}
+        if not self._built:
+            raise RuntimeError(f"build() collection {self.name!r} before "
+                               "applying deltas")
+        for op in ops:
+            if op.kind not in ("insert", "delete"):
+                raise ValueError(f"unknown delta op kind {op.kind!r}")
+        # the shipped ids are host arrays: count them before the upload
+        ins_ids = [np.atleast_1d(_host(op.ids)) for op in ops
+                   if op.kind == "insert"]
+        max_id = max((int(i.max()) for i in ins_ids if i.size), default=-1)
+        inserted = sum(i.size for i in ins_ids)
+        ops = [ivf.DeltaOp(
+            op.kind, None if op.rows is None else self._rows(op.rows),
+            as_tensor(op.ids, torch.int32, self.device).reshape(-1))
+            for op in ops]
+        with self._hot_writer():
+            first, rest = ops[0], ops[1:]
+            if first.kind == "insert":
+                state, sp0 = ivf.insert_shared(self._state, first.rows,
+                                               first.ids, self.cfg)
+                tomb0 = torch.zeros_like(sp0)
+            else:
+                state, tomb0 = ivf.delete_shared(self._state, first.ids)
+                sp0 = torch.zeros_like(tomb0)
+                if any(op.kind == "insert" for op in rest):
+                    # the in-place inserts below write fields the copying
+                    # delete still shares with the published snapshot
+                    state = ivf.own_insert_fields(state, self.cfg)
+            spilled = tombstoned = 0
+            if rest:
+                state, spilled, tombstoned = ivf.replay(state, rest, self.cfg)
+            sp0, tomb0 = torch.stack([sp0, tomb0]).tolist()
+            spilled += sp0
+            tombstoned += tomb0
+            with self._lock:
+                self._shard_pressure[0]["spilled"] += spilled
+                self._shard_pressure[0]["tombstones"] += tombstoned
+                self._approx_live = max(
+                    0, self._approx_live + inserted - tombstoned)
+                self._next_id = max(self._next_id, max_id + 1)
+            self._swap(state, inserts=inserted, deletes=tombstoned,
+                       spilled=spilled)
+            for op in ops:
+                self._log_delta(op.kind, op.rows, op.ids)
+                self._graph_apply(op.kind, op.rows, op.ids)
+        return {"applied": len(ops), "inserted": inserted,
+                "spilled": spilled, "tombstoned": tombstoned}
 
     # ------------------------------------------------------------------
     # Persistence — one namespace directory per collection, in the
@@ -612,6 +747,7 @@ class Collection:
         live (device compute synced before return).  Runs under the writer
         lock; queries keep reading the old snapshot throughout."""
         x = self._rows(vectors)
+        src = (vectors, ids)
         ids = self._ids_for(x.shape[0], ids)
         t0 = time.perf_counter()
         # a build replaces the whole state from scratch — no need to promote
@@ -621,12 +757,12 @@ class Collection:
         if mgr is not None:
             mgr.make_room_for(self)
         try:
-            return self._build_admitted(x, ids, t0)
+            return self._build_admitted(x, ids, t0, src)
         finally:
             if mgr is not None:
                 mgr.finish_admit(self)
 
-    def _build_admitted(self, x, ids, t0) -> dict:
+    def _build_admitted(self, x, ids, t0, src=(None, None)) -> dict:
         with self._writer_lock:
             # analyze: ok(LO002) ivf.build is the index module (takes no locks), not Collection.build
             state, spilled = ivf.build(self._split(), x, ids, self.cfg,
@@ -642,6 +778,7 @@ class Collection:
                 self._probe_ops = self.thresholds.probe_interval_ops
             self._swap(state, rebuilds=1, spilled=spilled)
             self._graph_invalidate()   # derived graph lazily rebuilds
+            self._ship("build", x, ids, *src)
         return {"build_s": time.perf_counter() - t0, "spilled": spilled}
 
     def insert(self, vectors, ids=None) -> int:
@@ -658,6 +795,7 @@ class Collection:
                                "inserting")
         x = self._rows(vectors)
         n = int(x.shape[0])
+        src = (vectors, ids)
         ids = self._ids_for(n, ids)
         with self._hot_writer():
             state, spilled = ivf.insert_shared(self._state, x, ids, self.cfg)
@@ -670,13 +808,14 @@ class Collection:
             # mirror into the derived HNSW graph (no-op until one exists);
             # still under the writer lock, so graph order == state order
             self._graph_apply("insert", x, ids)
+            self._ship("insert", x, ids, *src)
         return spilled
 
     def delete(self, ids) -> int:
         """Tombstone `ids`; returns the number of slots actually tombstoned
         (ids not present contribute nothing).  Blocks until the tombstones
         are visible to new queries."""
-        ids = as_tensor(ids, torch.int32, self.device).reshape(-1)
+        src, ids = ids, as_tensor(ids, torch.int32, self.device).reshape(-1)
         with self._hot_writer():
             state, n_hit = ivf.delete_shared(self._state, ids)
             n_hit = int(n_hit)          # sync: compute done before publish
@@ -688,6 +827,7 @@ class Collection:
             # graph delete is idempotent per id — absent ids are a no-op,
             # matching the state's "ids not present contribute nothing"
             self._graph_apply("delete", None, ids)
+            self._ship("delete", None, ids, None, src)
         return n_hit
 
     def query(self, queries, k: Optional[int] = None,

@@ -372,18 +372,22 @@ def _insert(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
     offsets = state.list_sizes[cl.long()] + rank
     fits = offsets < l_cap
     if copy:
-        # every field this insert writes, the int8 store's included, so a
-        # reader's snapshot never changes under it
-        written = ("lists", "list_ids", "list_sizes", "spill", "spill_ids",
-                   "spill_size") + (_Q_FIELDS if cfg.quantized else ())
-        state = state._replace(**{f: getattr(state, f).clone()
-                                  for f in written})
+        state = own_insert_fields(state, cfg)
     touched = _scatter_lists(state, x, ids, cl, offsets, fits)
     over = ~fits
     rows, spos = _append_spill(state, x, ids, over)
     if cfg.quantized:
         _requantize_touched(state, x, touched, rows, spos)
     return state, over.sum().to(torch.int32)
+
+
+def own_insert_fields(state: IVFState, cfg: EngineConfig) -> IVFState:
+    """`state` with a copy of every field an insert writes, the int8
+    store's included: an in-place insert into the result leaves every
+    reader of `state` unaffected."""
+    written = ("lists", "list_ids", "list_sizes", "spill", "spill_ids",
+               "spill_size") + (_Q_FIELDS if cfg.quantized else ())
+    return state._replace(**{f: getattr(state, f).clone() for f in written})
 
 
 def insert(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
@@ -510,10 +514,21 @@ def _flat_rows(state: IVFState) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def flat_rows_host(state: IVFState) -> Tuple[np.ndarray, np.ndarray]:
-    """Host (rows f32[N, D], ids[N]) view of every slot — list tier then
-    spill.  ids < 0 mark empty/tombstoned slots; callers mask."""
-    rows, ids = _flat_rows(state)
-    return rows.cpu().numpy(), ids.cpu().numpy()
+    """Host (rows f32[N, D], ids i32[N]) copy of every slot — list tier then
+    spill.  ids < 0 mark empty/tombstoned slots; callers mask.
+
+    Each leaf is copied to the host on its own, straight into its place in
+    the result, so no device temporary of the whole state is made (the
+    device-side `_flat_rows` concatenates)."""
+    n_list = state.lists.shape[0] * state.lists.shape[1]
+    n = n_list + state.spill.shape[0]
+    rows = np.empty((n, state.dim), np.float32)
+    ids = np.empty((n,), np.int32)
+    for out, lists, spill in ((rows, state.lists.flatten(0, 1), state.spill),
+                              (ids, state.list_ids.flatten(), state.spill_ids)):
+        torch.from_numpy(out[:n_list]).copy_(lists)
+        torch.from_numpy(out[n_list:]).copy_(spill)
+    return rows, ids
 
 
 def _metric_norms(rows: torch.Tensor, metric: str) -> Optional[torch.Tensor]:

@@ -63,7 +63,9 @@ class Overloaded(RuntimeError):
     Raised from `WindowedScheduler.submit` *before* the task enters the
     queue, so a rejected op costs the caller one exception rather than an
     unbounded wait — overload degrades to bounded latency, never to an
-    unbounded heap.  Callers can retry after a drain or shed the work.
+    unbounded heap.  Callers can retry after a drain or shed the work to a
+    read replica (`repro_torch.api.replication.ReplicaSet.query` does
+    exactly that for queries).
     """
 
     def __init__(self, backend: str, depth: int, limit: float,

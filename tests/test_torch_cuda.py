@@ -785,3 +785,104 @@ def test_probed_query_at_tuned_nprobe_matches_plain(dev, nprobe):
     np.testing.assert_array_equal(ids.cpu().numpy(), want_ids.numpy())
     torch.testing.assert_close(scores.cpu(), want_scores, rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# replication on the card
+# ---------------------------------------------------------------------------
+
+def _replicated(store_dtype, n_replicas=2):
+    from repro_torch.api import MemoryService, ReplicaSet
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3, store_dtype=store_dtype,
+                       rescore_k=32)
+    rs = ReplicaSet(MemoryService(maintenance=False), n_replicas=n_replicas,
+                    ship_batch=3)
+    rs.create_collection("m", cfg, seed=5)
+    return rs
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "int8"])
+def test_caught_up_replicas_equal_the_primary_leaf_for_leaf(dev, store_dtype):
+    rs = _replicated(store_dtype)
+    try:
+        rng = np.random.default_rng(0)
+        x = rng.standard_normal((2000, 256)).astype(np.float32)
+        before = ka.launches.value
+        rs.build("m", x)
+        rs.pump()
+        for i in range(4):
+            rs.insert("m", torch.randn(64, 256, device=dev),
+                      ids=np.arange(5000 + 64 * i, 5064 + 64 * i))
+        rs.delete("m", np.arange(0, 300, 3))
+        rs.pump(max_batches=1)
+        rs.insert("m", rng.standard_normal((32, 256)).astype(np.float32))
+        rs.pump()
+        # the replicas built with the card's kernels too
+        assert ka.launches.value - before >= 3 * (1 + 4 + 1)
+        prim = rs.primary.collection("m").snapshot()
+        q = torch.from_numpy(x[1:9]).to(dev)
+        want = [rs.primary.query("m", q[:1]), rs.primary.query("m", q)]
+        for rep in rs.replicas:
+            st = rep.service.collection("m").snapshot()
+            for f, a, b in zip(st._fields, st, prim):
+                assert (a is None) == (b is None), f
+                assert a is None or (a.is_cuda and torch.equal(a, b)), f
+            got = [rep.service.query("m", q[:1]), rep.service.query("m", q)]
+            for (gi, gs), (wi, ws) in zip(got, want):
+                np.testing.assert_array_equal(gi, wi)
+                np.testing.assert_array_equal(gs, ws)
+    finally:
+        rs.shutdown()
+
+
+def test_ship_payload_is_one_private_host_copy_on_the_card(dev):
+    rs = _replicated("float32", n_replicas=1)
+    try:
+        rng = np.random.default_rng(1)
+        rs.build("m", rng.standard_normal((2000, 256)).astype(np.float32))
+        coll = rs.primary.collection("m")
+        log = rs._logs["m"]
+        x = torch.randn(64, 256, device=dev)           # device rows: a D2H
+        rs.insert("m", x, ids=torch.arange(9000, 9064, device=dev))
+        h = rng.standard_normal((8, 256)).astype(np.float32)  # host rows
+        rs.insert("m", h)
+        (e1, e2) = log.tail(1)
+        np.testing.assert_array_equal(e1.rows, x.cpu().numpy())
+        np.testing.assert_array_equal(e1.ids, np.arange(9000, 9064))
+        np.testing.assert_array_equal(e2.rows, h)
+        assert not np.shares_memory(e2.rows, h)
+        st = coll.snapshot()
+        rows = torch.cat([st.lists.reshape(-1, 256), st.spill])
+        slot = torch.isin(torch.cat([st.list_ids.reshape(-1), st.spill_ids]),
+                          torch.from_numpy(e1.ids).to(dev))
+        got = torch.sort(rows[slot].cpu(), 0).values     # lists and spill
+        assert torch.equal(got, torch.sort(torch.from_numpy(e1.rows), 0).values)
+        kept = (e1.rows.copy(), e2.rows.copy())
+        x.zero_()                                      # the caller reuses
+        h[:] = 0
+        np.testing.assert_array_equal(e1.rows, kept[0])
+        np.testing.assert_array_equal(e2.rows, kept[1])
+        assert torch.equal(coll.snapshot().lists, st.lists)
+        for e in (e1, e2):
+            assert isinstance(e.rows, np.ndarray) and e.rows.flags.writeable
+    finally:
+        rs.shutdown()
+
+
+def test_replica_services_sit_on_the_primary_card(dev):
+    rs = _replicated("float32")
+    try:
+        assert rs.primary.device.type == "cuda"
+        for rep in rs.replicas:
+            assert rep.service.device == rs.primary.device
+            assert rep.service.collection("m").device == rs.primary.device
+        rs.build("m", np.random.default_rng(2).standard_normal(
+            (2000, 256)).astype(np.float32))
+        rs.pump()
+        rs.kill_primary()
+        out = rs.failover()
+        assert out["replayed"] == 0
+        assert rs.primary.collection("m").snapshot().lists.is_cuda
+    finally:
+        rs.shutdown()

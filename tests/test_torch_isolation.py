@@ -1,7 +1,9 @@
-"""The port stands alone: no file of `repro_torch`, nor `chip_smoke.py`,
+"""The port stands alone: no file of `repro_torch` (its `distributed/` and
+`api/replication.py` included), nor `chip_smoke.py`,
 `tools/profile_port.py` or `tools/ab_phases.py`, imports jax or anything
 of the JAX package `repro`; importing the port leaves jax unloaded; its
-EngineConfig has exactly the reference's fields.
+EngineConfig has exactly the reference's fields, and its copies of
+framework-free modules keep the reference's public names.
 """
 import ast
 import dataclasses
@@ -41,11 +43,15 @@ def test_port_files_found():
     assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
             "scan_scores.py", "scan_scores_q8.py", "checkpointer.py",
             "batch.py", "engine.py", "quickstart.py", "tuner.py",
-            "hnsw.py"} <= names
+            "hnsw.py", "replication.py", "fault.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/distributed/fault.py",
+            "src/repro_torch/api/replication.py"} <= rel
 
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.api, repro_torch.convert, "
+            "repro_torch.api.replication, repro_torch.distributed.fault, "
             "repro_torch.core.metrics, repro_torch.configs.ame_paper, "
             "repro_torch.kernels.scan_scores_q8, "
             "repro_torch.checkpoint.checkpointer; "
@@ -146,3 +152,39 @@ def test_copied_classes_keep_the_reference_public_names(module, cls):
     assert public(a) == public(b)
     assert str(inspect.signature(a.__init__)) == \
         str(inspect.signature(b.__init__))
+
+
+@pytest.mark.parametrize("cls", ["PreemptionGuard", "StragglerMonitor"])
+def test_fault_copy_keeps_the_reference_public_names(cls):
+    """`distributed/fault.py` is a copy: the same public classes with the
+    same public methods, properties and signatures."""
+    import inspect
+    from repro.distributed import fault as ref
+    from repro_torch.distributed import fault as mine
+    a, b = getattr(mine, cls), getattr(ref, cls)
+
+    def public(c):
+        return {n: (str(inspect.signature(getattr(c, n)))
+                    if callable(getattr(c, n)) else type(getattr(c, n)).__name__)
+                for n in dir(c) if not n.startswith("_")}
+
+    assert public(a) == public(b)
+    assert str(inspect.signature(a.__init__)) == \
+        str(inspect.signature(b.__init__))
+
+
+def test_replication_is_no_longer_a_later_slice():
+    """No port file raises `later_slice(..., "replication")` any more: the
+    replication item is ported (the sharded tier's raises remain)."""
+    calls = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Call) and getattr(
+                    node.func, "id", None) == "later_slice":
+                items = [a.value for a in node.args[1:]
+                         if isinstance(a, ast.Constant)]
+                calls.append((path.name, items))
+    assert calls, "the scan found no later_slice call at all"
+    assert not [c for c in calls if "replication" in c[1]], calls
+    assert {item for _, items in calls for item in items} == \
+        {"the sharded tier"}

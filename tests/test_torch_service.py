@@ -2,6 +2,7 @@
 safety of the delta-replay rebuild, workload-triggered maintenance, and the
 same op sequence through the JAX and the port services.
 """
+import dataclasses
 import threading
 import time
 
@@ -110,8 +111,9 @@ def test_future_errors_and_registry(service):
 
 
 @pytest.mark.parametrize("call", [
-    lambda s: s.collection("a").set_ship_hook(None),
-    lambda s: s.collection("a").apply_delta_batch([]),
+    lambda s: s.create_collection("b", dataclasses.replace(CFG,
+                                                           shard_db=True)),
+    lambda s: MemoryService.load("unused", mesh=object(), device="cpu"),
 ])
 def test_later_slices_raise_not_implemented(service, call):
     service.create_collection("a", CFG)

@@ -62,6 +62,18 @@ Phases (any failure raises and the script exits non-zero):
    mid-apply (atomic); a planned failover replays nothing; a query shed to
    a replica when admission control rejects it on the primary; an int8
    set bit-equal and an hnsw replica whose graph mirrors shipped writes.
+10. sharded tier: four PAPER_1M shards on the one card (4,000,000 rows,
+   f32) through ``MemoryService`` on a ``ShardMesh``: the build, recall@10
+   against an exact brute force and the merged answer equal to a global
+   top-k over the shards' kernel scores, B=1 and B=64 queries, inserts
+   while queries run, a 10,000-id delete counted per shard, a shard
+   rebuild under an inserter (zero lost rows), a quiet one that leaves its
+   siblings' storage untouched, and a full sweep; the int8 store on two
+   shards; a fused window over four sharded PAPER_100K tenants as one
+   dispatch (and a mixed window as two); a sharded tenant saved, reloaded,
+   resharded onto two shards, refused on a mismatched mesh, demoted to
+   WARM and COLD and promoted bit-equal, and rebuilt shard-locally by the
+   maintenance poll.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -2466,6 +2478,561 @@ def phase_replication(seed: int, card: str, build_s_phase4: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the mesh-sharded tier (S shards on the one card)
+# ---------------------------------------------------------------------------
+
+SHARDS = 4              # 10a, 10c-10f: shards of one collection
+Q8_SHARDS = 2           # 10b: the int8 store's shards
+SHARD_INSERTS = 8       # 10a: 1024-row inserts under queries
+SHARD_DELETES = 10_000  # 10a, 10b: corpus ids deleted
+FUSED_SHARDED = 4       # 10c: sharded PAPER_100K tenants
+TENANT_SHARD_ROWS = 100_000     # 10c: rows a shard of each tenant
+MAINT_TOMBSTONES = 1000         # 10f: the per-shard tombstone limit
+
+
+class uncounted:
+    """Launches inside the block belong to a check, not to the path: their
+    counts go to `excluded` (per kernel, per variant)."""
+
+    def __init__(self, kernels, excluded):
+        self.kernels, self.excluded = kernels, excluded
+
+    def _read(self):
+        return {k: (m.launches.value,
+                    {v: c.value for v, c in
+                     getattr(m, "launches_by_variant", {}).items()})
+                for k, m in self.kernels.items()}
+
+    def __enter__(self):
+        self.before = self._read()
+
+    def __exit__(self, *exc):
+        for k, (n, by) in self._read().items():
+            n0, by0 = self.before[k]
+            e = self.excluded.setdefault(k, {"all": 0})
+            e["all"] += n - n0
+            for v, c in by.items():
+                e[v] = e.get(v, 0) + c - by0[v]
+
+
+def sharded_live(coll) -> torch.Tensor:
+    """The live ids of a sharded collection, sorted, on shard 0's card."""
+    ids = torch.cat([torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+                     for st in coll.snapshot()])
+    return torch.sort(ids[ids >= 0]).values
+
+
+def phase_sharded(seed: int, card: str) -> dict:
+    """The sharded tier on the card.  10a: PAPER_1M shards, SHARDS of them
+    on the one card (4,000,000 rows, f32): the build; recall@10 against an
+    exact brute force over the live rows, and the merged answer equal to a
+    global top-k over the shards' kernel scores; B=1 and B=64 queries (the
+    sharded tier always full-scans), each query's own row first on >= 99 %;
+    8 x 1024-row inserts while queries run; a 10,000-id delete whose
+    per-shard hits sum to 10,000; `rebuild(shard=h)` of the most
+    tombstoned shard while an inserter thread runs (zero lost rows, the
+    log replayed, only shard h's version bumped beyond the inserts'), a
+    quiet rebuild of another shard (siblings' versions unchanged, their
+    leaves `torch.equal` to before in the same storage), and a full sweep
+    (no tombstone left).  10b: the int8 store on Q8_SHARDS PAPER_1M shards
+    (2,000,000 rows): build, queries, insert, delete, a shard rebuild;
+    recall@10 >= 0.95 x 10a's.  10c: FUSED_SHARDED sharded PAPER_100K
+    tenants (100,000 rows a shard): a window of unequal batches is one
+    dispatch, every shard's scan one lane launch, each answer equal to the
+    tenant's own query; a window with an unsharded tenant is two groups.
+    10d: a sharded PAPER_100K tenant (100,000 rows over SHARDS shards)
+    saved; loaded on the same mesh (leaves equal to the saved ones, same
+    answers), on Q8_SHARDS shards with `reshard=True` (the same live set),
+    and without it (ValueError).  10e: the tenant to WARM (page-locked
+    per-shard host states) and back, to COLD and back by a query, every
+    answer bit-equal, `memory_allocated` down by >= 0.95 x its bytes per
+    demotion.  10f: `poll_once` schedules a rebuild of exactly the shard
+    whose tombstones crossed the limit."""
+    import threading
+    from repro_torch.api import MemoryOp, MemoryService
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.core import index as ivf
+    from repro_torch.core import metrics, templates
+    from repro_torch.core.distributed import make_mesh
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+
+    dev = torch.device("cuda")
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    for m in kernels.values():
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    excluded = {}
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card}
+    mesh = make_mesh((SHARDS,), ("shard",))
+    mesh2 = make_mesh((Q8_SHARDS,), ("shard",))
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+
+    def lifecycle(cfg, m, tag) -> dict:
+        """10a / 10b: one sharded PAPER_1M collection's lifecycle."""
+        r = {"shards": m.size}
+        n = m.size * N_ROWS
+        x = make_corpus(n, cfg.dim, g)
+        live = np.zeros(n + 200_000, dtype=bool)
+        live[:n] = True
+        next_id = n
+
+        def check_live(coll, what):
+            want = torch.from_numpy(
+                np.nonzero(live)[0].astype(np.int32)).to(dev)
+            got = sharded_live(coll)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{tag}: live ids after {what}: {got.numel()} in the "
+                    f"index vs {want.numel()} acknowledged")
+
+        def fresh(b):
+            nonlocal next_id
+            rows = torch.nn.functional.normalize(
+                torch.randn(b, cfg.dim, generator=g, device=dev), dim=1)
+            ids = np.arange(next_id, next_id + b, dtype=np.int32)
+            next_id += b
+            return rows, ids
+
+        with MemoryService(maintenance=False) as svc:
+            coll = svc.create_collection("mem", cfg, mesh=m, seed=seed)
+            if coll.n_shards != m.size or \
+                    coll.index_nbytes() != ivf.state_nbytes(cfg, 4096,
+                                                            m.size):
+                raise AssertionError(f"{tag}: shards or byte charge wrong")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            b = svc.build("mem", x, ids=np.arange(n, dtype=np.int32))
+            r["build_s"] = time.perf_counter() - t0
+            r["build_spilled"] = b["spilled"]
+            check_live(coll, "build")
+            st = coll.stats()
+            r["index_gb"] = st["index_bytes"] / 1e9
+            if st["index_bytes"] != coll.index_nbytes():
+                raise AssertionError(f"{tag}: resident bytes "
+                                     f"{st['index_bytes']} != the charge")
+
+            # recall@10 of the merged answer against an exact brute force
+            sel = torch.randint(0, n, (256,), generator=g, device=dev)
+            rq = perturb(x[sel], g)
+            truth = metrics.brute_force_topk(
+                rq, x, torch.arange(n, device=dev), 10, cfg.metric,
+                device=dev)
+            got, got_sc = svc.query("mem", rq, k=10)
+            r["recall10"] = metrics.recall_at_k(got, truth)
+            del truth
+            # ... and, at B=16, equal to a global top-k over the shards'
+            # kernel scores
+            if not cfg.quantized:
+                qk = rq[:16].contiguous()
+                got, got_sc = svc.query("mem", qk, k=10)
+                with uncounted(kernels, excluded):
+                    sc, fid = [], []
+                    for local in coll.snapshot():
+                        rows, i = ivf._flat_rows(local)
+                        sc.append(ss.scan_scores(qk, rows, i, None,
+                                                 metric=cfg.metric))
+                        fid.append(i)
+                        del rows
+                    sc, fid = torch.cat(sc, 1), torch.cat(fid)
+                pos = torch.sort(sc, dim=1, descending=True,
+                                 stable=True).indices[:, :10]
+                if not (np.array_equal(got, fid[pos].cpu().numpy())
+                        and np.array_equal(got_sc,
+                                           sc.gather(1, pos).cpu().numpy())):
+                    raise AssertionError(f"{tag}: the merged answer is not "
+                                         "the global top-k of the shards' "
+                                         "kernel scores")
+                r["merge_equals_global_topk"] = True
+                del sc, fid
+            del rq
+
+            # the corpus goes; the queries' targets stay
+            keep = torch.randperm(n, generator=g, device=dev)[:65_536]
+            xk = x[keep].clone()
+            keep = keep.cpu().numpy()
+            del x, got, got_sc
+
+            def queries(b):
+                ok = np.nonzero(live[keep])[0]
+                pick = ok[torch.randint(0, len(ok), (b,), generator=g,
+                                        device=dev).cpu().numpy()]
+                return keep[pick], perturb(
+                    xk[torch.from_numpy(pick).to(dev)], g)
+
+            def hit_rate(b, reps, what):
+                hits = tot = 0
+                lat = []
+                for _ in range(reps):
+                    t, q = queries(b)
+                    t0 = time.perf_counter()
+                    ids, _ = svc.query("mem", q)
+                    lat.append(time.perf_counter() - t0)
+                    hits += int((ids[:, 0] == t).sum())
+                    tot += b
+                if hits / tot < 0.99:
+                    raise AssertionError(f"{tag}: {what} queries found "
+                                         f"their row first on "
+                                         f"{hits / tot:.4f} < 0.99")
+                return hits / tot, lat
+
+            hit_rate(1, 3, "B=1")                          # warm-up
+            r["hit_b1"], lat = hit_rate(1, 30, "B=1")
+            r["query_p50_ms_b1"] = 1e3 * float(np.median(lat))
+            hit_rate(64, 1, "B=64")
+            r["hit_b64"], lat = hit_rate(64, 6, "B=64")
+            r["query_p50_ms_b64"] = 1e3 * float(np.median(lat))
+
+            # inserts as futures while B=1 queries run
+            n_ins = SHARD_INSERTS if not cfg.quantized else 1
+            batches = [fresh(1024) for _ in range(n_ins)]
+            t0 = time.perf_counter()
+            futs = [svc.submit(MemoryOp("insert", "mem", rows, ids=ids,
+                                        concurrent=True))
+                    for rows, ids in batches]
+            hit_rate(1, 5, "B=1 (during inserts)")
+            for f in futs:
+                f.result(timeout=600)
+            r["insert_rows_per_s"] = n_ins * 1024 / (time.perf_counter() - t0)
+            for _, ids in batches:
+                live[ids] = True
+            check_live(coll, "inserts")
+
+            # a delete of corpus ids, its hits counted per shard
+            gone = np.random.default_rng(seed).choice(n, SHARD_DELETES,
+                                                      replace=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_hit = svc.delete("mem", gone.astype(np.int32))
+            r["delete_ms"] = 1e3 * (time.perf_counter() - t0)
+            per_shard = [p["tombstones"]
+                         for p in coll.maintenance_pressure()["shards"]]
+            if n_hit != SHARD_DELETES or sum(per_shard) != SHARD_DELETES:
+                raise AssertionError(f"{tag}: delete hit {n_hit}, per "
+                                     f"shard {per_shard}")
+            r["delete_hits_by_shard"] = per_shard
+            live[gone] = False
+            check_live(coll, "delete")
+
+            # the most tombstoned shard rebuilt while an inserter runs
+            h = int(np.argmax(per_shard))
+            v0 = coll.shard_versions()
+            landed = []
+            done = threading.Event()
+            errors = []
+
+            def inserter():
+                try:
+                    while not done.is_set() and len(landed) < 400:
+                        rows, ids = fresh(256)
+                        svc.insert("mem", rows, ids=ids)
+                        landed.append(ids)
+                except BaseException as e:     # noqa: BLE001
+                    errors.append(e)
+
+            th = threading.Thread(target=inserter)
+            th.start()
+            while not landed and th.is_alive():
+                time.sleep(0.001)              # the first insert has landed
+            t0 = time.perf_counter()
+            rb = svc.rebuild("mem", shard=h)
+            r["shard_rebuild_s"] = time.perf_counter() - t0
+            done.set()
+            th.join()
+            if errors:
+                raise errors[0]
+            for ids in landed:
+                live[ids] = True
+            v1 = coll.shard_versions()
+            r.update(rebuilt_shard=h, replayed_rows=rb["replayed"],
+                     inserts_during_rebuild=len(landed),
+                     rebalanced_rows=rb.get("rebalanced", 0))
+            bumps = [b - a for a, b in zip(v0, v1)]
+            moved = rb.get("rebalance_to")
+            want = [len(landed) + (s == h or s == moved) for s in range(m.size)]
+            if rb["aborted"] or rb["replayed"] == 0 or bumps != want:
+                raise AssertionError(f"{tag}: shard rebuild {rb}, version "
+                                     f"bumps {bumps} != {want}")
+            check_live(coll, "shard rebuild under inserts")
+            if cfg.quantized:
+                r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+                return r
+
+            # a quiet rebuild of another shard: siblings untouched
+            h2 = (h + 1) % m.size
+            before = coll.snapshot()
+            v0 = coll.shard_versions()
+            rb2 = svc.rebuild("mem", shard=h2)
+            after = coll.snapshot()
+            v1 = coll.shard_versions()
+            for s in range(m.size):
+                if s == h2 or s == rb2.get("rebalance_to"):
+                    continue
+                same = v1[s] == v0[s] and all(
+                    a.data_ptr() == b.data_ptr() and torch.equal(a, b)
+                    for a, b in zip(before[s], after[s]) if a is not None)
+                if not same:
+                    raise AssertionError(f"{tag}: rebuilding shard {h2} "
+                                         f"touched shard {s}")
+            del before, after
+            r["siblings_untouched"] = True
+
+            # a full sweep reclaims every tombstone
+            t0 = time.perf_counter()
+            rb3 = svc.rebuild("mem")
+            r["sweep_s"] = time.perf_counter() - t0
+            if rb3["aborted"] or coll.stats()["deleted"] != 0:
+                raise AssertionError(f"{tag}: sweep left tombstones: {rb3}")
+            check_live(coll, "sweep")
+            r["hit_b1_after"], _ = hit_rate(1, 10, "B=1 (after rebuilds)")
+            r["live"] = coll.stats()["live"]
+            r["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return r
+
+    t_a = time.perf_counter()
+    out["10a"] = a = lifecycle(dataclasses.replace(PAPER_1M, shard_db=True),
+                               mesh, "10a")
+    a["s"] = time.perf_counter() - t_a
+    release()
+    print(f"  10a f32 {SHARDS} x PAPER_1M [{card}]: build "
+          f"{a['build_s']:.3f} s, query p50 {a['query_p50_ms_b1']:.3f} ms "
+          f"(B=1) / {a['query_p50_ms_b64']:.3f} ms (B=64), recall@10 "
+          f"{a['recall10']:.4f}, insert {a['insert_rows_per_s']:.0f} rows/s, "
+          f"delete {a['delete_ms']:.3f} ms, shard rebuild "
+          f"{a['shard_rebuild_s']:.3f} s ({a['replayed_rows']} rows of "
+          f"{a['inserts_during_rebuild']} inserts replayed), peak "
+          f"{a['peak_gib']:.1f} GiB", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    t_b = time.perf_counter()
+    out["10b"] = b = lifecycle(
+        dataclasses.replace(PAPER_1M, shard_db=True, store_dtype="int8"),
+        mesh2, "10b")
+    b["s"] = time.perf_counter() - t_b
+    release()
+    if b["recall10"] < 0.95 * a["recall10"]:
+        raise AssertionError(f"10b recall@10 {b['recall10']:.4f} < 0.95 x "
+                             f"10a's {a['recall10']:.4f}")
+    print(f"  10b int8 {Q8_SHARDS} x PAPER_1M [{card}]: build "
+          f"{b['build_s']:.3f} s, query p50 {b['query_p50_ms_b1']:.3f} / "
+          f"{b['query_p50_ms_b64']:.3f} ms, recall@10 {b['recall10']:.4f}, "
+          f"shard rebuild {b['shard_rebuild_s']:.3f} s, peak "
+          f"{b['peak_gib']:.1f} GiB", flush=True)
+
+    # 10c: fused windows over sharded tenants
+    t_c = time.perf_counter()
+    scfg = dataclasses.replace(PAPER_100K, shard_db=True)
+    c = {}
+    with MemoryService(maintenance=False) as svc:
+        names = [f"s{i}" for i in range(FUSED_SHARDED)]
+        rows = {}
+        for i, name in enumerate(names):
+            xt = make_corpus(SHARDS * TENANT_SHARD_ROWS, scfg.dim, g)
+            svc.create_collection(name, scfg, mesh=mesh, seed=i)
+            svc.build(name, xt, ids=np.arange(xt.shape[0], dtype=np.int32)
+                      + 1_000_000 * i)
+            rows[name] = xt[:64].clone()
+            del xt
+        xu = make_corpus(TENANT_SHARD_ROWS, scfg.dim, g)
+        svc.create_collection("u", PAPER_100K)
+        svc.build("u", xu, ids=np.arange(TENANT_SHARD_ROWS, dtype=np.int32)
+                  + 9_000_000)
+        rows["u"] = xu[:64].clone()
+        del xu
+        reqs = [(nm, perturb(rows[nm][:bsz], g))
+                for nm, bsz in zip(names, (1, 3, 8, 21))]
+
+        def fused(reqs):
+            before = {k: (m.launches.value, m.launches_by_lanes["G>1"].value)
+                      for k, m in (("ss", ss),)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            futs = [svc.submit(MemoryOp("query", nm, q, batch=True))
+                    for nm, q in reqs]
+            n_disp = svc.flush()
+            res = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            lanes = (ss.launches.value - before["ss"][0],
+                     ss.launches_by_lanes["G>1"].value - before["ss"][1])
+            return n_disp, res, wall, lanes
+
+        def same(got, want, what):
+            for (gi, gs), (wi, ws) in zip(got, want):
+                if not np.array_equal(gi, wi) or \
+                        not np.allclose(gs, ws, rtol=1e-5, atol=1e-5):
+                    raise AssertionError(f"10c {what}: a fused answer "
+                                         "differs from the tenant's query")
+
+        want = [svc.query(nm, q) for nm, q in reqs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = [svc.query(nm, q) for nm, q in reqs]
+        c["per_tenant_s"] = time.perf_counter() - t0
+        fused(reqs)                                    # warm-up
+        n_disp, got, c["window_s"], lanes = fused(reqs)
+        if n_disp != 1 or lanes != (SHARDS, SHARDS):
+            raise AssertionError(f"10c: {n_disp} dispatches, scan launches "
+                                 f"(all, lane) {lanes}; want 1 and "
+                                 f"({SHARDS}, {SHARDS})")
+        same(got, want, "sharded window")
+        c["stack_cache"] = svc.stats()["stack_cache"]
+        mixed = reqs[:2] + [("u", perturb(rows["u"][:4], g))]
+        want = [svc.query(nm, q) for nm, q in mixed]
+        n_disp, got, _, _ = fused(mixed)
+        if n_disp != 2:
+            raise AssertionError(f"10c: the mixed window took {n_disp} "
+                                 "dispatches, not 2")
+        same(got, want, "mixed window")
+        c["mixed_dispatches"] = n_disp
+        c["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    c["s"] = time.perf_counter() - t_c
+    out["10c"] = c
+    release()
+    print(f"  10c fused [{card}]: {FUSED_SHARDED} sharded PAPER_100K "
+          f"tenants, 1 dispatch ({SHARDS} lane launches) in "
+          f"{1e3 * c['window_s']:.3f} ms vs {1e3 * c['per_tenant_s']:.3f} "
+          f"ms per tenant; mixed window 2 dispatches", flush=True)
+
+    # 10d-10f: one sharded PAPER_100K tenant saved, reloaded, resharded,
+    # demoted and promoted, and maintained by the controller
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        d, e, f = {}, {}, {}
+        th = dataclasses.replace(
+            templates.TemplateThresholds.from_profile(scfg),
+            maintenance_tombstone_frac=0.0,
+            maintenance_min_pending=MAINT_TOMBSTONES,
+            maintenance_shard_min_pending=MAINT_TOMBSTONES)
+        svc = MemoryService(maintenance_poll_interval_s=3600.0,
+                            residency_dir=os.path.join(tmp, "cold"))
+        try:
+            t_d = time.perf_counter()
+            xp = make_corpus(TENANT_SHARD_ROWS, scfg.dim, g)
+            coll = svc.create_collection("p", scfg, mesh=mesh, seed=seed,
+                                         thresholds=th)
+            svc.build("p", xp, ids=np.arange(TENANT_SHARD_ROWS,
+                                             dtype=np.int32))
+            q = perturb(xp[:32], g)
+            del xp
+            want = svc.query("p", q)
+            want_live = sharded_live(coll)
+            t0 = time.perf_counter()
+            svc.save(os.path.join(tmp, "svc"))
+            d["save_s"] = time.perf_counter() - t0
+            saved = coll.snapshot()
+            with MemoryService.load(os.path.join(tmp, "svc"), mesh=mesh,
+                                    maintenance=False) as back:
+                got = back.query("p", q)
+                bstate = back.collection("p").snapshot()
+                equal = all(torch.equal(a, bb) for s0, s1 in zip(saved, bstate)
+                            for a, bb in zip(s0, s1) if a is not None)
+                if not equal or not (np.array_equal(got[0], want[0]) and
+                                     np.array_equal(got[1], want[1])):
+                    raise AssertionError("10d: the reloaded tenant differs")
+                del bstate
+            del saved
+            with MemoryService.load(os.path.join(tmp, "svc"), mesh=mesh2,
+                                    reshard=True, maintenance=False) as back:
+                rc = back.collection("p")
+                if rc.n_shards != Q8_SHARDS or \
+                        not torch.equal(sharded_live(rc), want_live):
+                    raise AssertionError("10d: the resharded live set "
+                                         "differs")
+                d["resharded_spill"] = rc.stats()["spill"]
+            try:
+                MemoryService.load(os.path.join(tmp, "svc"), mesh=mesh2,
+                                   maintenance=False)
+                raise AssertionError("10d: a mesh mismatch loaded")
+            except ValueError as err:
+                if "reshard=True" not in str(err):
+                    raise
+            d["s"] = time.perf_counter() - t_d
+            release()
+
+            # 10e: WARM and back, COLD and back by a query
+            t_e = time.perf_counter()
+            for tier in ("warm", "cold"):        # each from HOT
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                svc.demote("p", tier)
+                e[f"demote_{tier}_s"] = time.perf_counter() - t0
+                freed = before - torch.cuda.memory_allocated()
+                if coll.residency != tier or \
+                        freed < 0.95 * coll.index_nbytes():
+                    raise AssertionError(
+                        f"10e: demote to {tier} freed {freed} of "
+                        f"{coll.index_nbytes()} bytes")
+                if tier == "warm" and not all(
+                        t.is_pinned() for st in coll._host_state
+                        for t in st if t is not None):
+                    raise AssertionError("10e: a WARM leaf is not pinned")
+                t0 = time.perf_counter()
+                got = svc.query("p", q)
+                e[f"promote_{tier}_query_s"] = time.perf_counter() - t0
+                if coll.residency != "hot" or not (
+                        np.array_equal(got[0], want[0])
+                        and np.array_equal(got[1], want[1])):
+                    raise AssertionError(f"10e: the answer after {tier} "
+                                         "differs")
+            e["s"] = time.perf_counter() - t_e
+
+            # 10f: tombstones on one shard only; poll_once rebuilds it alone
+            t_f = time.perf_counter()
+            hot = SHARDS - 2
+            ids = coll.snapshot()[hot].list_ids.reshape(-1)
+            ids = ids[ids >= 0][:MAINT_TOMBSTONES + 200].cpu().numpy()
+            svc.delete("p", ids)
+            due = coll.maintenance_due_shards()
+            v0 = coll.shard_versions()
+            maint = svc.maintenance
+            scheduled = maint.poll_once()
+            inflight = maint.stats()["inflight"]
+            deadline = time.time() + 300
+            while maint.stats()["inflight"] and time.time() < deadline:
+                time.sleep(0.01)
+            bumps = [b1 - b0 for b0, b1 in zip(v0, coll.shard_versions())]
+            want_bumps = [int(s == hot) for s in range(SHARDS)]
+            if due != [hot] or scheduled != 1 or \
+                    inflight not in ([], [f"p[shard {hot}]"]) or \
+                    bumps != want_bumps or coll.stats()["deleted"] != 0:
+                raise AssertionError(
+                    f"10f: due {due}, scheduled {scheduled}, inflight "
+                    f"{inflight}, version bumps {bumps}")
+            f.update(due=due, scheduled=scheduled, version_bumps=bumps,
+                     s=time.perf_counter() - t_f)
+        finally:
+            svc.shutdown()
+        out["10d"], out["10e"], out["10f"] = d, e, f
+        del svc, coll
+        release()
+    print(f"  10d-10f [{card}]: save {d['save_s']:.3f} s, same-mesh reload "
+          f"equal, resharded to {Q8_SHARDS} shards with the same live set, "
+          f"mismatch refused; WARM/COLD round trips bit-equal; poll_once "
+          f"rebuilt shard {SHARDS - 2} alone", flush=True)
+
+    out["launches"] = {k: m.launches.value - excluded.get(k, {}).get("all", 0)
+                       for k, m in kernels.items()}
+    out["launches_by_variant"] = {
+        k: {v: c.value - excluded.get(k, {}).get(v, 0)
+            for v, c in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k, cnt in out["launches"].items():
+        if cnt <= 0:
+            raise AssertionError(f"phase 10 never launched {k}")
+    for k, by in out["launches_by_variant"].items():
+        fast = next(iter(by))
+        if by["generic"] or by[fast] != out["launches"][k]:
+            raise AssertionError(f"phase 10 {k} launches by variant {by}: "
+                                 f"not all {fast}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2544,6 +3111,13 @@ def main(argv=None) -> int:
         args.seed, card, paths["float32"]["build_s"])
     print(f"phase 9: replication in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(rp), flush=True)
+    release()
+    # 10. the mesh-sharded tier (after phase 9's memory is freed), the
+    # counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["sharded"] = sh = phase_sharded(args.seed, card)
+    print(f"phase 10: sharded tier in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(sh), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -1,5 +1,5 @@
 """Cross-collection batched query execution (lane/pad/stack/demux); port of
-``src/repro/api/batch.py`` for unsharded collections on one device.
+``src/repro/api/batch.py``.
 
 Pending queries against *different* collections that resolved to the same
 execution signature — identical `EngineConfig` shapes, store policy, spill
@@ -11,6 +11,14 @@ it is one launch of a scan kernel with a lane axis (``csrc/scan_scores.cu``,
 ``csrc/scan_scores_q8.cu``), where the reference runs its template under
 `jax.vmap`.  The results are then **demuxed** back to the per-op futures
 by row span.
+
+Two stacking regimes, one invariant:
+
+* Unsharded lanes stack their states (`stack_states`) and run `fused_query`.
+* Mesh-sharded lanes stack per shard (`distributed.dist_stack_states`:
+  shard s of every lane, ``[G, ...]`` on shard s's device) and run
+  `distributed.dist_fused_query_stacked`: each shard's scan is one lane
+  launch, and the merge of the shards' candidates is batched over lanes.
 
 Correctness invariant (tested): the fused path returns what the
 per-collection sync path returns — lane `g` only ever scans collection
@@ -27,21 +35,18 @@ Thread-safety: `execute_group` reads each collection's
 mutates a published state) and `demux` only settles futures.  Neither
 takes a collection or service lock, so a fused dispatch can never deadlock
 against writers.
-
-The mesh-sharded regime of the reference (per-device stacking inside
-`shard_map`) is a later slice of the port: a `mesh` raises.
 """
 from __future__ import annotations
 
 import weakref
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.api.collection import later_slice
 from repro_torch.configs.base import EngineConfig
+from repro_torch.core import distributed as dce
 from repro_torch.core import index as ivf
 from repro_torch.core import locking
 from repro_torch.device import as_tensor
@@ -67,25 +72,21 @@ def fused_query(stacked: ivf.IVFState, q: torch.Tensor, cfg: EngineConfig,
     return ivf.query_probed(stacked, q, cfg, k, nprobe)
 
 
-def stack_states(states: Sequence[ivf.IVFState]) -> ivf.IVFState:
-    """Stack G same-shaped collection states along a new leading axis
-    (leaf by leaf; the int8 store's leaves are None under the f32 policy
-    and stay None)."""
-    return ivf.IVFState(*[None if leaves[0] is None else torch.stack(leaves)
-                          for leaves in zip(*states)])
+stack_states = ivf.stack_states
 
 
-def _stack(snaps: Sequence[ivf.IVFState], mesh) -> ivf.IVFState:
-    """Stack G snapshots for one fused dispatch (unsharded lanes only)."""
+def _stack(snaps, mesh):
+    """Stack G snapshots for one fused dispatch: leaf by leaf for unsharded
+    lanes, per shard for mesh-sharded ones."""
     if mesh is not None:
-        raise later_slice("fused queries over mesh-sharded collections",
-                          "the sharded tier")
+        return dce.dist_stack_states(snaps, mesh)
     return stack_states(snaps)
 
 
-def _nbytes(state: ivf.IVFState) -> int:
-    return sum(leaf.numel() * leaf.element_size() for leaf in state
-               if leaf is not None)
+def _nbytes(state) -> int:
+    shards = (state,) if isinstance(state, ivf.IVFState) else state
+    return sum(leaf.numel() * leaf.element_size() for st in shards
+               for leaf in st if leaf is not None)
 
 
 def _drop_group(entries: OrderedDict, key) -> None:
@@ -93,7 +94,7 @@ def _drop_group(entries: OrderedDict, key) -> None:
     the cache's lock)."""
     mesh, tag = key
     for k in [k for k in entries
-              if k[0] is mesh and len(k[1]) == len(tag)
+              if k[0] == mesh and len(k[1]) == len(tag)
               and all(a is b for (a, _), (b, _) in zip(k[1], tag))]:
         del entries[k]
 
@@ -202,7 +203,8 @@ def execute_group(collections, queries: List[np.ndarray],
     collections: G distinct Collection objects (one per lane), on one device
     queries:     G query batches f32[B_g, D], numpy or tensors (B_g may
                  differ per lane)
-    mesh:        must be None (the sharded tier is a later slice)
+    mesh:        None for unsharded lanes; the lanes' `ShardMesh` when
+                 they are sharded (every lane on this mesh, by signature)
     cache:       optional `StackCache` reusing the stacked state across
                  dispatches while the lanes' versions are unchanged
     Returns per-lane host (ids [B_g, k], scores [B_g, k]), padding removed.
@@ -228,7 +230,11 @@ def execute_group(collections, queries: List[np.ndarray],
         stacked = _stack(snaps, mesh)
     for c, b in zip(collections, sizes):
         c._bump(queries=b)
-    ids, scores = fused_query(stacked, padded, cfg, k, nprobe, path)
+    if mesh is not None:
+        ids, scores = dce.dist_fused_query_stacked(stacked, padded, cfg, mesh,
+                                                   k, nprobe, path)
+    else:
+        ids, scores = fused_query(stacked, padded, cfg, k, nprobe, path)
     ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
     return [(ids[g, :b], scores[g, :b]) for g, b in enumerate(sizes)]
 

@@ -1,15 +1,13 @@
 """A named memory collection — one tenant's IVF state, id-space, counters.
 
-Port of ``src/repro/api/collection.py`` for one unsharded collection with
-either store policy (f32, or f32 plus the int8 scan store), its residency
-tier (HOT on the device, WARM in host memory, COLD on disk; see
+Port of ``src/repro/api/collection.py``: one collection with either store
+policy (f32, or f32 plus the int8 scan store), its residency tier (HOT on
+the device, WARM in host memory, COLD on disk; see
 `repro_torch.api.residency`), recall-adaptive routing (the index policy,
 the recall probe and its knob tuners, the derived HNSW graph tier),
 replication shipping (the ship hook, the bootstrap snapshot and the
-replica-side `apply_delta_batch`; see `repro_torch.api.replication`), and
-save/load in the reference's on-disk layout.  The mesh-sharded tier is a
-later slice of the port; it raises NotImplementedError naming its ROADMAP
-item.
+replica-side `apply_delta_batch`; see `repro_torch.api.replication`), the
+mesh-sharded tier, and save/load in the reference's on-disk layout.
 
 Concurrency model (lost-update-safe writes, wait-free reads), as in the
 reference:
@@ -36,8 +34,15 @@ reference:
   `promote` asks the residency manager for room before it takes the
   writer lock (lock order `_admit_lock > _writer_lock > _lock`).
 
-The per-shard bookkeeping (`_delta_logs`, `_shard_pressure`, ...) keeps the
-reference's one-entry-per-shard shape; an unsharded collection has one.
+Sharded collections (``shard_db=True`` + a `ShardMesh`) run the same
+lifecycle on a tuple of shard-local states (`repro_torch.core.distributed`)
+with *per-shard* maintenance state: the delta log, tombstone/spill pressure
+counters, spill floor and version counter are tracked per shard, and
+`rebuild(shard=i)` compacts shard ``i`` alone — sibling shards' tensors and
+versions are untouched.  The unsharded collection is the 1-shard case of
+the same bookkeeping.  Sharded collections write one ``shard_<i>``
+namespace per shard plus the mesh shape in the metadata; loading checks the
+mesh shape and can re-pack the rows onto another mesh (``reshard=True``).
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig
+from repro_torch.core import distributed as dce
 from repro_torch.core import index as ivf
 from repro_torch.core import locking
 from repro_torch.core import metrics
@@ -63,11 +69,6 @@ from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
 
 META_FILE = "collection.json"
-
-
-def later_slice(feature: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to repro_torch yet (ROADMAP.md §1: {item})")
 
 
 def atomic_write_json(path: str, payload: dict) -> None:
@@ -117,10 +118,30 @@ def _ship_copy(src, t: torch.Tensor, dtype) -> np.ndarray:
     return np.array(src, dtype=dtype).reshape(t.shape)
 
 
-def _host_tensors(arrays: ivf.IVFState) -> ivf.IVFState:
-    """IVFState of numpy arrays (a checkpoint restore) as CPU tensors."""
+def _host_tensors(arrays):
+    """IVFState of numpy arrays (a checkpoint restore) as CPU tensors; a
+    sequence of per-shard ones as a tuple of them."""
+    if not isinstance(arrays, ivf.IVFState):
+        return tuple(_host_tensors(a) for a in arrays)
     return ivf.IVFState(*[None if a is None else torch.from_numpy(a)
                           for a in arrays])
+
+
+def _shard_dir(directory: str, i: int) -> str:
+    """Shard i's checkpoint namespace in a sharded collection's directory."""
+    return os.path.join(directory, f"shard_{i:03d}")
+
+
+def _shards(state) -> tuple:
+    """The shard-local states of a state: itself for an unsharded one."""
+    return (state,) if isinstance(state, ivf.IVFState) else tuple(state)
+
+
+def _to_mesh(shards, mesh: dce.ShardMesh) -> tuple:
+    """Per-shard states (host tensors) copied onto the mesh's devices, one
+    centroids tensor per device."""
+    return dce.share_centroids([_copy_state(st, dev)
+                                for st, dev in zip(shards, mesh.devices)])
 
 
 class Collection:
@@ -129,12 +150,15 @@ class Collection:
                  thresholds: Optional[templates.TemplateThresholds] = None,
                  delta_log_capacity: int = 1024, mesh=None,
                  device: DeviceLike = None, _alloc_state: bool = True):
-        if cfg.shard_db or mesh is not None:
-            raise later_slice("the mesh-sharded tier (shard_db / mesh)",
-                              "the sharded tier")
+        if cfg.shard_db and mesh is None:
+            raise ValueError(f"collection {name!r}: shard_db=True needs a mesh")
         self.name = name
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # a sharded collection lives on its mesh; shard 0's device takes
+        # the inputs and the merged answers
+        self.device = (mesh.devices[0] if cfg.shard_db
+                       else resolve_device(device))
         self.seed = seed
         self.spill_capacity = spill_capacity
         self.delta_log_capacity = delta_log_capacity
@@ -151,33 +175,43 @@ class Collection:
         self._approx_live = 0      # host-side live-row estimate (saved)
         self.counters = {"queries": 0, "inserts": 0, "deletes": 0,
                          "rebuilds": 0, "spilled": 0}
-        #   _rebuild_locks   at most one delta-replay rebuild at a time
-        #   _delta_logs      write log while a rebuild recomputes
+        # Per-shard maintenance state; the unsharded collection is the
+        # 1-shard case.  Shard i's entries are only touched by ops that
+        # land on shard i, so shard-local rebuilds schedule independently:
+        #   _rebuild_locks   at most one delta-replay rebuild per shard
+        #   _delta_logs      write log while shard i's rebuild recomputes
+        #   _shard_versions  bumped when shard i's state changes
         #   _shard_pressure  host-side tombstone/spill counters since the
-        #                    last (re)build — what the MaintenanceController
-        #                    polls (no device sync)
-        #   _spill_floors    residual spill the last rebuild could not drain:
-        #                    pressure below the floor is irreducible, so
-        #                    maintenance_due ignores it
-        self._rebuild_locks = [locking.make_lock("_rebuild_locks")]
-        self._delta_logs: List[Optional[List[ivf.DeltaOp]]] = [None]
-        self._delta_overflow = [False]
-        self._shard_pressure = [{"tombstones": 0, "spilled": 0}]
-        self._spill_floors = [0]
+        #                    last (re)build of shard i — what the
+        #                    MaintenanceController polls (no device sync)
+        #   _spill_floors    residual spill the last rebuild of shard i
+        #                    could not drain: pressure below the floor is
+        #                    irreducible, so maintenance_due ignores it
+        n_shards = mesh.size if cfg.shard_db else 1
+        self._n_shards = n_shards
+        self._rebuild_locks = [locking.make_lock("_rebuild_locks")
+                               for _ in range(n_shards)]
+        self._delta_logs: List[Optional[List[ivf.DeltaOp]]] = [None] * n_shards
+        self._delta_overflow = [False] * n_shards
+        self._shard_versions = [0] * n_shards
+        self._shard_pressure = [{"tombstones": 0, "spilled": 0}
+                                for _ in range(n_shards)]
+        self._spill_floors = [0] * n_shards
         # Residency tier (see repro_torch.api.residency): "hot" = device
         # state in _state; "warm" = host copy in _host_state (page-locked
-        # when the collection lives on the card); "cold" = checkpoint under
+        # when the collection lives on the card; per-shard states when
+        # sharded); "cold" = checkpoint under
         # _cold_dir only.  Transitions go through demote()/promote() under
         # the writer lock; _index_nbytes is the exact byte size of the
         # device state (what the budget charges), computed without
         # allocation.
         self._residency_tier = "hot"
-        self._host_state: Optional[ivf.IVFState] = None
+        self._host_state = None
         self._cold_dir: Optional[str] = None
         self._cold_step: Optional[int] = None
         self._residency_mgr = None     # back-ref set by ResidencyManager
         self._last_used = time.monotonic()
-        self._index_nbytes = ivf.state_nbytes(cfg, spill_capacity)
+        self._index_nbytes = ivf.state_nbytes(cfg, spill_capacity, n_shards)
         # Recall-adaptive routing: the HNSW graph is a DERIVED host-side
         # accelerator for the "hnsw" index policy — the IVF row store stays
         # the single source of truth for durability, delta replay,
@@ -198,8 +232,10 @@ class Collection:
         # shipped iff it was acked.  The hook must only descend to
         # _ship_lock (15).
         self._ship_hook = None
-        # target_recall > 0 arms the probe + per-path knob tuners
-        if cfg.target_recall > 0:
+        # target_recall > 0 arms the probe + per-path knob tuners; the
+        # sharded tier serves exact per-shard scans + the merge (no effort
+        # knob), so its probes measure without retuning
+        if cfg.target_recall > 0 and not self.sharded:
             self._nprobe_tuner: Optional[RecallTuner] = RecallTuner(
                 cfg.target_recall,
                 max(1, min(cfg.nprobe, cfg.n_clusters)), 1, cfg.n_clusters)
@@ -212,11 +248,26 @@ class Collection:
             self._nprobe_tuner = None
             self._ef_tuner = None
         # load_from installs the restored state itself: no device allocation
-        self._state = (ivf.empty_state(cfg, spill_capacity, device=self.device)
-                       if _alloc_state else None)
+        if not _alloc_state:
+            self._state = None
+        elif self.sharded:
+            self._state = dce.empty_dist_state(cfg, mesh, spill_capacity)
+        else:
+            self._state = ivf.empty_state(cfg, spill_capacity,
+                                          device=self.device)
+
+    @property
+    def sharded(self) -> bool:
+        return self.cfg.shard_db and self.mesh is not None
+
+    @property
+    def n_shards(self) -> int:
+        """Mesh size for sharded collections, else 1."""
+        return self._n_shards
 
     @property
     def _spill_floor(self) -> int:
+        """Aggregate irreducible spill across shards (see `_spill_floors`)."""
         with self._lock:
             return sum(self._spill_floors)
 
@@ -241,22 +292,25 @@ class Collection:
         `ivf.footprint(state)["index_bytes"]`)."""
         return self._index_nbytes
 
-    def _host_view_locked(self) -> ivf.IVFState:
+    def _host_view_locked(self):
         """Host representation of the current state; caller holds the
         writer lock.  HOT: a fresh host copy (page-locked from the card);
-        WARM: the host copy held; COLD: the checkpoint read back (numpy)."""
+        WARM: the host copy held; COLD: the checkpoint read back (numpy).
+        Sharded: a tuple of the per-shard states."""
         with self._lock:
             tier = self._residency_tier
             state = self._state
             host = self._host_state
         if tier == "hot":
-            return _copy_state(state, torch.device("cpu"),
-                               pin=self.device.type == "cuda")
+            pin = self.device.type == "cuda"
+            copies = tuple(_copy_state(st, torch.device("cpu"), pin=pin)
+                           for st in _shards(state))
+            return copies if self.sharded else copies[0]
         if tier == "warm":
             return host
         return self._read_cold_host()
 
-    def _read_cold_host(self) -> ivf.IVFState:
+    def _read_cold_host(self):
         """Load the COLD checkpoint back into host numpy arrays (no device
         allocation)."""
         if self._cold_dir is None:
@@ -265,20 +319,37 @@ class Collection:
                 "directory — demote(tier='cold') requires one")
         return self._read_host(self._cold_dir, self._cold_step)
 
-    def _read_host(self, directory: str, step: Optional[int]) -> ivf.IVFState:
-        """The state of checkpoint namespace `directory` as numpy arrays."""
+    def _restore(self, directory: str, step: Optional[int],
+                 device: DeviceLike = None) -> ivf.IVFState:
+        """One checkpoint namespace's state: numpy arrays, or tensors on
+        `device`."""
         from repro_torch.checkpoint.checkpointer import Checkpointer
         template = ivf.empty_host_state(self.cfg,
                                         self.spill_capacity)._asdict()
-        return ivf.IVFState(**Checkpointer(directory).restore(template,
-                                                              step=step))
+        return ivf.IVFState(**Checkpointer(directory).restore(
+            template, step=step, device=device))
+
+    def _read_host(self, directory: str, step: Optional[int],
+                   n_shards: Optional[int] = None):
+        """The state of checkpoint namespace `directory` as numpy arrays;
+        sharded, the list of its `n_shards` (default: this collection's)
+        ``shard_<i>`` namespaces."""
+        if not self.sharded:
+            return self._restore(directory, step)
+        return [self._restore(_shard_dir(directory, i), step)
+                for i in range(n_shards or self._n_shards)]
 
     def _write_host_state(self, directory: str, state, step: int) -> None:
-        """Write a state (host or device leaves) as a checkpoint namespace
-        in the reference's layout, as `save_into` does."""
+        """Write a state (host or device leaves) as checkpoint namespaces
+        in the reference's layout, as `save_into` does: one per shard when
+        sharded."""
         from repro_torch.checkpoint.checkpointer import Checkpointer
         os.makedirs(directory, exist_ok=True)
-        Checkpointer(directory).save(step, state._asdict())
+        if not self.sharded:
+            Checkpointer(directory).save(step, state._asdict())
+            return
+        for i, local in enumerate(state):
+            Checkpointer(_shard_dir(directory, i)).save(step, local._asdict())
 
     def demote(self, tier: str = "warm", *, directory: Optional[str] = None,
                step: int = 0) -> dict:
@@ -322,6 +393,8 @@ class Collection:
                 self._state = None
                 self._version += 1
                 self._epoch += 1    # obsoletes in-flight rebuild snapshots
+                for s in range(self._n_shards):
+                    self._shard_versions[s] += 1
             # the derived graph only serves the HOT tier; free it with the
             # device state (promote + next graph query rebuild it)
             self._graph_invalidate()
@@ -357,13 +430,18 @@ class Collection:
                     return {"tier": "hot", "promoted": False}
                 if tier == "cold":
                     host = _host_tensors(self._read_cold_host())
-                state = _copy_state(host, self.device)
+                if self.sharded:
+                    state = _to_mesh(host, self.mesh)
+                else:
+                    state = _copy_state(host, self.device)
                 with self._lock:
                     self._state = state
                     self._residency_tier = "hot"
                     self._host_state = None
                     self._last_used = time.monotonic()
                     self._version += 1
+                    for s in range(self._n_shards):
+                        self._shard_versions[s] += 1
         finally:
             if mgr is not None:
                 mgr.finish_admit(self)
@@ -426,8 +504,13 @@ class Collection:
         section after each acked write's state swap; it must be fast and
         may only take locks below the writer level (the shipping log's
         `_ship_lock`, 15).  Prefer `attach_shipper` when a consistent
-        bootstrap snapshot is needed.
+        bootstrap snapshot is needed.  A mesh-sharded collection does not
+        ship (ValueError), as `attach_shipper` refuses it in the reference.
         """
+        if self.sharded and hook is not None:
+            raise ValueError(
+                f"collection {self.name!r} is mesh-sharded; replication "
+                "shipping supports unsharded collections only")
         with self._lock:
             self._ship_hook = hook
 
@@ -440,8 +523,13 @@ class Collection:
         ``{"built", "rows", "ids", "key", "next_id"}``; rows/ids are the
         flat host slot arrays (ids < 0 = dead slots) when built, else None.
         ``"key"`` is what `_split` continues the random stream from — the
-        reference's PRNG key: ``{"seed", "n_draws"}``.
+        reference's PRNG key: ``{"seed", "n_draws"}``.  Sharded collections
+        don't ship (the per-shard delta log stays on the mesh); ValueError.
         """
+        if self.sharded:
+            raise ValueError(
+                f"collection {self.name!r} is mesh-sharded; replication "
+                "shipping supports unsharded collections only")
         with self._hot_writer():
             with self._lock:
                 self._ship_hook = hook
@@ -485,6 +573,10 @@ class Collection:
 
         Returns ``{"applied", "inserted", "spilled", "tombstoned"}``.
         """
+        if self.sharded:
+            raise ValueError(
+                f"collection {self.name!r} is mesh-sharded; apply_delta_batch "
+                "supports unsharded replicas only")
         if not ops:
             return {"applied": 0, "inserted": 0, "spilled": 0,
                     "tombstoned": 0}
@@ -545,15 +637,18 @@ class Collection:
         """Write this collection's namespace directory.  Reads a consistent
         snapshot under the writer lock; safe to call under live traffic.
 
-        The metadata records the residency tier, and a WARM/COLD collection
-        saves from its host copy / cold checkpoint without touching the
-        device."""
+        Unsharded: one Checkpointer step dir + `collection.json`.  Sharded:
+        one ``shard_<i>/`` namespace per shard plus the mesh axis names and
+        shape in the metadata, so `load_from` can check — or reshard — the
+        layout.  The metadata records the residency tier, and a WARM/COLD
+        collection saves from its host copy / cold checkpoint without
+        touching the device."""
         os.makedirs(directory, exist_ok=True)
         with self._writer_lock:
             with self._lock:
                 tier = self._residency_tier
                 state = self._state
-                # the keys and values of the reference's unsharded collection
+                # the keys and values of the reference's collection
                 meta = {"name": self.name, "next_id": self._next_id,
                         "counters": dict(self.counters),
                         "built": self._built,
@@ -569,6 +664,10 @@ class Collection:
             if self._nprobe_tuner is not None:
                 meta["tuners"] = {"nprobe": self._nprobe_tuner.to_dict(),
                                   "ef": self._ef_tuner.to_dict()}
+            if self.sharded:
+                meta["sharded"] = True
+                meta["mesh_axes"] = list(self.mesh.axis_names)
+                meta["mesh_shape"] = list(self.mesh.shape)
             # a HOT state goes to disk leaf by leaf from the device
             tree = state if tier == "hot" else self._host_view_locked()
             self._write_host_state(directory, tree, step)
@@ -576,21 +675,23 @@ class Collection:
 
     @classmethod
     def load_from(cls, directory: str, name: str, cfg: EngineConfig, *,
-                  step: Optional[int] = None, **kw) -> "Collection":
-        """Restore an unsharded collection from its namespace directory in
-        the tier it was saved in: HOT onto the device, WARM into host
-        memory, COLD as a pointer to the namespace (no array read until
-        the first query promotes it).  The snapshot's `store_dtype` wins
-        over `cfg`'s: the checkpoint carries (or lacks) the int8 store's
-        leaves."""
-        from repro_torch.checkpoint.checkpointer import Checkpointer
+                  step: Optional[int] = None, reshard: bool = False,
+                  **kw) -> "Collection":
+        """Restore a collection from its namespace directory in the tier it
+        was saved in: HOT onto the device, WARM into host memory, COLD as a
+        pointer to the namespace (no array read until the first query
+        promotes it).  The snapshot's `store_dtype` wins over `cfg`'s: the
+        checkpoint carries (or lacks) the int8 store's leaves.
+
+        Sharded snapshots need ``cfg.shard_db=True`` and a ``mesh=``.  A
+        mesh shape other than the saved one fails unless ``reshard=True``,
+        which re-packs the saved rows onto the new mesh against the saved
+        centroids (`distributed.reshard_host`) and loads HOT."""
         mpath = os.path.join(directory, META_FILE)
         meta = {}
         if os.path.exists(mpath):
             with open(mpath) as f:
                 meta = json.load(f)
-        if meta.get("sharded", False):
-            raise later_slice("loading a sharded snapshot", "the sharded tier")
         residency = meta.get("residency", "hot")
         spill_capacity = int(meta.get("spill_capacity", 4096))
         saved_dtype = meta.get("store_dtype")
@@ -598,44 +699,79 @@ class Collection:
             cfg = dataclasses.replace(cfg, store_dtype=saved_dtype)
         coll = cls(name, cfg, spill_capacity=spill_capacity,
                    _alloc_state=False, **kw)
+        if bool(meta.get("sharded", False)) != coll.sharded:
+            saved = "sharded" if meta.get("sharded") else "unsharded"
+            raise ValueError(
+                f"collection {name!r} was saved {saved} (mesh "
+                f"{meta.get('mesh_shape')}); load it with a matching "
+                "EngineConfig.shard_db and, when sharded, a mesh= kwarg")
+        n_saved, resharded = coll._n_shards, False
+        if coll.sharded:
+            saved_shape = [int(v) for v in meta["mesh_shape"]]
+            cur_shape = list(coll.mesh.shape)
+            n_saved = int(np.prod(saved_shape))
+            if cur_shape != saved_shape and not reshard:
+                raise ValueError(
+                    f"collection {name!r} was saved on mesh "
+                    f"{dict(zip(meta['mesh_axes'], saved_shape))} but is "
+                    f"being loaded on mesh shape {cur_shape}; pass "
+                    "reshard=True to re-pack the rows onto the new mesh")
+            if cur_shape != saved_shape:
+                # the re-packed state exists only on the device: HOT
+                resharded, residency = True, "hot"
         state = None
         if residency == "cold":
             with coll._lock:
                 coll._cold_dir = directory
                 coll._cold_step = step
                 coll._residency_tier = "cold"
+        elif resharded:
+            state = dce.reshard_host(coll._read_host(directory, step, n_saved),
+                                     cfg, coll.mesh, spill_capacity)
         elif residency == "warm":
             state = _host_tensors(coll._read_host(directory, step))
             if coll.device.type == "cuda":
-                state = _copy_state(state, state.device, pin=True)
+                state = tuple(_copy_state(st, st.device, pin=True)
+                              for st in _shards(state))
+                state = state if coll.sharded else state[0]
             with coll._lock:
                 coll._host_state = state
                 coll._residency_tier = "warm"
+        elif coll.sharded:
+            state = dce.share_centroids([
+                coll._restore(_shard_dir(directory, i), step, dev)
+                for i, dev in enumerate(coll.mesh.devices)])
         else:
-            template = ivf.empty_host_state(cfg, spill_capacity)._asdict()
-            state = ivf.IVFState(**Checkpointer(directory).restore(
-                template, step=step, device=coll.device))
+            state = coll._restore(directory, step, coll.device)
+        if residency == "hot":
             with coll._lock:
                 coll._state = state
-        floors = meta.get("spill_floors") or [0]
-        press = meta.get("pressure")
+        n = coll._n_shards
+        floors = ([0] * n if resharded
+                  else meta.get("spill_floors")
+                  or [int(meta.get("spill_floor", 0))])
+        press = None if resharded else meta.get("pressure")
         if press is not None:
-            p0 = press[0] if press else {}
-            press = [{"tombstones": int(p0.get("tombstones", 0)),
-                      "spilled": int(p0.get("spilled", 0))}]
+            press = [{"tombstones": int(p.get("tombstones", 0)),
+                      "spilled": int(p.get("spilled", 0))} for p in press]
         elif state is not None:
-            # snapshots without host counters were always saved HOT
-            press = [{"tombstones": int(state.num_deleted),
-                      "spilled": int(state.spill_size)}]
+            # snapshots without host counters were always saved HOT; a
+            # resharded state starts from its own counters
+            press = [{"tombstones": int(t.num_deleted),
+                      "spilled": int(t.spill_size)} for t in _shards(state)]
         else:
-            press = [{"tombstones": 0, "spilled": 0}]
+            press = []
+        press = press[:n] + [{"tombstones": 0, "spilled": 0}
+                             for _ in range(n - len(press[:n]))]
+        floors = [int(f) for f in floors][:n]
+        floors += [0] * (n - len(floors))
         with coll._lock:
             coll._built = bool(meta.get("built", True))
             coll._next_id = int(meta.get("next_id", 0))
             coll.counters.update(meta.get("counters", {}))
             coll._approx_live = int(meta.get("approx_live", 0))
             coll._shard_pressure = press
-            coll._spill_floors = [int(floors[0])]
+            coll._spill_floors = floors
             coll._probe_seq = int(meta.get("probe_seq", 0))
         # restore learned tuner knobs under the CALLER's target_recall (the
         # cfg wins over the snapshot's target, but the knob/floor survive)
@@ -674,15 +810,26 @@ class Collection:
         with self._lock:
             return self._state, self._version
 
-    def _swap(self, state: ivf.IVFState, **counter_deltas) -> int:
+    def shard_versions(self) -> List[int]:
+        """Per-shard version counters (length `n_shards`).  A shard-local
+        rebuild bumps only its own shard's entry; writes that touch every
+        shard (build / insert / delete) bump all of them."""
+        with self._lock:
+            return list(self._shard_versions)
+
+    def _swap(self, state, shards: Optional[Tuple[int, ...]] = None,
+              **counter_deltas) -> int:
         """Atomically publish a new state (the collection is HOT after it);
-        returns the new version."""
+        returns the new version.  `shards` limits which per-shard version
+        counters bump (None = all)."""
         with self._lock:
             self._state = state
             self._residency_tier = "hot"
             self._host_state = None
             self._last_used = time.monotonic()
             self._version += 1
+            for s in (range(self._n_shards) if shards is None else shards):
+                self._shard_versions[s] += 1
             for key, d in counter_deltas.items():
                 self.counters[key] += d
                 self._probe_ops += d    # recall-probe cadence counter
@@ -728,25 +875,55 @@ class Collection:
                 self._probe_ops += d    # recall-probe cadence counter
 
     def _log_delta(self, kind: str, rows, ids) -> None:
-        """Record a write for an in-flight rebuild.  Caller holds
-        `_writer_lock`, so log order == state application order."""
+        """Record a write for every shard with an in-flight rebuild.  Caller
+        holds `_writer_lock`, so log order == state application order.
+
+        Inserts are logged as the *shard-local* row block (`dist_insert`
+        routes shard s rows [s*B/S, (s+1)*B/S)), so a replay onto a rebuilt
+        shard re-applies exactly the rows that landed there.  Deletes are
+        logged whole.  The slicing runs outside `_lock`: the writer lock
+        (held by our caller) is what installs and retires the logs."""
         with self._lock:
-            log = self._delta_logs[0]
-            if log is None:
-                return
-            if len(log) >= self.delta_log_capacity:
-                self._delta_overflow[0] = True
+            active = [s for s, log in enumerate(self._delta_logs)
+                      if log is not None]
+        if not active:
+            return
+        entries = {}
+        for s in active:
+            if kind == "insert" and self._n_shards > 1:
+                b = rows.shape[0] // self._n_shards
+                entries[s] = ivf.DeltaOp("insert", rows[s * b:(s + 1) * b],
+                                         ids[s * b:(s + 1) * b])
             else:
-                log.append(ivf.DeltaOp(kind, rows, ids))
+                entries[s] = ivf.DeltaOp(kind, rows, ids)
+        with self._lock:
+            for s, op in entries.items():
+                log = self._delta_logs[s]
+                if log is None:
+                    continue
+                if len(log) >= self.delta_log_capacity:
+                    self._delta_overflow[s] = True
+                else:
+                    log.append(op)
 
     # ------------------------------------------------------------------
     # Raw ops (paper templates); the service routes these via the scheduler.
     # ------------------------------------------------------------------
+    def _check_shardable(self, kind: str, n: int) -> None:
+        """Sharded build/insert route rows block-wise over the mesh, which
+        needs the batch to divide evenly."""
+        if self.sharded and n % self._n_shards:
+            raise ValueError(
+                f"collection {self.name!r}: {kind} batch of {n} rows does "
+                f"not divide over the {self._n_shards}-shard mesh; pad the "
+                f"batch to a multiple of {self._n_shards}")
+
     def build(self, vectors, ids=None) -> dict:
         """Bulk build (paper 'index template').  Blocks until the index is
         live (device compute synced before return).  Runs under the writer
         lock; queries keep reading the old snapshot throughout."""
         x = self._rows(vectors)
+        self._check_shardable("build", int(x.shape[0]))
         src = (vectors, ids)
         ids = self._ids_for(x.shape[0], ids)
         t0 = time.perf_counter()
@@ -764,15 +941,23 @@ class Collection:
 
     def _build_admitted(self, x, ids, t0, src=(None, None)) -> dict:
         with self._writer_lock:
-            # analyze: ok(LO002) ivf.build is the index module (takes no locks), not Collection.build
-            state, spilled = ivf.build(self._split(), x, ids, self.cfg,
-                                       spill_capacity=self.spill_capacity)
-            spilled = int(spilled)      # sync: compute done before publish
+            if self.sharded:
+                state, spilled = dce.dist_build(
+                    self._split(), x, ids, self.cfg, self.mesh,
+                    spill_capacity_per_shard=self.spill_capacity)
+            else:
+                # analyze: ok(LO002) ivf.build is the index module (takes no locks), not Collection.build
+                state, spilled = ivf.build(self._split(), x, ids, self.cfg,
+                                           spill_capacity=self.spill_capacity)
+            # sync: compute done before publish
+            per_shard = [int(v) for v in spilled.reshape(-1).tolist()]
+            spilled = sum(per_shard)
             with self._lock:
                 self._built = True
                 self._epoch += 1        # obsoletes in-flight rebuild snapshots
-                self._shard_pressure = [{"tombstones": 0, "spilled": spilled}]
-                self._spill_floors = [spilled]
+                self._shard_pressure = [{"tombstones": 0, "spilled": sp}
+                                        for sp in per_shard]
+                self._spill_floors = list(per_shard)
                 self._approx_live = int(x.shape[0])
                 # a fresh index deserves a prompt recall measurement
                 self._probe_ops = self.thresholds.probe_interval_ops
@@ -795,13 +980,22 @@ class Collection:
                                "inserting")
         x = self._rows(vectors)
         n = int(x.shape[0])
+        self._check_shardable("insert", n)
         src = (vectors, ids)
         ids = self._ids_for(n, ids)
         with self._hot_writer():
-            state, spilled = ivf.insert_shared(self._state, x, ids, self.cfg)
-            spilled = int(spilled)      # sync: compute done before publish
+            if self.sharded:
+                state, spilled = dce.dist_insert(self._state, x, ids,
+                                                 self.cfg, self.mesh)
+            else:
+                state, spilled = ivf.insert_shared(self._state, x, ids,
+                                                   self.cfg)
+            # sync: compute done before publish
+            per_shard = [int(v) for v in spilled.reshape(-1).tolist()]
+            spilled = sum(per_shard)
             with self._lock:
-                self._shard_pressure[0]["spilled"] += spilled
+                for s, sp in enumerate(per_shard):
+                    self._shard_pressure[s]["spilled"] += sp
                 self._approx_live += n
             self._swap(state, inserts=n, spilled=spilled)
             self._log_delta("insert", x, ids)
@@ -817,10 +1011,18 @@ class Collection:
         are visible to new queries."""
         src, ids = ids, as_tensor(ids, torch.int32, self.device).reshape(-1)
         with self._hot_writer():
-            state, n_hit = ivf.delete_shared(self._state, ids)
-            n_hit = int(n_hit)          # sync: compute done before publish
+            if self.sharded:
+                # shard-local tombstoning; per-shard hits feed per-shard
+                # maintenance pressure
+                state, hits = dce.dist_delete(self._state, ids, self.mesh)
+            else:
+                state, hits = ivf.delete_shared(self._state, ids)
+            # sync: compute done before publish
+            per_shard = [int(v) for v in hits.reshape(-1).tolist()]
+            n_hit = sum(per_shard)
             with self._lock:
-                self._shard_pressure[0]["tombstones"] += n_hit
+                for s, n in enumerate(per_shard):
+                    self._shard_pressure[s]["tombstones"] += n
                 self._approx_live = max(0, self._approx_live - n_hit)
             self._swap(state, deletes=n_hit)
             self._log_delta("delete", None, ids)
@@ -846,7 +1048,10 @@ class Collection:
         k, nprobe, path = self.resolve_query(q.shape[0], k, nprobe, path)
         state = self._query_state()
         self._bump(queries=int(q.shape[0]))
-        if path == "full_scan":
+        if self.sharded:
+            # the sharded tier always full-scans each shard + the merge
+            ids, scores = dce.dist_query(state, q, self.cfg, self.mesh, k)
+        elif path == "full_scan":
             ids, scores = ivf.query_full_scan(state, q, self.cfg, k)
         elif path == "probed":
             ids, scores = ivf.query_probed(state, q, self.cfg, k, nprobe)
@@ -869,12 +1074,34 @@ class Collection:
         from a fresh snapshot; the final attempt holds the writer lock for
         the whole recompute.  If a bulk `build()` lands mid-rebuild the
         snapshot is obsolete and the rebuild aborts.
+
+        On a sharded collection `shard` selects ONE shard to compact
+        shard-locally (reassign its live rows against the replicated
+        centroids, repack, drain its spill); sibling shards' states and
+        versions are untouched.  `shard=None` sweeps every shard in turn.
+        On an unsharded collection `shard` must be None or 0 and the
+        rebuild is the full re-cluster (`ivf.rebuild`).
         """
-        if shard not in (None, 0):
-            raise ValueError(
-                f"collection {self.name!r} is unsharded; rebuild(shard="
-                f"{shard}) is only meaningful with shard_db=True")
-        return self._rebuild_single(max_restarts)
+        if not self.sharded:
+            if shard not in (None, 0):
+                raise ValueError(
+                    f"collection {self.name!r} is unsharded; rebuild(shard="
+                    f"{shard}) is only meaningful with shard_db=True")
+            return self._rebuild_single(max_restarts)
+        if shard is None:
+            out = {"rebuild_s": 0.0, "spilled": 0, "replayed": 0,
+                   "restarts": 0, "aborted": False, "shards": []}
+            for s in range(self._n_shards):
+                r = self._rebuild_shard(s, max_restarts)
+                for key in ("rebuild_s", "spilled", "replayed", "restarts"):
+                    out[key] += r[key]
+                out["aborted"] = out["aborted"] or r["aborted"]
+                out["shards"].append(s)
+            return out
+        if not 0 <= shard < self._n_shards:
+            raise ValueError(f"collection {self.name!r} has shards "
+                             f"0..{self._n_shards - 1}; got shard={shard}")
+        return self._rebuild_shard(shard, max_restarts)
 
     def _rebuild_single(self, max_restarts: int) -> dict:
         """Unsharded delta-replay rebuild (full re-cluster)."""
@@ -951,6 +1178,179 @@ class Collection:
                 finally:
                     self._writer_lock.release()
 
+    def _rebuild_shard(self, shard: int, max_restarts: int) -> dict:
+        """Shard-local delta-replay rebuild of one mesh shard.
+
+        `_rebuild_single`'s protocol with two twists: the recompute is
+        `dist_rebuild` (compaction of shard `shard` only), and the publish
+        step *adopts* the rebuilt shard into the CURRENT live state (as
+        `dist_adopt_shard` does), so sibling-shard writes that landed
+        during the off-lock recompute are kept without replay — only this
+        shard's logged ops replay onto it.  The recompute
+        (`dce.compact_shard`, `dist_rebuild`'s per-shard step) holds only
+        this shard's snapshot: the siblings' old states are freed as
+        concurrent writes replace them.
+        """
+        t0 = time.perf_counter()
+        with self._rebuild_locks[shard]:
+            restarts = 0
+            while True:
+                exclusive = restarts >= max_restarts
+                self._acquire_writer_hot()
+                snap = self._state[shard]
+                epoch = self._epoch
+                if not exclusive:
+                    with self._lock:
+                        self._delta_logs[shard] = []
+                        self._delta_overflow[shard] = False
+                    self._writer_lock.release()
+                try:
+                    rebuilt, sp = dce.compact_shard(snap, self.cfg)
+                    del snap
+                    spilled = int(sp)   # sync: the recompute is done
+                except BaseException:
+                    if not exclusive:
+                        self._writer_lock.acquire()
+                    try:
+                        with self._lock:
+                            self._delta_logs[shard] = None
+                            self._delta_overflow[shard] = False
+                    finally:
+                        self._writer_lock.release()
+                    raise
+                if not exclusive:
+                    self._writer_lock.acquire()
+                try:
+                    with self._lock:
+                        log = self._delta_logs[shard] or []
+                        overflow = self._delta_overflow[shard]
+                        self._delta_logs[shard] = None
+                        self._delta_overflow[shard] = False
+                    if self._epoch != epoch:
+                        return {"rebuild_s": time.perf_counter() - t0,
+                                "spilled": 0, "replayed": 0,
+                                "restarts": restarts, "aborted": True,
+                                "shard": shard}
+                    if overflow:
+                        restarts += 1
+                        continue
+                    # siblings keep their LIVE states (concurrent writes
+                    # already applied there); only this shard swaps in the
+                    # rebuilt state and replays its log
+                    cur = self._state
+                    merged = cur[:shard] + (rebuilt,) + cur[shard + 1:]
+                    replayed = sum(int(op.ids.shape[0]) for op in log)
+                    extra = tombstoned = 0
+                    if log:
+                        merged, extra, tombstoned = dce.dist_replay(
+                            merged, log, shard, self.cfg, self.mesh)
+                    # Spill rebalance: rows this rebuild could not drain
+                    # move to an underfull sibling's spill buffer, whose
+                    # spill pressure rises accordingly, so its next rebuild
+                    # drains them into free list slots.
+                    moved, moved_to = 0, None
+                    if spilled + extra > 0:
+                        merged, moved, moved_to = self._rebalance_spill(
+                            merged, shard)
+                    with self._lock:
+                        self._shard_pressure[shard] = {
+                            "tombstones": tombstoned,
+                            "spilled": max(spilled + extra - moved, 0)}
+                        self._spill_floors[shard] = max(spilled - moved, 0)
+                        if moved_to is not None:
+                            self._shard_pressure[moved_to]["spilled"] += moved
+                    spilled += extra
+                    bump = (shard,) if moved_to is None else (shard, moved_to)
+                    self._swap(merged, shards=bump, rebuilds=1)
+                    return {"rebuild_s": time.perf_counter() - t0,
+                            "spilled": spilled, "replayed": replayed,
+                            "restarts": restarts, "aborted": False,
+                            "shard": shard, "rebalanced": moved,
+                            "rebalance_to": moved_to}
+                finally:
+                    self._writer_lock.release()
+
+    def _rebalance_spill(self, state, src: int):
+        """Move shard `src`'s live spill rows to an underfull sibling.
+
+        The destination is the sibling with the most free list slots among
+        those with spill room; rows move with their per-row int8 sideband,
+        and `src`'s spill buffer is compacted (its tombstoned spill slots
+        vanish, so `num_deleted` drops by their count).  Only the two
+        shards' spill fields are rewritten, on their devices, into new
+        tensors: the published siblings are never written.
+
+        Caller holds the writer lock.  A sibling whose own rebuild is
+        mid-recompute (`_rebuild_locks[j]` held) is skipped: its publish
+        adopts a state computed from a pre-move snapshot and would drop the
+        rows moved into it.
+
+        Returns (new_state, moved_rows, dst_shard) — (state, 0, None) when
+        there is nothing to move or nowhere to put it.
+        """
+        if self._n_shards < 2:
+            return state, 0, None
+        s = state[src]
+        cap = int(s.spill_ids.shape[0])
+        n_src = int(s.spill_size)
+        live = (s.spill_ids[:n_src] >= 0).nonzero().squeeze(1)
+        if live.numel() == 0:
+            return state, 0, None
+        dst, dst_key = None, None
+        for j, t in enumerate(state):
+            if j == src or self._rebuild_locks[j].locked():
+                continue
+            free_spill = cap - int(t.spill_size)
+            if free_spill <= 0:
+                continue
+            free_lists = t.list_ids.numel() - int(t.list_sizes.sum())
+            key = (free_lists, free_spill)
+            if dst is None or key > dst_key:
+                dst, dst_key = j, key
+        if dst is None:
+            return state, 0, None
+        d = state[dst]
+        n_dst = int(d.spill_size)
+        m = int(min(live.numel(), cap - n_dst))
+        take, keep = live[:m], live[m:]
+        dead = n_src - live.numel()     # tombstoned spill slots compacted
+
+        def pack_src(a, fill=0):
+            out = torch.full_like(a, fill)
+            out[:keep.numel()] = a[keep]
+            return out
+
+        def grow_dst(a, moved):
+            a = a.clone()
+            a[n_dst:n_dst + m] = moved.to(a.device)
+            return a
+
+        def scalar(v, like):
+            return torch.tensor(v, dtype=torch.int32, device=like.device)
+
+        s_new = s._replace(
+            spill=pack_src(s.spill), spill_ids=pack_src(s.spill_ids, -1),
+            spill_size=scalar(keep.numel(), s.spill_size),
+            num_deleted=scalar(int(s.num_deleted) - dead, s.num_deleted))
+        d_new = d._replace(
+            spill=grow_dst(d.spill, s.spill[take]),
+            spill_ids=grow_dst(d.spill_ids, s.spill_ids[take]),
+            spill_size=scalar(n_dst + m, d.spill_size))
+        if s.q_spill is not None:
+            # the per-row affine sideband rides along with its rows
+            s_new = s_new._replace(
+                q_spill=pack_src(s.q_spill),
+                q_spill_scales=pack_src(s.q_spill_scales, 1.0),
+                q_spill_zeros=pack_src(s.q_spill_zeros),
+                q_spill_norms=pack_src(s.q_spill_norms))
+            d_new = d_new._replace(**{
+                f: grow_dst(getattr(d, f), getattr(s, f)[take])
+                for f in ("q_spill", "q_spill_scales", "q_spill_zeros",
+                          "q_spill_norms")})
+        out = list(state)
+        out[src], out[dst] = s_new, d_new
+        return tuple(out), m, dst
+
     # ------------------------------------------------------------------
     # Maintenance pressure (consumed by the service's MaintenanceController)
     # ------------------------------------------------------------------
@@ -966,13 +1366,17 @@ class Collection:
                 "shards": shards}
 
     def _maintenance_limits(self) -> Tuple[int, int]:
-        """(tombstone, spill) rebuild trigger limits."""
+        """Per-shard (tombstone, spill) rebuild trigger limits: each shard
+        owns `cfg.capacity` list slots and `spill_capacity` spill slots; the
+        shard-local pending floor applies only when actually sharded."""
         return self.thresholds.maintenance_limits(self.cfg.capacity,
                                                   self.spill_capacity,
-                                                  per_shard=False)
+                                                  per_shard=self.sharded)
 
     def maintenance_due_shards(self) -> List[int]:
-        """`[0]` when the tombstone/spill pressure crosses the thresholds."""
+        """Shard ids whose tombstone/spill pressure crosses the thresholds —
+        each worth an independent shard-local rebuild (`[0]` when an
+        unsharded collection is due)."""
         if not self._built or self.residency != "hot":
             # a demoted collection has no device state to compact; promoting
             # it just to rebuild would fight the eviction policy — pressure
@@ -1001,11 +1405,15 @@ class Collection:
 
         "auto" follows the host-side live-row estimate across the template
         thresholds: <= `flat_max_rows` -> "flat" (exact full scan),
-        >= `hnsw_min_rows` -> "hnsw" (derived graph), else "ivf".
+        >= `hnsw_min_rows` -> "hnsw" (derived graph), else "ivf".  Sharded
+        collections always resolve to "ivf": the mesh tier serves exact
+        per-shard scans with a merge.
         """
         pol = self.cfg.index_policy
         if pol != "auto":
             return pol
+        if self.sharded:
+            return "ivf"
         with self._lock:
             n = self._approx_live
         if n <= self.thresholds.flat_max_rows:
@@ -1137,16 +1545,25 @@ class Collection:
             self._probe_ops = 0
             seq = self._probe_seq
             self._probe_seq += 1
-        # the flat view of the snapshot (list tier, then spill) is the
-        # oracle's ground truth, in the reference's slot order
-        rows, ids = ivf._flat_rows(state)
-        live = np.nonzero(ids.cpu().numpy() >= 0)[0]
+        # the flat view of the snapshot (list tier, then spill; sharded:
+        # shard after shard) is the oracle's ground truth, in the
+        # reference's slot order.  A sharded snapshot's rows are read one
+        # shard at a time; only its ids are gathered whole.
+        if self.sharded:
+            flat_ids = [ivf._flat_ids(st) for st in state]
+            ids_host = np.concatenate([f.cpu().numpy() for f in flat_ids])
+        else:
+            rows, ids = ivf._flat_rows(state)
+            ids_host = ids.cpu().numpy()
+        live = np.nonzero(ids_host >= 0)[0]
         # Probe the path the policy serves steady traffic with — NOT the
         # batch router's choice for the probe's own batch size: a
         # probe_sample-row batch would route to the exact full scan and the
         # nprobe tuner would never observe the probed path it owns.
         pol = self.index_policy()
-        if pol == "flat":
+        if self.sharded:
+            path, nprobe = "sharded", 0
+        elif pol == "flat":
             path, nprobe = "full_scan", 0
         elif pol == "hnsw":
             path, nprobe = "hnsw", 0
@@ -1162,12 +1579,21 @@ class Collection:
         rng = np.random.default_rng(
             (zlib.crc32(self.name.encode()) + seq) & 0x7FFFFFFF)
         sel = rng.choice(live, size=min(sample, len(live)), replace=False)
-        qs = rows[torch.from_numpy(sel).to(rows.device)]
-        true = metrics.brute_force_topk(qs, rows, ids, k, self.cfg.metric,
-                                        device=rows.device)
-        del rows, ids        # free the flat copy before the served path
+        if self.sharded:
+            qs = self._sharded_flat_rows(state, flat_ids, sel)
+            true = metrics.brute_force_topk_parts(
+                qs, (ivf._flat_rows(st) for st in state), k,
+                self.cfg.metric, device=self.device)
+        else:
+            qs = rows[torch.from_numpy(sel).to(rows.device)]
+            true = metrics.brute_force_topk(qs, rows, ids, k,
+                                            self.cfg.metric,
+                                            device=rows.device)
+            del rows, ids    # free the flat copy before the served path
         tuner = None
-        if path == "full_scan":
+        if self.sharded:
+            got, _ = dce.dist_query(state, qs, self.cfg, self.mesh, k)
+        elif path == "full_scan":
             got, _ = ivf.query_full_scan(state, qs, self.cfg, k)
         elif path == "hnsw":
             tuner = self._ef_tuner
@@ -1183,6 +1609,22 @@ class Collection:
             out.update(knob=after, retuned=after != before)
         with self._lock:
             self._last_probe = out
+        return out
+
+    def _sharded_flat_rows(self, state, flat_ids, sel: np.ndarray
+                           ) -> torch.Tensor:
+        """Rows f32[len(sel), D] on shard 0's device at positions `sel` of
+        the shards' concatenated flat views (`flat_ids` per shard)."""
+        offs = np.cumsum([0] + [int(f.numel()) for f in flat_ids])
+        shard_of = np.searchsorted(offs, sel, side="right") - 1
+        out = torch.empty((len(sel), self.cfg.dim), dtype=torch.float32,
+                          device=self.device)
+        for s, st in enumerate(state):
+            pos = np.nonzero(shard_of == s)[0]
+            if len(pos):
+                local = torch.from_numpy(sel[pos] - offs[s]).to(st.device)
+                out[torch.from_numpy(pos).to(self.device)] = \
+                    ivf._gather_flat_rows(st, local).to(self.device)
         return out
 
     # ------------------------------------------------------------------
@@ -1213,7 +1655,7 @@ class Collection:
             policy = self.index_policy()
             if policy == "flat":
                 path = "full_scan"
-            elif policy == "hnsw":
+            elif policy == "hnsw" and not self.sharded:
                 path = "hnsw"
             else:
                 path = templates.route("query", batch, self.cfg,
@@ -1230,11 +1672,12 @@ class Collection:
         the reference: `cfg` pins the state shapes, `spill_capacity` the
         spill block, the resolved `(k, nprobe, path)` triple the templates,
         and the store policy is explicit so int8 and f32 lanes never fuse.
-        The mesh element is None (the port's collections are unsharded).
+        The mesh is None for an unsharded collection; sharded lanes fuse
+        only with lanes on an equal mesh (same devices and shape).
         """
         k, nprobe, path = self.resolve_query(batch, k, nprobe, path)
-        return (self.cfg, self.cfg.store_dtype, self.spill_capacity, None, k,
-                nprobe, path)
+        return (self.cfg, self.cfg.store_dtype, self.spill_capacity,
+                self.mesh if self.sharded else None, k, nprobe, path)
 
     def stats(self) -> dict:
         """Counters + index occupancy snapshot.  Syncs device scalars —
@@ -1245,8 +1688,22 @@ class Collection:
             host = self._host_state
             counters = dict(self.counters)
             version = self._version
+            shard_versions = list(self._shard_versions)
             pressure = [dict(p) for p in self._shard_pressure]
-        if tier == "hot":
+        if tier == "hot" and self.sharded:
+            # the reference's keys for its global state: list_capacity is
+            # the global slot axis (L * S); index_bytes counts each tensor
+            # once (the shards on a device share their centroids)
+            leaves = {(t.device, t.data_ptr()): t.numel() * t.element_size()
+                      for st in state for t in st if t is not None}
+            s = {"n_clusters": state[0].n_clusters, "dim": state[0].dim,
+                 "list_capacity": state[0].list_capacity * self._n_shards,
+                 "live": sum(int(ivf.live_count(st)) for st in state),
+                 "spill": sum(int(st.spill_size) for st in state),
+                 "deleted": sum(int(st.num_deleted) for st in state),
+                 **ivf.footprint(state[0]),
+                 "index_bytes": sum(leaves.values())}
+        elif tier == "hot":
             s = ivf.stats(state)
         else:
             # no device state to sync; sizes are static, occupancy comes
@@ -1260,9 +1717,12 @@ class Collection:
                      1 if self.cfg.quantized else 4),
                  "store_dtype": self.cfg.store_dtype}
             if host is not None:
-                s["live"] = int(ivf.live_count(host))
-                s["spill"] = int(host.spill_size)
-                s["deleted"] = int(host.num_deleted)
+                s["live"] = sum(int(ivf.live_count(t)) for t in _shards(host))
+                s["spill"] = sum(int(t.spill_size) for t in _shards(host))
+                s["deleted"] = sum(int(t.num_deleted) for t in _shards(host))
+        if self.sharded:
+            s["shards"] = self._n_shards
+            s["shard_versions"] = shard_versions
         s.update(counters)
         s["version"] = version
         s["residency"] = tier

@@ -1,5 +1,5 @@
 """MemoryService — the multi-tenant agentic-memory front door; port of
-``src/repro/api/service.py`` for unsharded collections on one device.
+``src/repro/api/service.py``.
 
 Owns named `Collection`s and one `WindowedScheduler`.  Every operation —
 build, insert, delete, query, rebuild — lowers to a `MemoryOp`, is routed
@@ -19,7 +19,10 @@ Cross-collection batching: queries submitted with ``batch=True`` park in
 a pending window; `flush` groups them by `Collection.batch_signature` and
 runs each multi-lane group as one lane-batched dispatch
 (`repro_torch.api.batch`), where every scan is one launch of a scan kernel
-with a lane axis.  `query_many` is the batched entry point.
+with a lane axis — mesh-sharded tenants included: same-signature sharded
+lanes stack per shard and run as one dispatch
+(`distributed.dist_fused_query_stacked`).  `query_many` is the batched
+entry point.
 
 Residency: a `ResidencyManager` (`repro_torch.api.residency`) keeps every
 collection in one tier — HOT on the device, WARM in host memory, COLD on
@@ -29,8 +32,9 @@ the maintenance poll demotes idle tenants.
 
 Persistence: `save`/`load` write and read one namespace directory per
 collection under ``collections/`` plus a ``service.json`` registry, in the
-reference's layout, each collection in its tier.  Sharded collections are
-a later slice of the port and raise NotImplementedError.
+reference's layout, each collection in its tier.  Sharded collections
+write one ``shard_<i>`` namespace per shard; `load(..., mesh=...)` restores
+them (``reshard=True`` onto another mesh shape).
 """
 from __future__ import annotations
 
@@ -46,8 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.api import batch as fuse
-from repro_torch.api.collection import Collection, atomic_write_json, \
-    later_slice
+from repro_torch.api.collection import Collection, atomic_write_json
 from repro_torch.api.ops import MemoryOp, OpFuture
 from repro_torch.api.residency import ResidencyManager
 from repro_torch.configs.base import EngineConfig
@@ -66,8 +69,10 @@ class MaintenanceController:
 
     A daemon thread polls every collection's `maintenance_due_shards()`
     (pure host counters — no device sync) and schedules at most one
-    in-flight rebuild per collection through the service's scheduler, on
-    the background backend class the rebuild template routes to, schedules
+    in-flight rebuild per (collection, shard) through the service's
+    scheduler, on the background backend class the rebuild template routes
+    to (on a mesh-sharded collection each due shard gets its own
+    shard-local rebuild op), schedules
     at most one in-flight recall probe per collection whose cadence is
     due, and demotes the tenants the residency manager names (idle, or
     over the device budget) as ordinary demote ops.  Queries
@@ -84,9 +89,10 @@ class MaintenanceController:
         self.failure_backoff_s = failure_backoff_s
         self._stop = threading.Event()
         self._lock = locking.make_lock("_lock")
-        # keyed by (collection, slot): the slot of an unsharded rebuild is
-        # None, a recall probe's "probe", a residency demotion's
-        # "demote:<tier>" — each slot has at most one op in flight
+        # keyed by (collection, slot): the slot of a rebuild is its shard
+        # (None for unsharded tenants), a recall probe's "probe", a
+        # residency demotion's "demote:<tier>" — each slot has at most one
+        # op in flight
         self._inflight: Dict[Tuple[str, object], Optional[OpFuture]] = {}
         # persistent rebuild failures must not re-submit every poll
         self._backoff_until: Dict[Tuple[str, object], float] = {}
@@ -166,8 +172,10 @@ class MaintenanceController:
                 coll = self._service.collection(name)
             except KeyError:
                 continue                  # dropped between list and poll
-            for _shard in coll.maintenance_due_shards():
-                if self._try_submit((name, None), MemoryOp("rebuild", name)):
+            for shard in coll.maintenance_due_shards():
+                key = (name, shard if coll.sharded else None)
+                if self._try_submit(key, MemoryOp("rebuild", name,
+                                                  shard=key[1])):
                     with self._lock:
                         self.triggered += 1
                     n += 1
@@ -198,7 +206,11 @@ class MaintenanceController:
     @staticmethod
     def _slot_name(key: Tuple[str, object]) -> str:
         name, slot = key
-        return name if slot is None else f"{name}[{slot}]"
+        if slot is None:
+            return name
+        if isinstance(slot, str):         # "probe" / "demote:<tier>"
+            return f"{name}[{slot}]"
+        return f"{name}[shard {slot}]"
 
     def stats(self) -> dict:
         with self._lock:
@@ -409,9 +421,10 @@ class MemoryService:
 
         Drains the pending window (ops submitted with ``batch=True``) and
         groups it by execution signature (`Collection.batch_signature`:
-        cfg shapes, store policy, spill capacity and the resolved
-        `(k, nprobe, path)` triple).  A mixed window therefore splits into
-        independent groups, and each multi-op group becomes ONE scheduler
+        cfg shapes, store policy, spill capacity, mesh — None for unsharded
+        tenants — and the resolved `(k, nprobe, path)` triple).  A mixed
+        window therefore splits into independent groups (unsharded, one
+        per mesh, singletons), and each multi-op group becomes ONE scheduler
         task running one lane-batched dispatch (`repro_torch.api.batch`).
         A group with a single op has nothing to stack and takes the
         ordinary per-op path.  Returns the number of dispatches submitted
@@ -452,7 +465,7 @@ class MemoryService:
 
         n = 0
         for sig, ops in groups.items():
-            cfg, _dtype, _spill, _mesh, k, nprobe, path = sig
+            cfg, _dtype, _spill, mesh, k, nprobe, path = sig
             hot, demoted = [], []
             for op, fut in ops:
                 try:
@@ -477,7 +490,7 @@ class MemoryService:
                     op, fut = hot[0]
                     self._submit_single_query(op, fut, k, nprobe, path)
                 else:
-                    self._submit_fused(hot, cfg, k, nprobe, path)
+                    self._submit_fused(hot, cfg, k, nprobe, path, mesh=mesh)
                 n += 1
             except BaseException as e:    # noqa: BLE001 — e.g. a concurrent
                 for _, fut in hot:        # drop_collection; never strand a
@@ -510,13 +523,15 @@ class MemoryService:
 
     def _submit_fused(self, ops: List[Tuple[MemoryOp, OpFuture]],
                       cfg: EngineConfig, k: int, nprobe: int,
-                      path: str) -> None:
+                      path: str, mesh=None) -> None:
         """Submit one same-signature group as ONE fused scheduler task.
 
         Lane assembly: one lane per distinct collection; several ops
         against the same collection concatenate into its lane and demux by
         row span, so a group degenerates gracefully to G = 1 (one lane,
-        one stacked state — still a single dispatch).
+        one stacked state — still a single dispatch).  `mesh` comes from
+        the group's batch signature: None stacks unsharded lanes, a
+        `ShardMesh` stacks the lanes' shard-local states per shard.
 
         The task routes through `templates.route(..., fused_lanes=G)` —
         fused dispatches are throughput-class regardless of per-lane batch.
@@ -568,7 +583,7 @@ class MemoryService:
                         self._residency.ensure_hot(c)
                     try:
                         results = fuse.execute_group(
-                            colls, qs, cfg, k, nprobe, path,
+                            colls, qs, cfg, k, nprobe, path, mesh=mesh,
                             cache=self._stack_cache)
                         break
                     except fuse.NotResident:
@@ -630,7 +645,8 @@ class MemoryService:
                                     nprobe=nprobe, path=path)).result()
 
     def rebuild(self, collection: str, shard: Optional[int] = None) -> dict:
-        """Rebuild a collection (blocks)."""
+        """Rebuild a collection (blocks).  `shard` compacts one mesh shard
+        of a sharded collection shard-locally; None rebuilds everything."""
         return self.submit(MemoryOp("rebuild", collection,
                                     shard=shard)).result()
 
@@ -683,7 +699,8 @@ class MemoryService:
     # ------------------------------------------------------------------
     def save(self, directory: str, step: int = 0) -> None:
         """Persist every collection (blocks until all namespaces are
-        written)."""
+        written).  Sharded collections write one ``shard_<i>`` namespace
+        per mesh shard; restore them via `load(..., mesh=...)`."""
         with self._lock:
             colls = dict(self._collections)
         os.makedirs(directory, exist_ok=True)
@@ -692,7 +709,7 @@ class MemoryService:
             coll.save_into(os.path.join(directory, "collections", name),
                            step=step)
             registry[name] = {"cfg": dataclasses.asdict(coll.cfg),
-                              "sharded": False}
+                              "sharded": coll.sharded}
         atomic_write_json(os.path.join(directory, SERVICE_FILE),
                           {"version": 1, "collections": registry})
 
@@ -707,15 +724,15 @@ class MemoryService:
              idle_demote_s: Optional[float] = None,
              cold_after_s: Optional[float] = None,
              device: DeviceLike = None) -> "MemoryService":
-        """Restore a saved service on `device`.  A collection saved WARM
-        restores host-side, one saved COLD as a pointer to its own
+        """Restore a saved service on `device`.  `mesh` is required when the
+        registry holds sharded collections (they restore onto it; pass
+        `reshard=True` to accept a mesh shape other than the saved one —
+        the rows are re-packed onto it).  A collection saved WARM restores
+        host-side, one saved COLD as a pointer to its own
         checkpoint namespace without reading the arrays — the first query
         promotes either back.  The residency knobs configure the restored
         service's manager, which every loaded collection registers with;
         HOT restores count against the budget immediately."""
-        if mesh is not None or reshard:
-            raise later_slice("sharded snapshots (mesh / reshard)",
-                              "the sharded tier")
         with open(os.path.join(directory, SERVICE_FILE)) as f:
             registry = json.load(f)
         svc = cls(scheduler=scheduler, batch_window=batch_window,
@@ -725,12 +742,17 @@ class MemoryService:
                   cold_after_s=cold_after_s, device=device)
         for name, entry in registry["collections"].items():
             cfg = EngineConfig(**entry["cfg"])
+            kw = {}
             if entry.get("sharded", cfg.shard_db):
-                raise later_slice(f"the sharded collection {name!r}",
-                                  "the sharded tier")
+                if mesh is None:
+                    raise ValueError(
+                        f"collection {name!r} in {directory!r} is sharded; "
+                        "pass MemoryService.load(..., mesh=<ShardMesh>) to "
+                        "restore it")
+                kw["mesh"] = mesh
             coll = Collection.load_from(
                 os.path.join(directory, "collections", name), name, cfg,
-                step=step, device=svc.device)
+                step=step, reshard=reshard, device=svc.device, **kw)
             with svc._lock:
                 svc._collections[name] = coll
             svc._residency.register(coll)

@@ -145,11 +145,16 @@ def _leaves(state: IVFState):
     return [leaf for leaf in state if leaf is not None]
 
 
-def state_nbytes(cfg: EngineConfig, spill_capacity: int = 4096) -> int:
+def state_nbytes(cfg: EngineConfig, spill_capacity: int = 4096,
+                 n_shards: int = 1) -> int:
     """Exact resident byte size of a collection state with these shapes
-    (equals `footprint(state)["index_bytes"]` without allocating)."""
-    return int(sum(leaf.nbytes
-                   for leaf in _leaves(empty_host_state(cfg, spill_capacity))))
+    (equals `footprint(state)["index_bytes"]` without allocating).  A
+    sharded state holds the centroids once and every other leaf once per
+    shard (`distributed.empty_dist_state`)."""
+    t = empty_host_state(cfg, spill_capacity)
+    total = sum(leaf.nbytes for leaf in _leaves(t))
+    cent = t.centroids.nbytes
+    return int(cent + n_shards * (total - cent))
 
 
 def live_count(state: IVFState) -> torch.Tensor:
@@ -501,8 +506,16 @@ def replay(state: IVFState, log, cfg: EngineConfig) -> Tuple[IVFState, int, int]
 # ---------------------------------------------------------------------------
 
 # The flat views and the rescore below are lane-aware: on a stacked state
-# (every leaf with a leading lane axis G, see `api.batch.stack_states`) they
+# (every leaf with a leading lane axis G, see `stack_states`) they
 # concatenate along the slot axis per lane and return [G, ...] results.
+
+def stack_states(states) -> IVFState:
+    """Stack G same-shaped states along a new leading lane axis (leaf by
+    leaf; the int8 store's leaves are None under the f32 policy and stay
+    None): the stacked state the lane-aware templates below take."""
+    return IVFState(*[None if leaves[0] is None else torch.stack(leaves)
+                      for leaves in zip(*states)])
+
 
 def _flat_ids(state: IVFState) -> torch.Tensor:
     return torch.cat([state.list_ids.flatten(-2), state.spill_ids], dim=-1)

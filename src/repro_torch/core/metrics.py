@@ -44,14 +44,34 @@ def brute_force_topk(queries, rows, ids, k: int, metric: str = "ip", *,
     ``lax.top_k`` breaks them in the reference.
     """
     dev = resolve_device(device)
+    return brute_force_topk_parts(
+        queries, [(as_tensor(rows, torch.float32, dev), ids)], k, metric,
+        device=dev)
+
+
+def brute_force_topk_parts(queries, parts, k: int, metric: str = "ip", *,
+                           device: DeviceLike = None) -> np.ndarray:
+    """`brute_force_topk` over the concatenation of `parts`, an iterable of
+    (rows, ids) — a sharded collection's per-shard flat views.  A tensor
+    part is scored on its own device and only its scores move to
+    `device`; a generator of parts holds one part at a time."""
+    dev = resolve_device(device)
     q = as_tensor(queries, torch.float32, dev)
-    r = as_tensor(rows, torch.float32, dev)
-    ids = as_tensor(ids, torch.int64, dev)
-    n = int(r.shape[0])
+    scores, all_ids = [], []
+    for rows, ids in parts:
+        pdev = rows.device if isinstance(rows, torch.Tensor) else dev
+        r = as_tensor(rows, torch.float32, pdev)
+        i = as_tensor(ids, torch.int64, pdev)
+        sc = _exact_scores(q.to(pdev), r, metric)
+        sc.masked_fill_((i < 0)[None, :], float("-inf"))
+        scores.append(sc.to(dev))
+        all_ids.append(i.to(dev))
+        del rows, ids, r, i, sc
+    n = sum(int(i.shape[0]) for i in all_ids)
     if n == 0:
         return np.full((int(q.shape[0]), k), -1, dtype=np.int64)
-    scores = _exact_scores(q, r, metric)
-    scores.masked_fill_((ids < 0)[None, :], float("-inf"))
+    scores = scores[0] if len(scores) == 1 else torch.cat(scores, dim=1)
+    ids = all_ids[0] if len(all_ids) == 1 else torch.cat(all_ids)
     kk = min(k, n)
     # stable descending sort: equal scores keep ascending row order
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices

@@ -30,6 +30,7 @@ from repro_torch.api import MemoryOp, MemoryService
 from repro_torch.api import batch as fuse
 from repro_torch.configs.base import EngineConfig
 from repro_torch.convert import ivf_state_from_numpy
+from repro_torch.core import distributed as dce
 from repro_torch.core import index as ivf
 from repro_torch.core import templates
 from repro_torch.kernels import ops as tops
@@ -437,8 +438,9 @@ def test_stack_cache_lru_and_pop():
     assert cache.pop_lru() and not cache.pop_lru()
     with pytest.raises(fuse.NotResident):
         cache.stacked([Lane("c", None)], None)
-    with pytest.raises(NotImplementedError, match="sharded tier"):
-        cache.stacked([a], object())
+    # a mesh stacks per shard, which needs sharded lanes
+    with pytest.raises(ValueError, match="2-shard state"):
+        cache.stacked([a], dce.make_mesh((2,), ("shard",), "cpu"))
 
 
 def test_stack_cache_keeps_one_entry_per_group():
@@ -588,8 +590,9 @@ def test_execute_group_pads_bumps_and_refuses(svc):
         _assert_same((ids, scores), c.query(q, k=4, path="full_scan"))
     with pytest.raises(ValueError, match="hnsw"):
         fuse.execute_group(colls, qs, CFG, 4, 0, "hnsw")
-    with pytest.raises(NotImplementedError, match="sharded tier"):
-        fuse.execute_group(colls, qs, CFG, 4, 0, "full_scan", mesh=object())
+    with pytest.raises(ValueError, match="2-shard state"):
+        fuse.execute_group(colls, qs, CFG, 4, 0, "full_scan",
+                           mesh=dce.make_mesh((2,), ("shard",), "cpu"))
 
 
 def test_batch_signature_has_the_reference_shape(svc):
@@ -600,3 +603,86 @@ def test_batch_signature_has_the_reference_shape(svc):
     state, version = svc.collection("t0").versioned_snapshot()
     assert state is svc.collection("t0").snapshot()
     assert version == svc.collection("t0").version()
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded tenants (tests/test_batch_fusion.py's sharded cases on the
+# port, a 2-shard mesh of CPU shards): one dispatch per window, equal to the
+# per-op `dist_query` path; ids equal, scores to 1e-5 (on the CPU a padded
+# lane may differ in the last place, see `_assert_same`)
+# ---------------------------------------------------------------------------
+
+SCFG = dataclasses.replace(CFG, shard_db=True)
+SHARDED = ("s0", "s1", "s2")
+
+
+@pytest.fixture()
+def ssvc():
+    mesh = dce.make_mesh((2,), ("shard",), "cpu")
+    svc = MemoryService(device="cpu", maintenance=False)
+    for i, name in enumerate(SHARDED):
+        svc.create_collection(name, SCFG, mesh=mesh, seed=i)
+        svc.build(name, _corpus(N0, seed=i),
+                  ids=np.arange(i * 10_000, i * 10_000 + N0))
+    yield svc, mesh
+    svc.shutdown()
+
+
+def test_sharded_window_is_one_dispatch_equal_to_dist_query(ssvc):
+    svc, mesh = ssvc
+    qs = {n: _corpus(3 + i, seed=20 + i) for i, n in enumerate(SHARDED)}
+    coll = svc.collection("s0")
+    ref_ids, ref_scores = dce.dist_query(coll.snapshot(),
+                                         torch.from_numpy(qs["s0"]), SCFG,
+                                         mesh, 4)
+    sync = {n: svc.query(n, q, k=4) for n, q in qs.items()}
+    np.testing.assert_array_equal(sync["s0"][0], ref_ids.numpy())
+    np.testing.assert_array_equal(sync["s0"][1], ref_scores.numpy())
+    n, got = _window(svc, qs, k=4)
+    assert n == 1                                # ONE dispatch, 3 tenants
+    for name in qs:
+        _assert_same(got[name], sync[name])
+    # lane g only scanned collection g
+    assert (got["s1"][0] // 10_000 == 1).all()
+    assert (got["s2"][0] // 10_000 == 2).all()
+
+
+def test_query_many_sharded(ssvc):
+    svc, _ = ssvc
+    qs = [("s0", _corpus(4, seed=30)), ("s2", _corpus(6, seed=31))]
+    for (name, q), got in zip(qs, svc.query_many(qs, k=4)):
+        _assert_same(got, svc.query(name, q, k=4))
+
+
+def test_degenerate_single_lane_still_fuses_sharded(ssvc):
+    svc, _ = ssvc
+    q1, q2 = _corpus(3, seed=40), _corpus(5, seed=41)
+    f1 = svc.submit(MemoryOp("query", "s1", q1, k=4, batch=True))
+    f2 = svc.submit(MemoryOp("query", "s1", q2, k=4, batch=True))
+    assert svc.flush() == 1
+    np.testing.assert_array_equal(f1.result(timeout=60)[0],
+                                  svc.query("s1", q1, k=4)[0])
+    np.testing.assert_array_equal(f2.result(timeout=60)[0],
+                                  svc.query("s1", q2, k=4)[0])
+
+
+def test_mixed_window_splits_sharded_and_unsharded(ssvc):
+    """Sharded and unsharded tenants in one window -> two fused groups (the
+    mesh is part of the signature), each correct; the stacks of both are
+    cached apart."""
+    svc, mesh = ssvc
+    for name, seed in (("u0", 7), ("u1", 8)):
+        svc.create_collection(name, CFG)
+        svc.build(name, _corpus(N0, seed=seed))
+    qs = {n: _corpus(4, seed=50 + i)
+          for i, n in enumerate(("s0", "s1", "u0", "u1"))}
+    sync = {n: svc.query(n, q, k=4) for n, q in qs.items()}
+    n, got = _window(svc, qs, k=4)
+    assert n == 2
+    for name in qs:
+        _assert_same(got[name], sync[name])
+    assert svc.collection("s0").batch_signature(4, 4, None, None)[3] == mesh
+    assert svc.collection("u0").batch_signature(4, 4, None, None)[3] is None
+    assert svc.stats()["stack_cache"]["entries"] == 2
+    for name in ("u0", "u1"):
+        svc.drop_collection(name)

@@ -213,7 +213,8 @@ def test_sharded_and_non_hot_snapshots_name_their_item(tmp_path, meta):
     path = tmp_path / "collection.json"
     saved = json.loads(path.read_text())
     path.write_text(json.dumps({**saved, **meta}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the sharded tier is ported: an unsharded config names the fix
+    with pytest.raises(ValueError, match="shard_db"):
         Collection.load_from(str(tmp_path), "c", EngineConfig(**ARGS),
                              device="cpu")
 

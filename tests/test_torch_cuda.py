@@ -886,3 +886,93 @@ def test_replica_services_sit_on_the_primary_card(dev):
         assert rs.primary.collection("m").snapshot().lists.is_cuda
     finally:
         rs.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded tier: S shards on the one card
+# ---------------------------------------------------------------------------
+
+def _sharded(n_shards=4, names=("a",), n=4000, **kw):
+    from repro_torch.api import MemoryService
+    from repro_torch.core.distributed import make_mesh
+    mesh = make_mesh((n_shards,), ("shard",))
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=8, kmeans_iters=3, shard_db=True, rescore_k=32,
+                       **kw)
+    rng = np.random.default_rng(4)
+    svc = MemoryService(maintenance=False)
+    xs = {}
+    for i, name in enumerate(names):
+        svc.create_collection(name, cfg, mesh=mesh, seed=i)
+        xs[name] = rng.standard_normal((n, 256)).astype(np.float32)
+        svc.build(name, xs[name], ids=np.arange(n) + 100_000 * i)
+    return svc, mesh, xs
+
+
+def test_sharded_answer_is_the_global_topk_of_the_kernel_scores(dev):
+    """Each shard's full scan is one `scan_scores` launch; the merged answer
+    equals a plain global top-k (ties to the lower position) over the
+    per-shard kernel scores, concatenated in shard order."""
+    from repro_torch.core import index as ivf
+    svc, mesh, xs = _sharded()
+    with svc:
+        q = torch.from_numpy(xs["a"][:16] + 0.01).to(dev)
+        before = ss.launches.value
+        ids, scores = svc.query("a", q, k=8)
+        assert ss.launches.value - before == mesh.size
+        state = svc.collection("a").snapshot()
+        assert all(st.device.type == "cuda" for st in state)
+        assert all(st.centroids is state[0].centroids for st in state)
+        sc, fid = [], []
+        for st in state:
+            rows, i = ivf._flat_rows(st)
+            sc.append(ss.scan_scores(q, rows, i, None, metric="ip"))
+            fid.append(i)
+        sc, fid = torch.cat(sc, 1), torch.cat(fid)
+        pos = torch.sort(sc, dim=1, descending=True, stable=True).indices[:, :8]
+        np.testing.assert_array_equal(ids, fid[pos].cpu().numpy())
+        np.testing.assert_array_equal(scores,
+                                      sc.gather(1, pos).cpu().numpy())
+        assert (ids[:, 0] == np.arange(16)).all()
+
+
+def test_shard_rebuild_leaves_sibling_storage_untouched(dev):
+    svc, mesh, xs = _sharded()
+    with svc:
+        coll = svc.collection("a")
+        svc.delete("a", np.arange(0, 4000, 3))
+        before = coll.snapshot()
+        h = int(np.argmax([int(st.num_deleted) for st in before]))
+        v0 = coll.shard_versions()
+        out = svc.rebuild("a", shard=h)
+        assert not out["aborted"]
+        after = coll.snapshot()
+        for s in range(mesh.size):
+            if s == h:
+                assert int(after[s].num_deleted) == 0
+                continue
+            assert coll.shard_versions()[s] == v0[s]
+            for a, b in zip(before[s], after[s]):
+                if a is not None:
+                    assert a.data_ptr() == b.data_ptr() and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "int8"])
+def test_fused_sharded_window_is_bit_equal_on_the_card(dev, store_dtype):
+    """Three sharded tenants in one window: one dispatch, every shard's
+    scan one lane launch, each answer bit-equal to the tenant's own query.
+    The path is named: the router would send B=1 elsewhere than B=3, which
+    splits the signature, although the sharded tier full-scans both."""
+    svc, mesh, xs = _sharded(names=("a", "b", "c"), n=2000,
+                             store_dtype=store_dtype)
+    with svc:
+        reqs = [(n, xs[n][:b] + 0.01) for n, b in zip("abc", (1, 3, 6))]
+        want = [svc.query(n, q, path="full_scan") for n, q in reqs]
+        scan = q8 if store_dtype == "int8" else ss
+        before = (scan.launches.value, scan.launches_by_lanes["G>1"].value)
+        got = svc.query_many(reqs, path="full_scan")
+        assert scan.launches.value - before[0] == mesh.size
+        assert scan.launches_by_lanes["G>1"].value - before[1] == mesh.size
+        for (gi, gs), (wi, ws) in zip(got, want):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gs, ws)

@@ -3,14 +3,16 @@
 `repro_torch.core.engine.AgenticMemoryEngine` keeps the reference's
 signatures and on-disk layout: engines saved by either package load in the
 other and answer with the same ids.  The quickstart asserts sync ==
-futures == cross-collection batched results.
+futures == cross-collection batched results; the sharded example
+(`repro_torch.distributed_memory`) what ``examples/distributed_memory.py``
+checks, on 8 CPU shards.
 """
 import numpy as np
 import pytest
 
 from repro.configs.base import EngineConfig as JConfig
 from repro.core.engine import AgenticMemoryEngine as JEngine
-from repro_torch import quickstart
+from repro_torch import distributed_memory, quickstart
 from repro_torch.configs.base import EngineConfig
 from repro_torch.core.engine import AgenticMemoryEngine
 from repro_torch.core.scheduler import WindowedScheduler
@@ -83,3 +85,12 @@ def test_quickstart_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "sync == future == cross-collection batched: OK" in out
     assert "recall@5 = 1.000" in out
+
+
+def test_distributed_memory_runs_on_the_cpu(capsys):
+    distributed_memory.main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "lists sharded over 8 shards" in out
+    assert "(7/8 sibling shards untouched)" in out
+    assert "fused 2-tenant sharded window == per-tenant query" in out
+    assert "16128 live rows on 8 shards" in out

@@ -174,17 +174,29 @@ def test_fault_copy_keeps_the_reference_public_names(cls):
 
 
 def test_replication_is_no_longer_a_later_slice():
-    """No port file raises `later_slice(..., "replication")` any more: the
-    replication item is ported (the sharded tier's raises remain)."""
-    calls = []
+    """No port file raises `later_slice(...)` any more: replication and
+    then the sharded tier, the last items behind it, are ported, and the
+    helper itself is gone."""
+    calls, defs = [], []
     for path in PORT_FILES:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Call) and getattr(
                     node.func, "id", None) == "later_slice":
-                items = [a.value for a in node.args[1:]
-                         if isinstance(a, ast.Constant)]
-                calls.append((path.name, items))
-    assert calls, "the scan found no later_slice call at all"
-    assert not [c for c in calls if "replication" in c[1]], calls
-    assert {item for _, items in calls for item in items} == \
-        {"the sharded tier"}
+                calls.append(path.name)
+            if isinstance(node, ast.FunctionDef) and \
+                    node.name == "later_slice":
+                defs.append(path.name)
+    assert not calls and not defs, (calls, defs)
+
+
+def test_make_mesh_without_cuda_and_device_raises(monkeypatch):
+    """`make_mesh` with no device named puts every shard on the card; on a
+    machine without one it raises, as `resolve_device` does, and a named
+    device still works."""
+    import torch
+    from repro_torch.core.distributed import make_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((2,), ("shard",))
+    assert make_mesh((2,), ("shard",), "cpu").devices == \
+        (torch.device("cpu"),) * 2

@@ -500,3 +500,100 @@ def test_stack_cache_is_charged_and_dropped_first_under_budget():
         assert set(st["tiers"].values()) == {"hot"}
     finally:
         svc.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# Sharded tiers + spill rebalance (tests/test_residency.py's sharded cases
+# on the port, a 2-shard mesh of CPU shards)
+# ---------------------------------------------------------------------------
+
+SCFG = dataclasses.replace(CFG, shard_db=True)
+
+
+def _slive(state):
+    return set().union(*(_live(s) for s in state))
+
+
+def test_sharded_demote_promote_roundtrip(tmp_path):
+    """WARM holds the per-shard host states, COLD the `shard_<i>`
+    namespaces; every promotion answers bit-equal with one centroids
+    tensor per device again, and a WARM sharded tenant saves/loads in its
+    tier.  The byte charge is `state_nbytes(..., n_shards)`."""
+    from repro_torch.core import distributed as dce
+    mesh = dce.make_mesh((2,), ("shard",), "cpu")
+    coll = Collection("c", SCFG, mesh=mesh, spill_capacity=SPILL)
+    assert coll.index_nbytes() == ivf.state_nbytes(SCFG, SPILL, 2)
+    coll.build(_corpus(512))
+    q = _corpus(4, seed=7)
+    want = coll.query(q, k=4)
+    want_live = _slive(coll.snapshot())
+    for tier, kw in (("warm", {}),
+                     ("cold", {"directory": str(tmp_path / "c")})):
+        coll.demote("warm")
+        assert len(coll._host_state) == 2
+        if tier == "cold":
+            coll.demote("cold", **kw)
+            assert sorted(p.name for p in (tmp_path / "c").iterdir()) == \
+                ["shard_000", "shard_001"]
+        assert coll.residency == tier
+        assert coll.stats()["shards"] == 2
+        got = coll.query(q, k=4)
+        assert coll.residency == "hot"
+        _same(got, want)
+        st = coll.snapshot()
+        assert _slive(st) == want_live
+        assert st[1].centroids is st[0].centroids
+    # warm sharded state save/loads with its tier
+    coll.demote("warm")
+    coll.save_into(str(tmp_path / "snap"))
+    back = Collection.load_from(str(tmp_path / "snap"), "c", SCFG, mesh=mesh)
+    assert back.residency == "warm"
+    _same(back.query(q, k=4), want)
+
+
+def test_sharded_spill_rebalance():
+    """A hot-spotted shard's rebuild hands its residual spill rows to the
+    underfull sibling (zero lost ids); the sibling's own rebuild then
+    absorbs them into list slots."""
+    from repro_torch.core import distributed as dce
+    from repro_torch.core import templates
+    mesh = dce.make_mesh((2,), ("shard",), "cpu")
+    th = templates.TemplateThresholds(maintenance_spill_frac=0.01,
+                                      maintenance_shard_min_pending=16)
+    coll = Collection("c", SCFG, mesh=mesh, spill_capacity=1024,
+                      thresholds=th)
+    coll.build(_corpus(512))
+    v = _corpus(1, seed=99)[0]
+    nid = 10_000
+    # contiguous-block insert split: the FIRST half of each batch lands on
+    # shard 0 — cluster it tightly around v so one centroid's 16-slot list
+    # overflows there, while shard 1's half stays diverse
+    for i in range(10):
+        hot = v[None, :] + 1e-3 * np.random.default_rng(i).standard_normal(
+            (8, 128)).astype(np.float32)
+        hot /= np.linalg.norm(hot, axis=1, keepdims=True)
+        batch = np.concatenate([hot, _corpus(8, seed=500 + i)])
+        coll.insert(batch.astype(np.float32),
+                    ids=np.arange(nid, nid + 16))
+        nid += 16
+    want = _slive(coll.snapshot())
+    press = coll.maintenance_pressure()["shards"]
+    assert press[0]["spilled"] > 0 and press[1]["spilled"] == 0
+    assert 0 in coll.maintenance_due_shards()   # controller would fire this
+    sibling = coll.snapshot()[1]
+    out = coll.rebuild(shard=0)
+    assert not out["aborted"]
+    assert out["rebalanced"] > 0 and out["rebalance_to"] == 1
+    assert _slive(coll.snapshot()) == want      # zero lost rows
+    # the sibling's lists were not copied: only its spill fields are new
+    assert coll.snapshot()[1].lists is sibling.lists
+    assert int(coll.snapshot()[1].spill_size) == out["rebalanced"]
+    post = coll.maintenance_pressure()["shards"]
+    assert post[0]["spilled"] == 0
+    assert post[1]["spilled"] == out["rebalanced"]
+    # destination shard's rebuild drains the adopted rows into lists
+    out2 = coll.rebuild(shard=1)
+    assert not out2["aborted"]
+    assert _slive(coll.snapshot()) == want
+    ids, _ = coll.query(v[None, :], k=4)
+    assert set(ids[0].tolist()) <= want

@@ -16,7 +16,9 @@ Phases (any failure raises and the script exits non-zero):
    centroid tiles and slices.  Both scans also take a lane axis (G
    collections in one launch): each is checked against its lane plain
    version in both variants, lane g against the 2-D launch on lane g bit
-   for bit, and timed at phase 6's fused shapes.
+   for bit, and timed at phase 6's fused shapes.  ``scan_scores`` is also
+   checked and timed at phase 11a's retrieval (B=8 over the 1,503,232 slots
+   of a PAPER_1M layout at dim 2048).
 4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
    an exact brute force, queries, concurrent inserts, deletes, a
    delta-replay rebuild under inserts, queries again) through
@@ -74,6 +76,16 @@ Phases (any failure raises and the script exits non-zero):
    resharded onto two shards, refused on a mismatched mesh, demoted to
    WARM and COLD and promoted bit-equal, and rebuilt shard-locally by the
    maintenance poll.
+11. serving: ``python -m repro_torch.launch.serve``'s body at granite-3-2b's
+   full width (40 layers, d_model 2048, bf16 weights from ``--seed``)
+   beside a 1,000,000-row memory at dim 2048 in PAPER_1M's layout: three
+   turns of 8 requests (512-token prompts, 32 greedy tokens: retrieval
+   spliced into the prefill, KV-cached decode) while 256 rows go in as
+   32-row concurrent inserts and each turn's query embeddings after it;
+   every turn's ids equal the plain version's on the same snapshot, every
+   acknowledged insert live; the projection branch over a PAPER_100K
+   memory (dim 1024); the model in float32, its decode logits equal to
+   ``forward_train``'s within 2e-3.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -106,6 +118,8 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
 N_ROWS = 1_000_000       # PAPER_1M's corpus: HotpotQA's 1 M passages
+SERVE_REQUESTS = 8       # phase 11a's requests a turn (phase 3 times its scan)
+SERVE_DIM = 2048         # granite-3-2b's d_model, the memory's dim in 11a
 # phase 6a's per-lane query batches, eight f32 tenants and four int8 ones;
 # phase 3 checks and times the lane launches at the Bmax these give
 F32_BATCHES = (1, 2, 3, 5, 8, 13, 16, 21)
@@ -286,10 +300,13 @@ def phase_kernels(seed: int, cfg) -> dict:
                                                      metric=metric,
                                                      _variant=v), want))
     scan_times = {}
-    # probed slab B=1, full scan B=64, and the recall probe's centroid scan
-    # (phase 8: its 64 sampled rows against the C centroids)
-    for label, b, n in (("probed", 1, n_probe), ("full", 64, n_full),
-                        ("probe_centroids", 64, c)):
+    # probed slab B=1, full scan B=64, the recall probe's centroid scan
+    # (phase 8: its 64 sampled rows against the C centroids), and phase
+    # 11a's retrieval (8 requests over a PAPER_1M layout at granite-3-2b's
+    # d_model)
+    for label, b, n, d in (("probed", 1, n_probe, d), ("full", 64, n_full, d),
+                           ("probe_centroids", 64, c, d),
+                           ("serving", SERVE_REQUESTS, n_full, SERVE_DIM)):
         q, db, ids = randn(b, d), randn(n, d), ids_with_holes(n)
         picked = ss.variant_for(b, n, d, q.data_ptr(), db.data_ptr())
         if picked != "stream" and label != "probe_centroids":
@@ -325,8 +342,10 @@ def phase_kernels(seed: int, cfg) -> dict:
         del q, db, ids
         torch.cuda.empty_cache()
     full, probed = scan_times["full"], scan_times["probed"]
+    d = cfg.dim
     print(f"  scan_scores probe centroids: {scan_times['probe_centroids']}",
           flush=True)
+    print(f"  scan_scores serving: {scan_times['serving']}", flush=True)
     out["scan_scores"] = {
         "name": "scan_scores", "route": "cuda",
         "source": "src/repro_torch/csrc/scan_scores.cu",
@@ -339,6 +358,7 @@ def phase_kernels(seed: int, cfg) -> dict:
         "library_call": "torch.mm(q, db.T) f32 inputs, TF32 on",
         "probed": probed,
         "probe_centroids": scan_times["probe_centroids"],
+        "serving": scan_times["serving"],
     }
 
     # -- scan_scores_q8 ---------------------------------------------------
@@ -497,6 +517,31 @@ def phase_kernels(seed: int, cfg) -> dict:
             f32_lib = cuda_ms(lambda: torch.mm(x, cent.t()), reps=3)
         del x, cent, xb, cb
         torch.cuda.empty_cache()
+    # phase 11a's build and insert at granite-3-2b's d_model: the wgmma
+    # variant's resident row tile leaves no room for two ring stages at
+    # D = 2048, so `variant_for` gives these shapes to generic
+    for label, m in (("serving_build", m_build), ("serving_insert", 32)):
+        x, cent = randn(m, SERVE_DIM), randn(c, SERVE_DIM)
+        picked = ka.variant_for(m, c, SERVE_DIM, x.data_ptr(),
+                                cent.data_ptr())
+        idx, dist = ka.kmeans_assign(x, cent)
+        err = max(err, check_assign(x, cent, idx, dist))
+        del idx, dist
+        reps = 3 if m > 100_000 else 50
+        ms = cuda_ms(lambda: ka.kmeans_assign(x, cent), reps=reps)
+        plain = cuda_ms(lambda: ref.kmeans_assign_ref(x, cent), reps=3)
+        xb, cb = x.to(torch.bfloat16), cent.to(torch.bfloat16)
+        lib = queued_ms(lambda: torch.mm(xb, cb.t()), reps)
+        ab, aby = bound_ms(4 * (m * SERVE_DIM + c * SERVE_DIM + 2 * m),
+                           2 * m * c * SERVE_DIM, PEAK_BF16)
+        assign_times[label] = {
+            "shape": f"M={m} C={c} D={SERVE_DIM}", "variant": picked,
+            "ms": ms, "plain_ms": plain, "bound_ms": ab, "bound_by": aby,
+            "library_ms": lib}
+        del x, cent, xb, cb
+        torch.cuda.empty_cache()
+    print(f"  kmeans_assign serving: {assign_times['serving_build']} "
+          f"{assign_times['serving_insert']}", flush=True)
     f32_bound = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
                          2 * m_build * c * d, PEAK_F32)
     build_t = assign_times["build"]
@@ -512,6 +557,8 @@ def phase_kernels(seed: int, cfg) -> dict:
                         "conversion of x and no argmin, a lower yardstick",
         "rebuild": assign_times["rebuild"],
         "insert": assign_times["insert"],
+        "serving_build": assign_times["serving_build"],
+        "serving_insert": assign_times["serving_insert"],
         "f32_variant": {"max_abs_err": err_f32, "ms": f32_ms,
                         "plain_ms": f32_plain, "library_ms": f32_lib,
                         "library_call": "torch.mm(x, c.t()) f32, TF32 off: "
@@ -532,30 +579,42 @@ def phase_kernels(seed: int, cfg) -> dict:
             x, a, n_clusters=cc)))
         if not torch.equal(got[0], sg.segsum_gemm(x, a, n_clusters=cc)[0]):
             raise AssertionError("segsum_gemm is not deterministic")
-    x = randn(m_build, d)
-    a = torch.randint(0, c, (m_build,), generator=g, device=dev,
-                      dtype=torch.int32)
-    got = sg.segsum_gemm(x, a, n_clusters=c)
-    err = max(err, check_segsum(got, sg.segsum_gemm_plain(x, a,
-                                                          n_clusters=c)))
-    ms = cuda_ms(lambda: sg.segsum_gemm(x, a, n_clusters=c), reps=10)
-    plain = cuda_ms(lambda: sg.segsum_gemm_plain(x, a, n_clusters=c), reps=3)
-    acc = torch.zeros(c, d, device=dev)
-    a64 = a.long()
-    lib = cuda_ms(lambda: acc.index_add_(0, a64, x), reps=10)
-    sb, sby = bound_ms(4 * (m_build * d + m_build + c * d + c),
-                       m_build * d, PEAK_F32)
+    # the main path's builds: PAPER_1M's (phases 4-10) and phase 11a's at
+    # granite-3-2b's d_model
+    sum_times = {}
+    for label, dd in (("build", d), ("serving_build", SERVE_DIM)):
+        x = randn(m_build, dd)
+        a = torch.randint(0, c, (m_build,), generator=g, device=dev,
+                          dtype=torch.int32)
+        got = sg.segsum_gemm(x, a, n_clusters=c)
+        err = max(err, check_segsum(got, sg.segsum_gemm_plain(
+            x, a, n_clusters=c)))
+        if not torch.equal(got[0], sg.segsum_gemm(x, a, n_clusters=c)[0]):
+            raise AssertionError("segsum_gemm is not deterministic")
+        ms = cuda_ms(lambda: sg.segsum_gemm(x, a, n_clusters=c), reps=10)
+        plain = cuda_ms(lambda: sg.segsum_gemm_plain(x, a, n_clusters=c),
+                        reps=3)
+        acc = torch.zeros(c, dd, device=dev)
+        a64 = a.long()
+        lib = cuda_ms(lambda: acc.index_add_(0, a64, x), reps=10)
+        sb, sby = bound_ms(4 * (m_build * dd + m_build + c * dd + c),
+                           m_build * dd, PEAK_F32)
+        sum_times[label] = {
+            "shape": f"M={m_build} C={c} D={dd}", "ms": ms,
+            "plain_ms": plain, "bound_ms": sb, "bound_by": sby,
+            "library_ms": lib}
+        del x, a, a64, acc, got
+        torch.cuda.empty_cache()
+    print(f"  segsum_gemm serving: {sum_times['serving_build']}", flush=True)
+    build_s = sum_times["build"]
     out["segsum_gemm"] = {
         "name": "segsum_gemm", "route": "cuda",
         "source": "src/repro_torch/csrc/segsum_gemm.cu",
         "replaces": "src/repro/kernels/segsum_gemm.py:69",
-        "shape": f"M={m_build} C={c} D={d}", "max_abs_err": err, "ms": ms,
-        "plain_ms": plain, "bound_ms": sb, "bound_by": sby,
-        "library_ms": lib,
+        "max_abs_err": err, **build_s,
         "library_call": "Tensor.index_add_ (f32 rows, atomics)",
+        "serving_build": sum_times["serving_build"],
     }
-    del x, a, a64, acc, got
-    torch.cuda.empty_cache()
     return out
 
 
@@ -3033,6 +3092,275 @@ def phase_sharded(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the RAG serving path (a dense LM at full width beside the memory)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "granite-3-2b"   # the serve entry points' default arch
+SERVE_PROMPT = 512      # 11a: prompt tokens a request
+SERVE_DECODE = 32       # 11a: greedy tokens a request
+SERVE_TURNS = 3
+SERVE_INSERTS = 256     # 11a: rows inserted in 32-row concurrent ops
+SERVE_MEM_K = 4         # retrieved memories a request
+PROJ_ROWS = 100_000     # 11c: PAPER_100K's corpus (dim 1024 != d_model)
+SERVE_TOL = 2e-3        # 11b: the reference's decode-vs-forward rtol/atol
+
+
+def live_ids(coll) -> torch.Tensor:
+    st = coll.snapshot()
+    ids = torch.cat([st.list_ids.reshape(-1), st.spill_ids])
+    return torch.sort(ids[ids >= 0]).values
+
+
+def phase_serving(seed: int, card: str) -> dict:
+    """The RAG serving path on the card, through
+    `repro_torch.launch.serve`.  11a: granite-3-2b at full width (40
+    layers, d_model 2048, bf16 weights from `seed`) beside a 1,000,000-row
+    memory at dim 2048 in PAPER_1M's layout (C 1024, L 1464, spill 4096),
+    built through `MemoryService`: SERVE_TURNS turns of SERVE_REQUESTS
+    requests (SERVE_PROMPT-token prompts, SERVE_DECODE greedy tokens)
+    while SERVE_INSERTS rows go in as 32-row concurrent inserts and each
+    turn's query embeddings after it; every turn's retrieved ids equal the
+    plain version's on the same snapshot (scores within 1e-5), every
+    acknowledged insert is live.  11c: the projection branch (a PAPER_100K
+    memory, dim 1024): one RAG prefill and 8 decode steps, ids equal the
+    plain version's.  11b: the same model in float32: decode logits equal
+    `forward_train`'s at every position within SERVE_TOL."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
+    from repro_torch.core import index as ivf
+    from repro_torch.kernels import kmeans_assign as ka
+    from repro_torch.kernels import scan_scores as ss
+    from repro_torch.kernels import scan_scores_q8 as q8
+    from repro_torch.kernels import segsum_gemm as sg
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import lm
+    from repro_torch.serving import rag
+
+    dev = torch.device("cuda")
+    kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
+               "segsum_gemm": sg}
+    for m in kernels.values():
+        for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
+                  *getattr(m, "launches_by_lanes", {}).values()):
+            c.reset()
+    excluded = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_arch(SERVE_ARCH)
+    if cfg.d_model != SERVE_DIM:
+        raise AssertionError(f"{SERVE_ARCH} d_model {cfg.d_model}")
+    out = {"card": card, "arch": cfg.name, "tf32": bool(
+        torch.backends.cuda.matmul.allow_tf32),
+        "bf16_reduced_precision_reduction": bool(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction)}
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    def assign_variants():
+        return {v: c.value - excluded.get("kmeans_assign", {}).get(v, 0)
+                for v, c in ka.launches_by_variant.items()}
+
+    def check_retrieval(tag, snap, q, ids, ecfg, margins):
+        """The served ids against the plain version's on the same snapshot,
+        the kernel's scores against the plain version's."""
+        with uncounted(kernels, excluded):
+            kid, ksc, _ = rag.retrieve(snap, q, ecfg, SERVE_MEM_K)
+        pid, psc, _ = ivf.query_full_scan_rows(
+            snap, q, dataclasses.replace(ecfg, use_kernel=False),
+            SERVE_MEM_K + 1)
+        if not (torch.equal(ids, pid[:, :SERVE_MEM_K])
+                and torch.equal(kid, ids)):
+            raise AssertionError(f"{tag}: served ids {ids.tolist()} != plain "
+                                 f"{pid[:, :SERVE_MEM_K].tolist()}")
+        err = float((ksc - psc[:, :SERVE_MEM_K]).abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"{tag}: scores off the plain version's by "
+                                 f"{err}")
+        margins.append(float((psc[:, SERVE_MEM_K - 1]
+                              - psc[:, SERVE_MEM_K]).min()))
+        return err
+
+    # -- 11a: the model and the memory ----------------------------------
+    a = {}
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    a["init_s"] = time.perf_counter() - t0
+    mats = [p for p in params.parameters() if p.dim() > 1]
+    if any(p.dtype != torch.bfloat16 for p in mats) or any(
+            p.dtype != torch.float32 for p in params.parameters()
+            if p.dim() == 1):
+        raise AssertionError("11a: weights not bf16 with f32 norm scales")
+    if sum(p.numel() for p in mats) != cfg.param_count():
+        raise AssertionError("11a: parameter count != the config's")
+    a["params"] = cfg.param_count()
+    a["weight_GB"] = sum(p.numel() * p.element_size()
+                         for p in params.parameters()) / 1e9
+    ecfg = dataclasses.replace(PAPER_1M, dim=cfg.d_model, k=SERVE_MEM_K)
+    x = make_corpus(N_ROWS, ecfg.dim, g)
+    a["corpus_GB"] = x.numel() * 4 / 1e9
+    svc, coll, stats = srv.build_memory(ecfg, x, device=dev)
+    del x
+    gc.collect()
+    a["build_s"] = stats["build_s"]
+    a["state_GB"] = sum(t.numel() * t.element_size()
+                        for t in coll.snapshot() if t is not None) / 1e9
+    a["build_assign_variants"] = assign_variants()
+    margins, errs = [], []
+    try:
+        inserts = torch.nn.functional.normalize(
+            torch.randn(SERVE_INSERTS, ecfg.dim, generator=g, device=dev),
+            dim=1)
+
+        def on_turn(turn, snap, batch, ids):
+            q = rag.embed_query(params, cfg, batch["tokens"])
+            errs.append(check_retrieval(f"11a turn {turn}", snap, q, ids,
+                                        ecfg, margins))
+
+        served = srv.serve(cfg, ecfg, params, svc, coll,
+                           requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                           decode_steps=SERVE_DECODE, turns=SERVE_TURNS,
+                           inserts=inserts,
+                           insert_queries=True, seed=seed, on_turn=on_turn)
+        n_ins = SERVE_INSERTS + SERVE_TURNS * SERVE_REQUESTS
+        want = torch.arange(N_ROWS + n_ins, dtype=torch.int32, device=dev)
+        if not torch.equal(live_ids(coll), want):
+            raise AssertionError("11a: acknowledged inserts are not all live")
+        if served["insert_rows"] != n_ins:
+            raise AssertionError(f"11a: {served['insert_rows']} rows inserted")
+        for t in served["turns"]:
+            if not np.all((t["tokens"] >= 0) & (t["tokens"] < cfg.vocab_size)):
+                raise AssertionError("11a: a token outside the vocabulary")
+        # the retrieval alone, at the served shape (a timing, not the path)
+        q = rag.embed_query(params, cfg, torch.randint(
+            0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT), generator=g,
+            device=dev, dtype=torch.int32))
+        snap = coll.snapshot()
+        with uncounted(kernels, excluded):
+            a["retrieval_ms"] = cuda_ms(
+                lambda: rag.retrieve(snap, q, ecfg, SERVE_MEM_K), reps=10)
+        del snap, q
+    finally:
+        srv.close(svc)
+    del svc, coll
+    dec = served["decode_ms"]
+    a.update(
+        requests=SERVE_REQUESTS, prompt=SERVE_PROMPT, decode=SERVE_DECODE,
+        turns=SERVE_TURNS, prefill_ms=served["prefill_ms"],
+        prefill_p50_ms=float(np.percentile(served["prefill_ms"], 50)),
+        decode_p50_ms=float(np.percentile(dec, 50)),
+        decode_p95_ms=float(np.percentile(dec, 95)),
+        decode_steps_timed=len(dec), tok_per_s=served["tok_per_s"],
+        insert_rows=served["insert_rows"],
+        insert_rows_per_s=served["insert_rows_per_s"],
+        insert_p50_ms=float(np.percentile(served["insert_ms"], 50)),
+        retrieval_score_err=max(errs), min_topk_margin=min(margins),
+        assign_variants=assign_variants(),
+        peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+    release()
+    want_v = ka.variant_for(N_ROWS, ecfg.n_clusters, ecfg.dim, 0, 0)
+    if set(k for k, v in a["assign_variants"].items() if v) != {want_v}:
+        raise AssertionError(f"11a kmeans_assign variants "
+                             f"{a['assign_variants']}, expected {want_v}")
+    a["assign_variant_expected"] = want_v
+    print(f"  11a [{card}]: {cfg.name} ({a['params']:,} params, "
+          f"{a['weight_GB']:.2f} GB bf16) over {N_ROWS:,} rows at dim "
+          f"{ecfg.dim} (state {a['state_GB']:.2f} GB): build "
+          f"{a['build_s']:.3f} s, retrieval {a['retrieval_ms']:.3f} ms, "
+          f"prefill (time to first token) {a['prefill_ms']} ms, decode "
+          f"p50/p95 {a['decode_p50_ms']:.3f}/{a['decode_p95_ms']:.3f} "
+          f"ms/token, {a['tok_per_s']:.1f} tok/s, inserts "
+          f"{a['insert_rows_per_s']:.0f} rows/s under serving (p50 "
+          f"{a['insert_p50_ms']:.3f} ms an op), peak "
+          f"{a['peak_GiB']:.1f} GiB; kmeans_assign {want_v} at D="
+          f"{ecfg.dim}", flush=True)
+
+    # -- 11c: the projection branch (dim 1024 != d_model 2048) ----------
+    c = {}
+    ecfg_c = dataclasses.replace(PAPER_100K, k=SERVE_MEM_K)
+    x = make_corpus(PROJ_ROWS, ecfg_c.dim, g)
+    before = assign_variants()
+    svc, coll, stats = srv.build_memory(ecfg_c, x, device=dev, name="proj")
+    del x
+    c["build_s"] = stats["build_s"]
+    c["assign_variants"] = {v: n - before[v]
+                            for v, n in assign_variants().items()}
+    try:
+        # the served step's projections: both come from the same seeds
+        step = rag.make_rag_prefill(cfg, ecfg_c, SERVE_PROMPT + 10,
+                                    k=SERVE_MEM_K, device=dev)
+        margins_c = []
+
+        def on_turn_c(turn, snap, batch, ids):
+            c["score_err"] = check_retrieval(
+                "11c", snap, step.query(params, batch["tokens"]), ids,
+                ecfg_c, margins_c)
+
+        served = srv.serve(cfg, ecfg_c, params, svc, coll,
+                           requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                           decode_steps=9, turns=1, seed=seed + 1,
+                           on_turn=on_turn_c)
+        c.update(prefill_ms=served["prefill_ms"][0],
+                 decode_steps=len(served["decode_ms"]),
+                 min_topk_margin=min(margins_c))
+    finally:
+        srv.close(svc)
+    del svc, coll, params, step
+    release()
+    if c["decode_steps"] != 8 or "score_err" not in c:
+        raise AssertionError(f"11c: {c}")
+    print(f"  11c [{card}]: projected RAG prefill over PAPER_100K (dim "
+          f"{ecfg_c.dim}): ids equal the plain version's, prefill "
+          f"{c['prefill_ms']:.3f} ms, 8 decode steps", flush=True)
+
+    # -- 11b: decode matches forward at full width, float32 -------------
+    b = {}
+    cfg32 = cfg.replace(dtype="float32")
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg32)
+    b["weight_GB"] = sum(p.numel() * p.element_size()
+                         for p in params.parameters()) / 1e9
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
+                           device=dev, dtype=torch.int32)
+    full, _ = lm.forward_train(params, cfg32, {"tokens": tokens})
+    last, caches, pos = lm.prefill(params, cfg32, {"tokens": tokens[:, :4]},
+                                   16)
+    pairs = [(last, full[:, 3])]
+    for t in range(4, 8):
+        logits, caches = lm.decode_step(
+            params, cfg32, tokens[:, t: t + 1], caches,
+            torch.full((2,), t, dtype=torch.int32, device=dev))
+        pairs.append((logits, full[:, t]))
+    for got, want in pairs:
+        torch.testing.assert_close(got, want, rtol=SERVE_TOL, atol=SERVE_TOL)
+    b.update(positions=len(pairs), tol=SERVE_TOL,
+             max_abs_err=max(float((x - y).abs().max()) for x, y in pairs),
+             logit_scale=float(full.abs().max()))
+    del params, full, caches, pairs
+    release()
+    print(f"  11b [{card}]: float32 ({b['weight_GB']:.2f} GB) decode logits "
+          f"== forward_train's at {b['positions']} positions, max err "
+          f"{b['max_abs_err']:.3g} (logits up to {b['logit_scale']:.1f})",
+          flush=True)
+
+    out["11a"], out["11b"], out["11c"] = a, b, c
+    out["launches"] = {k: m.launches.value - excluded.get(k, {}).get("all", 0)
+                       for k, m in kernels.items()}
+    out["launches_by_variant"] = {
+        k: {v: cnt.value - excluded.get(k, {}).get(v, 0)
+            for v, cnt in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    for k in ("scan_scores", "kmeans_assign", "segsum_gemm"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"phase 11 never launched {k}")
+    by = out["launches_by_variant"]["scan_scores"]
+    if by["generic"] or by["stream"] != out["launches"]["scan_scores"]:
+        raise AssertionError(f"phase 11 scan_scores by variant {by}")
+    if c["assign_variants"]["generic"] or not c["assign_variants"]["wgmma"]:
+        raise AssertionError(f"11c kmeans_assign {c['assign_variants']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3118,6 +3446,13 @@ def main(argv=None) -> int:
     paths["sharded"] = sh = phase_sharded(args.seed, card)
     print(f"phase 10: sharded tier in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(sh), flush=True)
+    release()
+    # 11. the RAG serving path (after phase 10's memory is freed), the
+    # counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["serving"] = sv = phase_serving(args.seed, card)
+    print(f"phase 11: serving in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(sv), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -1,14 +1,162 @@
-"""Memory-engine configuration (copy of ``EngineConfig`` from
+"""Config dataclasses for models, shapes and the memory engine (copies of
+``ModelConfig``, ``ShapeConfig``/``SHAPES`` and ``EngineConfig`` from
 ``src/repro/configs/base.py``, the port's own, so that it imports no JAX).
 
-A frozen dataclass with the reference's fields, defaults and checks, so both
-packages describe an engine with the same key.  ``interpret`` is kept for
-field parity and has no meaning in the port.
+Frozen dataclasses with the reference's fields, defaults, properties and
+checks, so both packages describe a model or an engine with the same key.
+``EngineConfig.interpret`` and ``ModelConfig.remat``/``scan_period`` are
+kept for field parity; the port runs no interpreter and no backward yet.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Model configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One assigned architecture. `family` selects the block wiring."""
+
+    name: str
+    family: str                      # dense | moe | encdec | hybrid | ssm | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    moe_top_k: int = 0
+    d_ff_expert: int = 0             # per-expert hidden (fine-grained MoE)
+    capacity_factor: float = 1.25
+
+    # --- attention details ---
+    rope_theta: float = 10_000.0
+    sliding_window: int = 0          # gemma2: 4096
+    alt_local_global: bool = False   # gemma2: even layers local, odd global
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    qk_norm: bool = False
+    parallel_block: bool = False     # stablelm-2: attn & mlp in parallel
+    post_norm: bool = False          # gemma2: sandwich (pre+post) norms
+
+    # --- SSM / hybrid ---
+    ssm_state: int = 0               # mamba2 N / rwkv head size
+    ssm_expand: int = 2              # mamba2 d_inner = expand * d_model
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    shared_block_period: int = 0     # zamba2: shared attn block every P mamba blocks
+
+    # --- encoder-decoder ---
+    num_enc_layers: int = 0
+    num_dec_layers: int = 0
+
+    # --- VLM ---
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl: (t, h, w) head_dim halves
+
+    # --- misc ---
+    act: str = "silu"                # silu | gelu
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    emb_scale: bool = False          # gemma: scale embeddings by sqrt(d_model)
+    scan_period: int = 1             # layers folded into one scan step
+    remat: bool = True
+    dtype: str = "bfloat16"
+    source: str = ""                 # provenance note
+
+    # ------------------------------------------------------------------
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if a 500k-token KV/state is tractable (long_500k eligibility)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def vocab_padded(self) -> int:
+        """Vocab rounded up so the embedding table shards over 16 and tiles over 128."""
+        return _round_up(self.vocab_size, 2048)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def n_periods(self) -> int:
+        assert self.num_layers % max(self.scan_period, 1) == 0
+        return self.num_layers // max(self.scan_period, 1)
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (used for 6ND roofline cross-check)."""
+        from repro_torch.models import accounting
+        return accounting.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import accounting
+        return accounting.active_param_count(self)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", "train", 4096, 256)
+PREFILL_32K = ShapeConfig("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+# ---------------------------------------------------------------------------
+# Memory engine (the paper's contribution)
+# ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
 class EngineConfig:

@@ -1,4 +1,5 @@
-"""Carry an IVF state across between the JAX package and the port.
+"""Carry an IVF state, or a model's weights, across between the JAX package
+and the port.
 
 A state of the reference, brought to the host (``jax.device_get``), is a
 NamedTuple of numpy arrays with the same field names, shapes and dtypes as
@@ -10,6 +11,14 @@ layout (lists ``[C, L*S, D]``, per-shard scalars stacked); the port holds
 it as a tuple of S shard-local states on a `ShardMesh`.  The sharded pair
 moves between the two, bit for bit, through
 `repro_torch.core.distributed.split_host` / `assemble_host`.
+
+A model of the reference is the pytree `repro.models.lm.init_params`
+returns (host arrays: ``embed.table``, ``head.w`` unless tied,
+``final_norm``, and the blocks' leaves stacked ``[L, ...]``);
+`lm_params_from_numpy` / `lm_params_to_numpy` move it onto the port's
+modules and back.  Weight matrices are cast to ``cfg.dtype`` once on the
+way in (bit-equal to the reference's cast at every use); norm scales stay
+f32.
 """
 from __future__ import annotations
 
@@ -19,7 +28,9 @@ import torch
 from repro_torch.core.distributed import ShardMesh, assemble_host, \
     share_centroids, split_host
 from repro_torch.core.index import IVFState
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lm
 
 
 def ivf_state_from_numpy(state, device: DeviceLike = None) -> IVFState:
@@ -54,3 +65,81 @@ def sharded_state_to_numpy(state) -> IVFState:
     """A port sharded state as one IVFState of numpy arrays in the
     reference's global layout."""
     return assemble_host(state)
+
+
+def _flatten(tree, prefix=""):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree,
+                         device: DeviceLike = None) -> lm.LM:
+    """The port's model on `device` from the reference's params pytree of
+    host arrays (``jax.device_get(lm.init_params(key, cfg))``): every leaf
+    copied into its parameter (block leaves unstacked along their layer
+    axis), matrices cast to ``cfg.dtype``.  Every parameter must be set."""
+    model = lm.LM(cfg, device=resolve_device(device))
+    params = dict(model.named_parameters())
+    todo = set(params)
+    for key, value in _flatten(tree):
+        value = np.asarray(value)
+        if key.startswith("blocks."):
+            leaf = key[len("blocks."):]
+            if value.shape[0] != cfg.num_layers:
+                raise ValueError(f"{key}: {value.shape[0]} stacked layers, "
+                                 f"config has {cfg.num_layers}")
+            pairs = [(f"blocks.{i}.{leaf}", value[i])
+                     for i in range(cfg.num_layers)]
+        else:
+            pairs = [(key, value)]
+        for name, arr in pairs:
+            if name not in params:
+                raise KeyError(f"the port's model has no parameter {name!r}")
+            p = params[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != the port's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+            todo.discard(name)
+    if todo:
+        raise KeyError(f"leaves missing from the tree: {sorted(todo)}")
+    return model
+
+
+def lm_params_to_numpy(model: lm.LM) -> dict:
+    """The reference's params pytree (f32 host arrays, block leaves stacked
+    ``[L, ...]``, ``head`` empty when tied) from the port's model."""
+    tree: dict = {"head": {}}
+    stacked: dict = {}
+    for name, p in model.named_parameters():
+        arr = p.detach().float().cpu().numpy()
+        if name.startswith("blocks."):
+            _, i, leaf = name.split(".", 2)
+            stacked.setdefault(leaf, {})[int(i)] = arr
+            continue
+        node = tree
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    blocks: dict = {}
+    for leaf, by_layer in stacked.items():
+        node = blocks
+        *path, last = leaf.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    tree["blocks"] = blocks
+    return tree
+
+
+def rag_projections_from_numpy(proj, unproj, device: DeviceLike = None):
+    """The reference's RAG projection matrices (``q @ proj`` [d_model,
+    dim], ``mem_vec @ unproj`` [dim, d_model]) as f32 tensors on `device`,
+    for `repro_torch.serving.rag.make_rag_prefill(proj=, unproj=)`."""
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+                 for a in (proj, unproj))

@@ -1,0 +1,191 @@
+"""Attention: chunked (flash-style) prefill/train + KV-cached decode.
+
+Port of ``src/repro/models/attention.py``.  Prefill/train never forms the
+[S, S] score matrix: a loop over KV chunks carries online-softmax stats
+(m, l, acc), with the reference's chunk size.  Supports GQA, sliding
+windows (gemma2 local layers), logit softcapping and causal masking.
+
+The reference multiplies bf16 operands with ``preferred_element_type=f32``;
+PyTorch's ``bf16 @ bf16`` returns bf16, so the score and P·V products here
+take operands upcast to f32 (exact for bf16 values) and sum in f32, and
+``p`` is rounded to the cache dtype first, as in the reference.
+
+Decode writes the new token's K/V rows in place into the stacked caches
+(the reference donates them).  One card: the reference's ``shard`` calls
+(no-ops without a mesh) have no counterpart.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+NEG_INF = -1e30
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # [B, S_max, KVH, Dh] (stacked: [L, B, ...])
+    v: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# projections
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """wq [d, h, dh], wk/wv [d, kvh, dh], wo [h, dh, d]; q_norm/k_norm [dh]
+    (f32, at ones) with qk_norm.  The reference's `attn_init`: the
+    projections are drawn by `lm.init_params` (each normal/sqrt(shape[0]);
+    wo's fan-in is its head axis, as in the reference)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        d, h, kvh, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+        dt = layers.torch_dtype(cfg.dtype)
+        for name, shape in (("wq", (d, h, dh)), ("wk", (d, kvh, dh)),
+                            ("wv", (d, kvh, dh)), ("wo", (h, dh, d))):
+            setattr(self, name, layers.param(
+                torch.empty(shape, dtype=dt, device=device)))
+        if cfg.qk_norm:
+            self.q_norm = layers.param(torch.ones((dh,), device=device))
+            self.k_norm = layers.param(torch.ones((dh,), device=device))
+
+
+def _proj(x, w):
+    """einsum("...d,dhk->...hk", x, w) in x's dtype."""
+    d = w.shape[0]
+    return (x @ w.to(x.dtype).reshape(d, -1)).unflatten(-1, w.shape[1:])
+
+
+def _project_qkv(p: Attention, x, cfg: ModelConfig, positions):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = layers.rms_norm(k, p.k_norm, cfg.norm_eps)
+    if positions is not None:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(p: Attention, o):
+    """einsum("...hk,hkd->...d", o, wo) in o's dtype."""
+    return o.flatten(-2) @ p.wo.to(o.dtype).reshape(-1, p.wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# chunked flash attention (prefill / train)
+# ---------------------------------------------------------------------------
+
+def _softcap(logits, cap: float):
+    return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, chunk: int = 1024) -> torch.Tensor:
+    """q [B,Sq,H,Dh]; k,v [B,Sk,KVH,Dh] -> [B,Sq,H,Dh].
+
+    Online softmax over KV chunks; GQA via head-group reshape.
+    `window > 0` = sliding-window (local) attention over the last `window`
+    keys.  The reference pads the keys to whole chunks and masks the pad
+    (``kpos < sk``); the last chunk here simply stops at Sk.
+    """
+    b, sq, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
+    if h % kvh:
+        raise ValueError(f"{h} query heads over {kvh} kv heads")
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, dh).float()
+    scale = dh ** -0.5
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, sq, kvh, g), NEG_INF, device=q.device)
+    l = torch.zeros((b, sq, kvh, g), device=q.device)
+    acc = torch.zeros((b, sq, kvh, g, dh), device=q.device)
+    for c0 in range(0, sk, chunk):
+        kci, vci = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        kpos = c0 + torch.arange(kci.shape[1], device=q.device)  # absolute
+        s = torch.einsum("bqhgd,bkhd->bqhgk", qg, kci.float()) * scale
+        s = _softcap(s, softcap)
+        delta = qpos[:, None] - kpos[None, :]
+        mask = (delta >= 0) if causal else torch.ones_like(delta,
+                                                          dtype=torch.bool)
+        if window > 0:            # <= 0: global attention
+            mask = mask & (delta < window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bqhgk,bkhd->bqhgd", p.to(vci.dtype).float(), vci.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# cached decode attention (one new token)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q, cache: KVCache, pos, *, window: int = 0,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """q [B,1,H,Dh]; cache K/V [B,Smax,KVH,Dh]; pos int[B] = current index.
+
+    Scores the single query against the whole (masked) cache.
+    """
+    b, _, h, dh = q.shape
+    _, smax, kvh, _ = cache.k.shape
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, dh).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, cache.k.float()) * (dh ** -0.5)
+    s = _softcap(s, softcap)
+    kpos = torch.arange(smax, device=q.device)
+    mask = kpos[None, :] <= pos[:, None]                    # causal vs cache
+    if window > 0:
+        mask = mask & (kpos[None, :] > (pos[:, None] - window))
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p.to(cache.v.dtype).float(),
+                     cache.v.float())
+    return o.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def cache_update(cache: KVCache, k_new, v_new, pos) -> KVCache:
+    """Write k/v [B,1,KVH,Dh] at per-row positions pos int[B], in place."""
+    rows = torch.arange(k_new.shape[0], device=k_new.device)
+    pos = pos.long()
+    cache.k[rows, pos] = k_new[:, 0]
+    cache.v[rows, pos] = v_new[:, 0]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# block-level entry point
+# ---------------------------------------------------------------------------
+
+def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
+                   positions=None, cache: KVCache = None,
+                   pos=None, window: int = 0, chunk: int = 1024,
+                   causal: bool = True):
+    """mode: 'train' | 'prefill' | 'decode'.
+
+    prefill returns (out, KVCache of the whole prompt); decode writes the
+    new token into `cache` at per-row `pos` and returns (out, cache).
+    """
+    softcap = cfg.attn_logit_softcap
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    if mode in ("train", "prefill"):
+        o = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap, chunk=chunk)
+        return _out_proj(p, o), (KVCache(k=k, v=v) if mode == "prefill"
+                                 else None)
+    if mode != "decode" or cache is None or pos is None:
+        raise ValueError(f"mode {mode!r} needs a cache and pos to decode")
+    cache = cache_update(cache, k, v, pos)
+    o = decode_attention(q, cache, pos, window=window, softcap=softcap)
+    return _out_proj(p, o), cache

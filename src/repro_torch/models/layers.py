@@ -1,0 +1,172 @@
+"""Shared model layers: norms, MLPs, embeddings, RoPE (incl. M-RoPE).
+
+Port of ``src/repro/models/layers.py``.  The reference keeps f32 weights
+and casts them to the activations' dtype at every use; the port holds the
+weight matrices in the model's dtype (cast once when the model is made or
+carried across), which is bit-equal, and the norm scales in f32, as the
+reference uses them.  Norms compute in f32 and cast back; products run in
+the activations' dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name ("bfloat16", "float32")."""
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.dtype)
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A weight of a serving model: no autograd (the backward waits for the
+    training slice)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.float32) -> torch.Tensor:
+    """normal / sqrt(fan_in), drawn from `gen` on its device."""
+    fan_in = shape[in_axis]
+    x = torch.randn(tuple(shape), generator=gen, device=gen.device)
+    return x.div_(math.sqrt(fan_in)).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps: float, *, gemma_style: bool = False):
+    dt = x.dtype
+    x = x.float()
+    var = (x * x).mean(-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    scale = scale.float()
+    scale = (1.0 + scale) if gemma_style else scale
+    return (x * scale).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated: SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+class MLP(nn.Module):
+    """wi (gate) and wu (up) [d_model, d_ff], wo [d_ff, d_model]."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device=None):
+        super().__init__()
+        for name, shape in (("wi", (d_model, d_ff)), ("wu", (d_model, d_ff)),
+                            ("wo", (d_ff, d_model))):
+            setattr(self, name, param(torch.empty(shape, dtype=dtype,
+                                                  device=device)))
+
+    def forward(self, x, act: str):
+        h = x @ self.wi.to(x.dtype)
+        u = x @ self.wu.to(x.dtype)
+        # jax.nn.gelu's default is the tanh approximation
+        h = (F.gelu(h, approximate="tanh") if act == "gelu"
+             else F.silu(h)) * u
+        return h @ self.wo.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class Embed(nn.Module):
+    """table [vocab_padded, d_model]."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.table = param(torch.empty((cfg.vocab_padded, cfg.d_model),
+                                       dtype=_dtype(cfg), device=device))
+
+
+class Head(nn.Module):
+    """w [d_model, vocab_padded]; no weight when the embeddings are tied."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if not cfg.tie_embeddings:
+            self.w = param(torch.empty((cfg.d_model, cfg.vocab_padded),
+                                       dtype=_dtype(cfg), device=device))
+
+
+def embed_apply(p: Embed, tokens, cfg: ModelConfig):
+    dt = _dtype(cfg)
+    x = p.table.index_select(0, tokens.reshape(-1)).view(
+        *tokens.shape, -1).to(dt)
+    if cfg.emb_scale:
+        # sqrt(d_model) in f32, then in the activations' dtype
+        s = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.float32)
+        x = x * s.to(device=x.device, dtype=dt)
+    return x
+
+
+def unembed_apply(p_embed: Embed, p_head: Head, x, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        w = p_embed.table.to(x.dtype).T               # [D, V]
+    else:
+        w = p_head.w.to(x.dtype)
+    logits = x @ w
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE (+ M-RoPE for qwen2-vl)
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def _rotate(x, ang):
+    """Rotate the split halves of x [..., S, H, Dh] by ang [..., S, Dh/2]."""
+    cos, sin = ang.cos()[..., None, :], ang.sin()[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta: float):
+    """x [..., S, H, Dh], positions [..., S] int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [Dh/2]
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x, positions3, sections: Tuple[int, ...], theta: float):
+    """M-RoPE (qwen2-vl): positions3 [..., S, 3] = (t, h, w) coordinates.
+
+    The Dh/2 frequency slots are partitioned into `sections` (t, h, w); each
+    section rotates by its own coordinate stream.
+    """
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                   # [Dh/2]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not split {dh // 2}")
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos = positions3.float().index_select(-1, sec_id)         # [..., S, Dh/2]
+    return _rotate(x, pos * freqs)

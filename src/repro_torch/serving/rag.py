@@ -1,0 +1,138 @@
+"""RAG serving — the paper's *query template* end to end.
+
+Port of ``src/repro/serving/rag.py``.  `make_rag_prefill`: embed the query
+tokens (mean-pooled model embeddings as the stub embedder), query the
+agentic memory with the engine's full scan (the ``scan_scores`` kernel on
+the card), splice the softmax-weighted top-k memory rows into the prompt
+as a soft-prefix embedding, then prefill.  Memory and model share the card
+and the stream, so no host round trip sits between them.
+
+Where the engine's dim differs from d_model, the reference draws its two
+projection matrices inside the step from ``PRNGKey(0)`` and ``PRNGKey(1)``;
+the port cannot reproduce jax's generator, so `RagPrefill` holds them as
+buffers: by default drawn from a ``torch.Generator`` seeded 0 and 1 (on the
+CPU, the same on every device), or passed in (``repro_torch.convert``
+carries the reference's across).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.core import index as ivf
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers, lm
+
+
+def memory_state(mem) -> ivf.IVFState:
+    """Accept a `repro_torch.api.Collection` (or the engine shim) or a raw
+    IVFState."""
+    if hasattr(mem, "snapshot"):
+        return mem.snapshot()
+    if hasattr(mem, "state"):
+        return mem.state
+    return mem
+
+
+@torch.no_grad()
+def embed_query(params: lm.LM, cfg: ModelConfig, tokens) -> torch.Tensor:
+    """Stub embedder: mean-pooled token embeddings, L2-normalized f32[B, D]."""
+    x = layers.embed_apply(params.embed, tokens, cfg).float()
+    q = x.mean(1)
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                           min=1e-6)
+
+
+def retrieve(state: ivf.IVFState, q, ecfg: EngineConfig, k: int):
+    """Memory lookup (full-scan template; one fused scan + top_k).
+    Returns (ids [B,k], scores [B,k], rows [B,k,D])."""
+    return ivf.query_full_scan_rows(memory_state(state), q, ecfg, k)
+
+
+def default_projection(seed: int, d_in: int, d_out: int) -> torch.Tensor:
+    """normal(d_in, d_out) / sqrt(d_in) from a CPU generator seeded `seed`."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((d_in, d_out), generator=g).div_(math.sqrt(d_in))
+
+
+class RagPrefill(nn.Module):
+    """(params, engine_state, batch) -> (logits, caches, pos, ids).
+
+    The retrieved memory vectors (dim = engine dim, projected to d_model if
+    needed) are prepended as a soft prompt embedding: the fused
+    retrieval -> generation path the paper's hybrid template schedules.
+    """
+
+    def __init__(self, cfg: ModelConfig, ecfg: EngineConfig, s_max: int,
+                 k: int, proj: Optional[torch.Tensor],
+                 unproj: Optional[torch.Tensor]):
+        super().__init__()
+        self.cfg, self.ecfg, self.s_max, self.k = cfg, ecfg, s_max, k
+        self.register_buffer("proj", proj)
+        self.register_buffer("unproj", unproj)
+
+    @torch.no_grad()
+    def query(self, params: lm.LM, tokens) -> torch.Tensor:
+        """The memory-space query f32[B, dim] the step retrieves with."""
+        q = embed_query(params, self.cfg, tokens)
+        return q if self.proj is None else q @ self.proj
+
+    @torch.no_grad()
+    def forward(self, params: lm.LM, mem_state, batch):
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        ids, scores, rows = retrieve(mem_state, self.query(params, tokens),
+                                     self.ecfg, self.k)
+        # retrieved memories enter the prompt as soft-prefix embeddings,
+        # softmax-weighted by retrieval score
+        w = torch.softmax(scores, dim=-1).float()
+        mem_vec = torch.einsum("bk,bkd->bd", w, rows.float())
+        if self.unproj is not None:
+            mem_vec = mem_vec @ self.unproj
+        x_mem = mem_vec[:, None, :].to(layers.torch_dtype(cfg.dtype))
+        emb = layers.embed_apply(params.embed, tokens, cfg)
+        emb = torch.cat([x_mem, emb[:, :-1]], dim=1)
+        out, caches, pos = _prefill_with_embeddings(params, cfg, emb, batch,
+                                                    self.s_max)
+        return out, caches, pos, ids
+
+
+def make_rag_prefill(cfg: ModelConfig, ecfg: EngineConfig, s_max: int,
+                     k: int = 4, *, proj: Optional[torch.Tensor] = None,
+                     unproj: Optional[torch.Tensor] = None,
+                     device: DeviceLike = None) -> RagPrefill:
+    """The RAG prefill step.  With ``ecfg.dim != cfg.d_model`` it holds the
+    query projection [d_model, dim] and the memory's way back [dim,
+    d_model] on `device` (the card unless named): `proj`/`unproj` if given,
+    else `default_projection` seeded 0 and 1."""
+    if ecfg.dim == cfg.d_model:
+        return RagPrefill(cfg, ecfg, s_max, k, None, None)
+    dev = resolve_device(device)
+    if proj is None:
+        proj = default_projection(0, cfg.d_model, ecfg.dim)
+    if unproj is None:
+        unproj = default_projection(1, ecfg.dim, cfg.d_model)
+    if proj.shape != (cfg.d_model, ecfg.dim) or \
+            unproj.shape != (ecfg.dim, cfg.d_model):
+        raise ValueError(f"projections {tuple(proj.shape)} / "
+                         f"{tuple(unproj.shape)} do not map d_model "
+                         f"{cfg.d_model} <-> dim {ecfg.dim}")
+    return RagPrefill(cfg, ecfg, s_max, k,
+                      proj.to(device=dev, dtype=torch.float32),
+                      unproj.to(device=dev, dtype=torch.float32))
+
+
+@torch.no_grad()
+def _prefill_with_embeddings(params: lm.LM, cfg: ModelConfig, x, batch,
+                             s_max: int):
+    """Prefill given already-computed input embeddings."""
+    x, caches, _ = lm._run_stack(params, x, cfg, mode="prefill", s_max=s_max)
+    caches = lm._grow_caches(caches, s_max)
+    logits = lm._final_logits(params, cfg, x[:, -1:])
+    pos = torch.full((x.shape[0],), x.shape[1] - 1, dtype=torch.int32,
+                     device=x.device)
+    return logits[:, 0], caches, pos

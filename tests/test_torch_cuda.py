@@ -5,6 +5,8 @@ on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -331,7 +333,8 @@ def test_kmeans_assign_main_path_shapes_take_wgmma(dev):
 
 
 @pytest.mark.parametrize("m,c,d,lo", [(999, 64, 128, 0), (100, 8, 130, -1),
-                                      (513, 100, 64, -3), (0, 4, 32, 0)])
+                                      (513, 100, 64, -3), (0, 4, 32, 0),
+                                      (4000, 1024, 2048, -1)])
 def test_segsum_kernel_matches_plain_and_is_deterministic(dev, m, c, d, lo):
     x = _randn(dev, m, d, seed=6)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -976,3 +979,124 @@ def test_fused_sharded_window_is_bit_equal_on_the_card(dev, store_dtype):
         for (gi, gs), (wi, ws) in zip(got, want):
             np.testing.assert_array_equal(gi, wi)
             np.testing.assert_array_equal(gs, ws)
+
+
+# ---------------------------------------------------------------------------
+# the RAG serving path on the card
+# ---------------------------------------------------------------------------
+
+def _serving_model(dev, dtype="bfloat16", arch="granite-3-2b", **widths):
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = registry.reduced_arch(arch).replace(dtype=dtype, **widths)
+    return cfg, lm.init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg)
+
+
+def test_serving_path_launches_the_stream_scan_and_no_f32_weights(dev):
+    """RAG prefill + decode on the card: the retrieval is one `scan_scores`
+    launch in its stream variant per turn, its ids equal the plain
+    version's; the model holds bf16 matrices (f32 norm scales only) and
+    no f32 master copy, and a decode step writes its caches in place and
+    casts no weight matrix to f32 (its transient peak stays below the f32
+    bytes of one MLP matrix)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import api, lm
+    from repro_torch.serving import rag, serve_step
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cfg, params = _serving_model(dev, num_layers=4, d_model=1024, d_ff=4096,
+                                 num_heads=16, num_kv_heads=4, head_dim=64)
+    weights = sum(p.numel() * p.element_size() for p in params.parameters())
+    for n, p in params.named_parameters():
+        assert p.dtype == (torch.float32 if p.dim() == 1
+                           else torch.bfloat16), n
+    assert torch.cuda.memory_allocated() - base < weights + (1 << 20)
+
+    batch = api.synth_batch(torch.Generator(device=dev).manual_seed(3), cfg,
+                            "prefill", 4, 32)
+    tok, caches, pos = serve_step.make_prefill(cfg, 48)(params, batch)
+    decode = serve_step.make_decode(cfg)
+    pos = pos + 1
+    tok, caches = decode(params, tok, caches, pos)       # warm (workspace)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    k_ptr = caches.k.data_ptr()
+    for _ in range(3):
+        pos = pos + 1
+        tok, caches = decode(params, tok, caches, pos)
+    torch.cuda.synchronize()
+    assert caches.k.data_ptr() == k_ptr
+    assert torch.cuda.memory_allocated() - held < (1 << 20)
+    assert torch.cuda.max_memory_allocated() - held < 4 * cfg.d_model * cfg.d_ff
+    del caches
+
+    ecfg = EngineConfig(dim=cfg.d_model, n_clusters=128, list_capacity=64,
+                        nprobe=16, k=4)
+    corpus = torch.nn.functional.normalize(_randn(dev, 4096, cfg.d_model), 1)
+    svc, mem, _ = serve.build_memory(ecfg, corpus, device=dev)
+    checked = []
+
+    def on_turn(turn, snap, batch, ids):
+        q = rag.embed_query(params, cfg, batch["tokens"])
+        plain = rag.retrieve(snap, q, dataclasses.replace(
+            ecfg, use_kernel=False), 4)[0]
+        assert torch.equal(plain, ids)
+        checked.append(turn)
+
+    try:
+        before = ss.launches_by_variant["stream"].value
+        out = serve.serve(cfg, ecfg, params, svc, mem, requests=4,
+                          prompt_len=32, decode_steps=4, turns=2,
+                          inserts=corpus[:64], on_turn=on_turn)
+        assert ss.launches_by_variant["stream"].value - before == 2
+        assert checked == [0, 1] and out["insert_rows"] == 64
+    finally:
+        serve.close(svc)
+
+
+def test_decode_matches_forward_on_the_card(dev):
+    """Decode logits == forward_train's at each position, float32, TF32
+    off, at the reference's 2e-3, for the dense archs' flags."""
+    from repro_torch.models import lm
+    for arch in ("granite-3-2b", "stablelm-12b", "gemma2-9b"):
+        cfg, params = _serving_model(dev, "float32", arch)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 8), device=dev,
+                               dtype=torch.int32,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(2))
+        full, _ = lm.forward_train(params, cfg, {"tokens": tokens})
+        last, caches, pos = lm.prefill(params, cfg, {"tokens": tokens[:, :4]},
+                                       16)
+        torch.testing.assert_close(last, full[:, 3], rtol=2e-3, atol=2e-3)
+        for t in range(4, 8):
+            logits, caches = lm.decode_step(
+                params, cfg, tokens[:, t: t + 1], caches,
+                torch.full((2,), t, dtype=torch.int32, device=dev))
+            torch.testing.assert_close(logits, full[:, t], rtol=2e-3,
+                                       atol=2e-3)
+
+
+def test_projected_rag_prefill_ids_equal_plain_on_the_card(dev):
+    """dim != d_model: the projections live on the card and the kernel's
+    retrieved ids equal the plain version's."""
+    from repro_torch.core import index as ivf
+    from repro_torch.serving import rag
+    cfg, params = _serving_model(dev)
+    ecfg = EngineConfig(dim=256, n_clusters=128, list_capacity=64, nprobe=16,
+                        k=4)
+    mem = torch.nn.functional.normalize(_randn(dev, 3000, 256, seed=5), 1)
+    state, _ = ivf.build(torch.Generator(device=dev).manual_seed(1), mem,
+                         torch.arange(3000, dtype=torch.int32, device=dev),
+                         ecfg)
+    step = rag.make_rag_prefill(cfg, ecfg, 40, k=4)
+    assert step.proj.device.type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), device=dev,
+                           dtype=torch.int32)
+    logits, caches, pos, ids = step(params, state, {"tokens": tokens})
+    q = step.query(params, tokens)
+    plain = ivf.query_full_scan_rows(
+        state, q, dataclasses.replace(ecfg, use_kernel=False), 4)[0]
+    assert torch.equal(plain, ids)
+    assert bool(torch.isfinite(logits.float()).all())

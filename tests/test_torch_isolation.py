@@ -2,8 +2,9 @@
 `api/replication.py` included), nor `chip_smoke.py`,
 `tools/profile_port.py` or `tools/ab_phases.py`, imports jax or anything
 of the JAX package `repro`; importing the port leaves jax unloaded; its
-EngineConfig has exactly the reference's fields, and its copies of
-framework-free modules keep the reference's public names.
+EngineConfig and ModelConfig have exactly the reference's fields, its arch
+configs equal the reference's, and its copies of framework-free modules
+keep the reference's public names.
 """
 import ast
 import dataclasses
@@ -43,10 +44,15 @@ def test_port_files_found():
     assert {"index.py", "collection.py", "service.py", "chip_smoke.py",
             "scan_scores.py", "scan_scores_q8.py", "checkpointer.py",
             "batch.py", "engine.py", "quickstart.py", "tuner.py",
-            "hnsw.py", "replication.py", "fault.py"} <= names
+            "hnsw.py", "replication.py", "fault.py", "archs.py",
+            "registry.py", "accounting.py", "layers.py", "attention.py",
+            "lm.py", "serve_step.py", "rag.py", "serve.py",
+            "serve_agent.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/distributed/fault.py",
-            "src/repro_torch/api/replication.py"} <= rel
+            "src/repro_torch/api/replication.py",
+            "src/repro_torch/models/api.py",
+            "src/repro_torch/launch/serve.py"} <= rel
 
 
 def test_import_leaves_jax_unloaded():
@@ -54,7 +60,10 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.api.replication, repro_torch.distributed.fault, "
             "repro_torch.core.metrics, repro_torch.configs.ame_paper, "
             "repro_torch.kernels.scan_scores_q8, "
-            "repro_torch.checkpoint.checkpointer; "
+            "repro_torch.checkpoint.checkpointer, repro_torch.models.lm, "
+            "repro_torch.models.api, repro_torch.serving.rag, "
+            "repro_torch.serving.serve_step, repro_torch.launch.serve, "
+            "repro_torch.serve_agent, repro_torch.configs.registry; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")
@@ -95,6 +104,38 @@ def test_engine_config_has_the_reference_fields():
     assert ame_paper.ABLATION_LADDER == jame_paper.ABLATION_LADDER
     with pytest.raises(ValueError):
         EngineConfig(index_policy="bogus")
+
+
+def test_model_config_has_the_reference_fields():
+    """ModelConfig and ShapeConfig have the reference's fields and
+    defaults, and the shapes are equal."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(base.ModelConfig) == fields(jbase.ModelConfig)
+    assert fields(base.ShapeConfig) == fields(jbase.ShapeConfig)
+    assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+
+
+def test_all_archs_equal_the_reference():
+    """ALL_ARCHS equals the reference's config by config, full and
+    reduced, and the registry lists the same cells."""
+    from repro.configs import archs as jarchs
+    from repro.configs import registry as jregistry
+    from repro_torch.configs import archs, registry
+    assert {k: dataclasses.asdict(v) for k, v in archs.ALL_ARCHS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jarchs.ALL_ARCHS.items()}
+    for name in registry.list_archs():
+        assert dataclasses.asdict(registry.reduced_arch(name)) == \
+            dataclasses.asdict(jregistry.reduced_arch(name)), name
+    assert [c[2:] for c in registry.all_cells(include_skipped=True)] == \
+        [c[2:] for c in jregistry.all_cells(include_skipped=True)]
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_arch("no-such-arch")
 
 
 def test_lock_hierarchy_matches_reference():

@@ -1,0 +1,389 @@
+"""Port parity for the dense LM substrate: `repro_torch.models` against the
+JAX package's `repro.models` on the same numpy inputs, at reduced sizes
+(2 layers, d_model 128), with the reference's parameters carried across by
+`repro_torch.convert.lm_params_from_numpy`.
+
+Tolerances: in float32 the port holds the reference to rtol = atol = 1e-4
+(the reference's own decode-vs-forward check is 2e-3); in bfloat16 logits
+agree within 1e-2 of the logits' largest magnitude (two to three bf16
+ulps: the two packages round different intermediate products), and the
+greedy tokens are equal wherever the reference's top-2 margin exceeds that
+tolerance.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import archs as jarchs
+from repro.configs import registry as jregistry
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import lm as jlm
+from repro_torch import convert
+from repro_torch.configs import archs, registry
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import api, attention, layers, lm
+
+jax.config.update("jax_platform_name", "cpu")
+
+DENSE = ["granite-3-2b", "stablelm-12b", "gemma2-9b", "gemma2-27b"]
+F32_TOL = 1e-4
+BF16_REL = 1e-2
+
+
+def _randn(seed, *shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dtype)
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+def _j(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("gemma_style", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_reference(gemma_style, dtype):
+    x, scale = _randn(0, 3, 5, 64, scale=3.0), _randn(1, 64, scale=0.1)
+    want = jlayers.rms_norm(jnp.asarray(x).astype(dtype), jnp.asarray(scale),
+                            1e-6, gemma_style=gemma_style)
+    got = layers.rms_norm(_t(x, getattr(torch, dtype)), _t(scale), 1e-6,
+                          gemma_style=gemma_style)
+    assert got.dtype == getattr(torch, dtype)
+    tol = F32_TOL if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(got), _j(want), rtol=tol, atol=tol)
+
+
+def test_rope_and_mrope_rotate_split_halves_as_reference():
+    x = _randn(2, 2, 7, 4, 32)
+    pos = np.arange(7, dtype=np.int32)[None].repeat(2, 0) + 3
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)
+    got = layers.apply_rope(_t(x), torch.from_numpy(pos), 10_000.0)
+    np.testing.assert_allclose(_np(got), _j(want), rtol=F32_TOL, atol=F32_TOL)
+    pos3 = np.stack([pos, pos + 1, 2 * pos], axis=-1)
+    want = jlayers.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), (4, 6, 6),
+                               1e6)
+    got = layers.apply_mrope(_t(x), torch.from_numpy(pos3), (4, 6, 6), 1e6)
+    np.testing.assert_allclose(_np(got), _j(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_mlp_matches_reference(act):
+    d, f = 64, 96
+    x = _randn(3, 2, 5, d)
+    p = {"wi": _randn(4, d, f, scale=d ** -0.5),
+         "wu": _randn(5, d, f, scale=d ** -0.5),
+         "wo": _randn(6, f, d, scale=f ** -0.5)}
+    want = jlayers.mlp_apply({k: jnp.asarray(v) for k, v in p.items()},
+                             jnp.asarray(x), act)
+    mlp = layers.MLP(d, f, torch.float32)
+    for k, v in p.items():
+        getattr(mlp, k).copy_(_t(v))
+    np.testing.assert_allclose(_np(mlp(_t(x), act)), _j(want),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("tied", [True, False])
+def test_embed_and_unembed_match_reference(tied):
+    """emb_scale, the tied or untied head and the final softcap."""
+    cfg = registry.reduced_arch("gemma2-9b").replace(
+        dtype="float32", tie_embeddings=tied)
+    jcfg = jregistry.reduced_arch("gemma2-9b").replace(
+        dtype="float32", tie_embeddings=tied)
+    table = _randn(7, cfg.vocab_padded, cfg.d_model)
+    w = _randn(8, cfg.d_model, cfg.vocab_padded, scale=0.1)
+    tokens = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 6))
+    emb, head = layers.Embed(cfg), layers.Head(cfg)
+    emb.table.copy_(_t(table))
+    jhead = {} if tied else {"w": jnp.asarray(w)}
+    if not tied:
+        head.w.copy_(_t(w))
+    x = jlayers.embed_apply({"table": jnp.asarray(table)},
+                            jnp.asarray(tokens, jnp.int32), jcfg)
+    got = layers.embed_apply(emb, torch.from_numpy(tokens), cfg)
+    np.testing.assert_allclose(_np(got), _j(x), rtol=F32_TOL, atol=F32_TOL)
+    want = jlayers.unembed_apply({"table": jnp.asarray(table)}, jhead, x, jcfg)
+    got = layers.unembed_apply(emb, head, got, cfg)
+    np.testing.assert_allclose(_np(got), _j(want), rtol=F32_TOL, atol=1e-3)
+    assert np.abs(_np(got)).max() <= cfg.final_logit_softcap
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window,softcap,chunk", [
+    (0, 0.0, 1024), (5, 50.0, 8), (0, 30.0, 7), (3, 0.0, 16)])
+def test_flash_attention_matches_reference(window, softcap, chunk):
+    """GQA (4 query heads over 2 kv heads), S = 24: a window smaller than
+    S, softcap, chunks smaller than S (7 leaves a ragged last chunk)."""
+    q, k, v = _randn(10, 2, 24, 4, 32), _randn(11, 2, 24, 2, 32), \
+        _randn(12, 2, 24, 2, 32)
+    want = jattn.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), window=window,
+                                 softcap=softcap, chunk=chunk)
+    got = attention.flash_attention(_t(q), _t(k), _t(v), window=window,
+                                    softcap=softcap, chunk=chunk)
+    np.testing.assert_allclose(_np(got), _j(want), rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (4, 50.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_matches_reference(window, softcap, dtype):
+    """One token against a 16-slot cache, a different position per row."""
+    q = _randn(13, 3, 1, 4, 32)
+    ck, cv = _randn(14, 3, 16, 2, 32), _randn(15, 3, 16, 2, 32)
+    pos = np.array([0, 7, 15], dtype=np.int32)
+    jc = jattn.KVCache(k=jnp.asarray(ck).astype(dtype),
+                       v=jnp.asarray(cv).astype(dtype))
+    want = jattn.decode_attention(jnp.asarray(q).astype(dtype), jc,
+                                  jnp.asarray(pos), window=window,
+                                  softcap=softcap)
+    dt = getattr(torch, dtype)
+    got = attention.decode_attention(
+        _t(q, dt), attention.KVCache(_t(ck, dt), _t(cv, dt)),
+        torch.from_numpy(pos), window=window, softcap=softcap)
+    tol = F32_TOL if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), _j(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the model: each dense reduced arch, forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def ref_params():
+    """The reference's parameters per dense arch (init does not depend on
+    the dtype, which only casts at use; the two gemma2 archs reduce to the
+    same shapes, so one init serves both)."""
+    by_shape, out = {}, {}
+    for a in DENSE:
+        jcfg = jregistry.reduced_arch(a)
+        key = dataclasses.replace(jcfg, name="", source="")
+        if key not in by_shape:
+            by_shape[key] = jax.device_get(
+                jlm.init_params(jax.random.PRNGKey(0), jcfg))
+        out[a] = by_shape[key]
+    return out
+
+
+def _check(got, want, dtype, what):
+    got, want = _np(got), _j(want)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL,
+                                   err_msg=what)
+        return
+    tol = BF16_REL * np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=what)
+    # greedy tokens equal where the reference's top-2 margin exceeds tol
+    two = np.sort(want, axis=-1)[..., -2:]
+    sure = (two[..., 1] - two[..., 0]) > tol
+    assert sure.any(), what
+    np.testing.assert_array_equal(got.argmax(-1)[sure], want.argmax(-1)[sure],
+                                  err_msg=what)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_model_matches_reference(ref_params, arch, dtype):
+    """forward_train, prefill of 12 tokens into a 32-slot cache, then three
+    decode_steps on teacher tokens: logits, caches and positions."""
+    jcfg = jregistry.reduced_arch(arch).replace(dtype=dtype)
+    cfg = registry.reduced_arch(arch).replace(dtype=dtype)
+    jp = ref_params[arch]
+    model = convert.lm_params_from_numpy(cfg, jp, "cpu")
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32)
+    # jitted, as the reference's own tests and entry points run it
+    forward = jax.jit(lambda p, b: jlm.forward_train(p, jcfg, b))
+    prefill = jax.jit(lambda p, b: jlm.prefill(p, jcfg, b, 32))
+    decode = jax.jit(lambda p, t, c, q: jlm.decode_step(p, jcfg, t, c, q))
+    want, _ = forward(jp, {"tokens": jnp.asarray(toks)})
+    got, aux = lm.forward_train(model, cfg, {"tokens": torch.from_numpy(toks)})
+    assert got.shape == (2, 20, cfg.vocab_padded) and float(aux) == 0.0
+    _check(got, want, dtype, "forward_train")
+
+    prompt = toks[:, :12]
+    jl, jc, jpos = prefill(jp, {"tokens": jnp.asarray(prompt)})
+    tl, tc, tpos = lm.prefill(model, cfg, {"tokens": torch.from_numpy(prompt)},
+                              32)
+    _check(tl, jl, dtype, "prefill")
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    assert tc.k.shape == jc.k.shape == (cfg.num_layers, 2, 32,
+                                        cfg.num_kv_heads, cfg.head_dim)
+    assert tc.k.dtype == getattr(torch, dtype)
+    for t in range(12, 15):
+        tok = toks[:, t: t + 1]
+        jl, jc = decode(jp, jnp.asarray(tok), jc,
+                        jnp.full((2,), t, jnp.int32))
+        tl, tc = lm.decode_step(model, cfg, torch.from_numpy(tok), tc,
+                                torch.full((2,), t, dtype=torch.int32))
+        _check(tl, jl, dtype, f"decode_step at {t}")
+    ctol = F32_TOL if dtype == "float32" else 0.05
+    for a, b in ((tc.k, jc.k), (tc.v, jc.v)):
+        np.testing.assert_allclose(_np(a), _j(b), rtol=ctol, atol=ctol)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_matches_forward(arch):
+    """The reference's `test_decode_matches_forward` on the port: decode
+    logits == teacher-forced logits at the same position, in float32, at
+    the reference's rtol = atol = 2e-3."""
+    cfg = registry.reduced_arch(arch).replace(dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2))
+    full, _ = lm.forward_train(params, cfg, {"tokens": tokens})
+    logits_last, caches, pos = lm.prefill(params, cfg,
+                                          {"tokens": tokens[:, :4]}, 16)
+    torch.testing.assert_close(logits_last, full[:, 3], rtol=2e-3, atol=2e-3)
+    for t in range(4, 7):
+        logits_t, caches = lm.decode_step(
+            params, cfg, tokens[:, t: t + 1], caches,
+            torch.full((2,), t, dtype=torch.int32))
+        torch.testing.assert_close(logits_t, full[:, t], rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_gemma2_window_alternation_changes_output():
+    """The reference's test on the port: a window smaller than the
+    sequence on the local layers changes the output."""
+    cfg = registry.reduced_arch("gemma2-9b")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    cfg_nolocal = cfg.replace(alt_local_global=False, sliding_window=0)
+    batch = api.synth_batch(torch.Generator().manual_seed(1), cfg, "train",
+                            1, 24)
+    cfg_local = cfg.replace(sliding_window=4)
+    a, _ = lm.forward_train(params, cfg_local, batch)
+    b, _ = lm.forward_train(params, cfg_nolocal, batch)
+    assert not torch.allclose(a.float(), b.float())
+    assert lm._layer_windows(cfg_local, 4) == [4, 0, 4, 0]
+
+
+# ---------------------------------------------------------------------------
+# parameters, configs, conversion
+# ---------------------------------------------------------------------------
+
+def _port_shapes(cfg: ModelConfig) -> dict:
+    """The port's parameter shapes in the reference's tree layout (block
+    leaves stacked), from a model on the meta device (nothing allocated)."""
+    out = {}
+    for name, p in lm.LM(cfg, device="meta").named_parameters():
+        if name.startswith("blocks."):
+            leaf = name.split(".", 2)[2]
+            out["blocks." + leaf] = (cfg.num_layers, *p.shape)
+        else:
+            out[name] = tuple(p.shape)
+    return out
+
+
+def _ref_shapes(jcfg) -> dict:
+    tree = jax.eval_shape(lambda: jlm.init_params(jax.random.PRNGKey(0),
+                                                  jcfg))
+    flat = jax.tree_util.tree_flatten_with_path(tree)[0]
+    return {".".join(k.key for k in path): tuple(leaf.shape)
+            for path, leaf in flat}
+
+
+@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("size", ["full", "reduced"])
+def test_param_shapes_match_reference(arch, size):
+    get = {"full": (registry.get_arch, jregistry.get_arch),
+           "reduced": (registry.reduced_arch, jregistry.reduced_arch)}[size]
+    cfg, jcfg = get[0](arch), get[1](arch)
+    assert _port_shapes(cfg) == _ref_shapes(jcfg)
+
+
+def test_param_count_matches_reference_for_all_archs():
+    """The analytic count of all ten archs, full and reduced, equals the
+    reference's; for the dense ones it is the port's own matrix count."""
+    assert sorted(archs.ALL_ARCHS) == sorted(jarchs.ALL_ARCHS)
+    for name in registry.list_archs():
+        for get, jget in ((registry.get_arch, jregistry.get_arch),
+                          (registry.reduced_arch, jregistry.reduced_arch)):
+            cfg, jcfg = get(name), jget(name)
+            assert cfg.param_count() == jcfg.param_count(), name
+            assert cfg.active_param_count() == jcfg.active_param_count()
+            if cfg.family == "dense":
+                mats = sum(p.numel() for p in
+                           lm.LM(cfg, device="meta").parameters()
+                           if p.dim() > 1)
+                assert mats == cfg.param_count(), name
+    assert registry.get_arch("granite-3-2b").param_count() == 2_537_553_920
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_params_round_trip(ref_params, dtype):
+    """reference tree -> port -> tree: norms bit-equal, matrices equal to
+    the reference's cast to the model dtype; and port -> tree -> port is
+    bit-equal parameter for parameter."""
+    cfg = registry.reduced_arch("gemma2-9b").replace(dtype=dtype)
+    jp = ref_params["gemma2-9b"]
+    model = convert.lm_params_from_numpy(cfg, jp, "cpu")
+    back = convert.lm_params_to_numpy(model)
+    flat = dict(jax.tree_util.tree_flatten_with_path(jp)[0])
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert {jax.tree_util.keystr(k) for k in flat} == \
+        {jax.tree_util.keystr(k) for k in got}
+    by_key = {jax.tree_util.keystr(k): v for k, v in got.items()}
+    for path, want in flat.items():
+        key = jax.tree_util.keystr(path)
+        want = np.asarray(want)
+        if want.ndim >= 2 and "norm" not in key and "ln_" not in key:
+            want = np.asarray(jnp.asarray(want).astype(dtype)
+                              .astype(jnp.float32))
+        np.testing.assert_array_equal(by_key[key], want, err_msg=key)
+    again = convert.lm_params_from_numpy(cfg, back, "cpu")
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              again.named_parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b), n
+        assert a.dtype == (torch.float32 if a.dim() == 1
+                           else getattr(torch, dtype)), n
+
+
+def test_init_params_distributions():
+    """The reference's distributions: matrices normal/sqrt(shape[0]), the
+    table x sqrt(d_model), dense norms zeros, q/k norms ones; a seed gives
+    the same model twice."""
+    cfg = registry.reduced_arch("stablelm-12b").replace(
+        dtype="float32", d_model=256, d_ff=512, vocab_size=4096)
+    a = lm.init_params(torch.Generator().manual_seed(3), cfg)
+    b = lm.init_params(torch.Generator().manual_seed(3), cfg)
+    for (n, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(p, q), n
+        leaf = n.rsplit(".", 1)[-1]
+        if leaf in ("q_norm", "k_norm"):
+            assert bool((p == 1).all()), n
+        elif p.dim() == 1:
+            assert bool((p == 0).all()), n
+        else:
+            std = float(p.std())
+            want = (cfg.vocab_padded ** -0.5 * cfg.d_model ** 0.5
+                    if n == "embed.table" else p.shape[0] ** -0.5)
+            assert abs(std / want - 1) < 0.1, (n, std, want)
+
+
+@pytest.mark.parametrize("arch", [a for a in jregistry.list_archs()
+                                  if jregistry.get_arch(a).family != "dense"])
+def test_other_families_name_their_slice(arch):
+    cfg = registry.reduced_arch(arch)
+    with pytest.raises(ValueError, match="slice"):
+        lm.init_params(torch.Generator(), cfg)
+    with pytest.raises(ValueError, match="not ported yet"):
+        lm.init_caches(cfg, 1, 8)
+

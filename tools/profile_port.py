@@ -11,6 +11,8 @@
 
     python3 tools/profile_port.py --host-copy [--out FILE]
 
+    python3 tools/profile_port.py --serving [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -50,6 +52,14 @@ that exists); (c) one page-locked buffer per collection, allocated once
 and reused (copies only).  Three demote/promote round trips each, the
 first apart; reports seconds, GB/s and host bytes (pinned allocations
 rounded up by the caching host allocator).
+
+``--serving`` profiles ``chip_smoke.py`` phase 11a's serving path: the
+granite-3-2b model at full width (bf16, from ``--seed``) beside the
+1,000,000-row memory at dim 2048 in PAPER_1M's layout, each op warmed
+first, then one each under the profiler: the retrieval alone (the full
+scan at B = 8), the RAG prefill of 8 x 512 tokens, 8 decode steps, and
+one 32-row insert; with the same breakdown plus the number of kernels
+each op launched.
 """
 from __future__ import annotations
 
@@ -85,7 +95,10 @@ def profiled(fn) -> dict:
             by_kernel[evt.name] += evt.device_time_total / 1e3  # us -> ms
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    launches = sum(1 for evt in prof.events()
+                   if evt.device_type == torch.autograd.DeviceType.CUDA)
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_kernels": launches,
             "device_idle_share": max(0.0, 1.0 - busy / (1e3 * wall)),
             "kernels_ms": {k[:90]: v for k, v in top}}
 
@@ -299,6 +312,65 @@ def host_copy(seed: int) -> dict:
     return out
 
 
+def serving(seed: int) -> dict:
+    """Profiled ops of phase 11a's serving path (see the module doc)."""
+    from repro_torch.api import MemoryOp
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import api, lm
+    from repro_torch.serving import rag, serve_step
+
+    dev = torch.device("cuda")
+    cfg = registry.get_arch(chip_smoke.SERVE_ARCH)
+    ecfg = dataclasses.replace(PAPER_1M, dim=cfg.d_model,
+                               k=chip_smoke.SERVE_MEM_K)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    x = chip_smoke.make_corpus(chip_smoke.N_ROWS, ecfg.dim, g)
+    svc, coll, _ = srv.build_memory(ecfg, x, device=dev)
+    del x
+    b, s = chip_smoke.SERVE_REQUESTS, chip_smoke.SERVE_PROMPT
+    prefill = rag.make_rag_prefill(cfg, ecfg, s + 10, k=ecfg.k, device=dev)
+    decode = serve_step.make_decode(cfg)
+    batch = api.synth_batch(g, cfg, "prefill", b, s)
+    q = rag.embed_query(params, cfg, batch["tokens"])
+    rows = torch.nn.functional.normalize(
+        torch.randn(32, ecfg.dim, generator=g, device=dev), dim=1)
+    state = {}
+
+    def run_prefill():
+        logits, caches, pos, _ = prefill(params, coll.snapshot(), batch)
+        state.update(tok=serve_step.greedy(logits, cfg.vocab_size)[:, None],
+                     caches=caches, pos=pos)
+
+    def run_decode(steps=8):
+        tok, caches, pos = state["tok"], state["caches"], state["pos"]
+        for _ in range(steps):
+            pos = pos + 1
+            tok, caches = decode(params, tok, caches, pos)
+
+    def insert():
+        svc.submit(MemoryOp("insert", coll.name, rows,
+                            concurrent=True)).result(timeout=600)
+
+    ops = {"retrieval B=8": lambda: rag.retrieve(coll.snapshot(), q, ecfg,
+                                                 ecfg.k),
+           f"RAG prefill {b}x{s}": run_prefill,
+           "decode 8 steps": run_decode,
+           "insert 32 rows": insert}
+    try:
+        for fn in ops.values():                 # warm every path once
+            fn()
+        torch.cuda.synchronize()
+        out = {name: profiled(fn) for name, fn in ops.items()}
+    finally:
+        srv.close(svc)
+    out["model"] = {"arch": cfg.name, "params": cfg.param_count(),
+                    "requests": b, "prompt": s}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -307,6 +379,7 @@ def main(argv=None) -> int:
     ap.add_argument("--assign-sweep", action="store_true")
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--host-copy", action="store_true")
+    ap.add_argument("--serving", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -325,6 +398,11 @@ def main(argv=None) -> int:
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
                       "host_copy": host_copy(args.seed)}, args.out)
+    if args.serving:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "serving": serving(args.seed)}, args.out)
     if args.fused:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

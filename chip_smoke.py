@@ -86,6 +86,14 @@ Phases (any failure raises and the script exits non-zero):
    acknowledged insert live; the projection branch over a PAPER_100K
    memory (dim 1024); the model in float32, its decode logits equal to
    ``forward_train``'s within 2e-3.
+12. families: the same serving path for the MoE, VLM, SSM and hybrid
+   families at full width (weights from ``--seed``): olmoe-1b-7b beside
+   the 1,000,000-row memory with 11a's workload and checks (its MoE
+   combine bit-equal on a rerun, a finite aux loss); deepseek-moe-16b,
+   qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b one at a time, one turn each
+   through the projection branch over PAPER_100K with concurrent inserts;
+   olmoe-1b-7b, rwkv6-1.6b and zamba2-2.7b in float32, decode logits equal
+   to ``forward_train``'s within 2e-3.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -3093,17 +3101,28 @@ def phase_sharded(seed: int, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the RAG serving path (a dense LM at full width beside the memory)
+# phases 11 and 12: the RAG serving path (an LM at full width beside the
+# memory)
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "granite-3-2b"   # the serve entry points' default arch
-SERVE_PROMPT = 512      # 11a: prompt tokens a request
-SERVE_DECODE = 32       # 11a: greedy tokens a request
+SERVE_PROMPT = 512      # 11a, 12: prompt tokens a request
+SERVE_DECODE = 32       # 11a, 12: greedy tokens a request
 SERVE_TURNS = 3
-SERVE_INSERTS = 256     # 11a: rows inserted in 32-row concurrent ops
+SERVE_INSERTS = 256     # 11a, 12a: rows inserted in 32-row concurrent ops
 SERVE_MEM_K = 4         # retrieved memories a request
-PROJ_ROWS = 100_000     # 11c: PAPER_100K's corpus (dim 1024 != d_model)
-SERVE_TOL = 2e-3        # 11b: the reference's decode-vs-forward rtol/atol
+PROJ_ROWS = 100_000     # 11c, 12b: PAPER_100K's corpus (dim 1024 != d_model)
+SERVE_TOL = 2e-3        # 11b, 12c: the reference's decode-vs-forward rtol/atol
+FAMILY_ARCH = "olmoe-1b-7b"     # 12a: the sparse model beside PAPER_1M
+FAMILY_ARCHS = ("deepseek-moe-16b", "qwen2-vl-7b", "rwkv6-1.6b",
+                "zamba2-2.7b")  # 12b: the other families, one at a time
+# 12c: decode == forward at full width.  rwkv6 in float64: its per-head
+# GroupNorm (eps 1e-6) divides nearly constant early heads by ~1e-3, which
+# turns float32 rounding into differences past SERVE_TOL on some draws
+# (measured beside it, not held; ROADMAP.md section 3)
+FAMILY_DECODE = (("olmoe-1b-7b", "float32"), ("rwkv6-1.6b", "float64"),
+                 ("zamba2-2.7b", "float32"))
+FAMILY_INSERTS = 64     # 12b: rows inserted a model, 32-row ops
 
 
 def live_ids(coll) -> torch.Tensor:
@@ -3112,90 +3131,121 @@ def live_ids(coll) -> torch.Tensor:
     return torch.sort(ids[ids >= 0]).values
 
 
-def phase_serving(seed: int, card: str) -> dict:
-    """The RAG serving path on the card, through
-    `repro_torch.launch.serve`.  11a: granite-3-2b at full width (40
-    layers, d_model 2048, bf16 weights from `seed`) beside a 1,000,000-row
-    memory at dim 2048 in PAPER_1M's layout (C 1024, L 1464, spill 4096),
-    built through `MemoryService`: SERVE_TURNS turns of SERVE_REQUESTS
-    requests (SERVE_PROMPT-token prompts, SERVE_DECODE greedy tokens)
-    while SERVE_INSERTS rows go in as 32-row concurrent inserts and each
-    turn's query embeddings after it; every turn's retrieved ids equal the
-    plain version's on the same snapshot (scores within 1e-5), every
-    acknowledged insert is live.  11c: the projection branch (a PAPER_100K
-    memory, dim 1024): one RAG prefill and 8 decode steps, ids equal the
-    plain version's.  11b: the same model in float32: decode logits equal
-    `forward_train`'s at every position within SERVE_TOL."""
-    from repro_torch.configs import registry
-    from repro_torch.configs.ame_paper import PAPER_100K, PAPER_1M
-    from repro_torch.core import index as ivf
+def serving_kernels() -> dict:
+    """The kernel modules the serving path launches, counts set to 0."""
     from repro_torch.kernels import kmeans_assign as ka
     from repro_torch.kernels import scan_scores as ss
     from repro_torch.kernels import scan_scores_q8 as q8
     from repro_torch.kernels import segsum_gemm as sg
-    from repro_torch.launch import serve as srv
-    from repro_torch.models import lm
-    from repro_torch.serving import rag
-
-    dev = torch.device("cuda")
     kernels = {"scan_scores": ss, "scan_scores_q8": q8, "kmeans_assign": ka,
                "segsum_gemm": sg}
     for m in kernels.values():
         for c in (m.launches, *getattr(m, "launches_by_variant", {}).values(),
                   *getattr(m, "launches_by_lanes", {}).values()):
             c.reset()
-    excluded = {}
-    torch.cuda.reset_peak_memory_stats()
-    cfg = registry.get_arch(SERVE_ARCH)
-    if cfg.d_model != SERVE_DIM:
-        raise AssertionError(f"{SERVE_ARCH} d_model {cfg.d_model}")
-    out = {"card": card, "arch": cfg.name, "tf32": bool(
-        torch.backends.cuda.matmul.allow_tf32),
-        "bf16_reduced_precision_reduction": bool(
-            torch.backends.cuda.matmul
-            .allow_bf16_reduced_precision_reduction)}
-    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    return kernels
 
-    def assign_variants():
-        return {v: c.value - excluded.get("kmeans_assign", {}).get(v, 0)
-                for v, c in ka.launches_by_variant.items()}
 
-    def check_retrieval(tag, snap, q, ids, ecfg, margins):
-        """The served ids against the plain version's on the same snapshot,
-        the kernel's scores against the plain version's."""
-        with uncounted(kernels, excluded):
-            kid, ksc, _ = rag.retrieve(snap, q, ecfg, SERVE_MEM_K)
-        pid, psc, _ = ivf.query_full_scan_rows(
-            snap, q, dataclasses.replace(ecfg, use_kernel=False),
-            SERVE_MEM_K + 1)
-        if not (torch.equal(ids, pid[:, :SERVE_MEM_K])
-                and torch.equal(kid, ids)):
-            raise AssertionError(f"{tag}: served ids {ids.tolist()} != plain "
-                                 f"{pid[:, :SERVE_MEM_K].tolist()}")
-        err = float((ksc - psc[:, :SERVE_MEM_K]).abs().max())
-        if err > 1e-5:
-            raise AssertionError(f"{tag}: scores off the plain version's by "
-                                 f"{err}")
-        margins.append(float((psc[:, SERVE_MEM_K - 1]
-                              - psc[:, SERVE_MEM_K]).min()))
-        return err
+def assign_variants(kernels, excluded) -> dict:
+    return {v: c.value - excluded.get("kmeans_assign", {}).get(v, 0)
+            for v, c in kernels["kmeans_assign"].launches_by_variant.items()}
 
-    # -- 11a: the model and the memory ----------------------------------
-    a = {}
+
+def path_launches(kernels, excluded) -> dict:
+    """A serving phase's launches, the checks' left out."""
+    out = {"launches": {k: m.launches.value
+                        - excluded.get(k, {}).get("all", 0)
+                        for k, m in kernels.items()}}
+    out["launches_by_variant"] = {
+        k: {v: cnt.value - excluded.get(k, {}).get(v, 0)
+            for v, cnt in kernels[k].launches_by_variant.items()}
+        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    return out
+
+
+def check_retrieval(tag, snap, q, ids, ecfg, margins, kernels, excluded):
+    """The served ids against the plain version's on the same snapshot,
+    the kernel's scores against the plain version's."""
+    from repro_torch.core import index as ivf
+    from repro_torch.serving import rag
+    with uncounted(kernels, excluded):
+        kid, ksc, _ = rag.retrieve(snap, q, ecfg, SERVE_MEM_K)
+    pid, psc, _ = ivf.query_full_scan_rows(
+        snap, q, dataclasses.replace(ecfg, use_kernel=False),
+        SERVE_MEM_K + 1)
+    if not (torch.equal(ids, pid[:, :SERVE_MEM_K]) and torch.equal(kid, ids)):
+        raise AssertionError(f"{tag}: served ids {ids.tolist()} != plain "
+                             f"{pid[:, :SERVE_MEM_K].tolist()}")
+    err = float((ksc - psc[:, :SERVE_MEM_K]).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"{tag}: scores off the plain version's by {err}")
+    margins.append(float((psc[:, SERVE_MEM_K - 1]
+                          - psc[:, SERVE_MEM_K]).min()))
+    return err
+
+
+def made_model(tag, cfg, seed: int):
+    """The model from `seed` on the card: matrices in ``cfg.dtype`` (but
+    rwkv6's f32 bonus), vectors f32, and as many parameters as the
+    analytic count (`accounting.param_count`) says.  Returns (params,
+    record)."""
+    from repro_torch.models import accounting, layers, lm
     t0 = time.perf_counter()
-    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    params = lm.init_params(
+        torch.Generator(device="cuda").manual_seed(seed), cfg)
     torch.cuda.synchronize()
-    a["init_s"] = time.perf_counter() - t0
-    mats = [p for p in params.parameters() if p.dim() > 1]
-    if any(p.dtype != torch.bfloat16 for p in mats) or any(
-            p.dtype != torch.float32 for p in params.parameters()
-            if p.dim() == 1):
-        raise AssertionError("11a: weights not bf16 with f32 norm scales")
-    if sum(p.numel() for p in mats) != cfg.param_count():
-        raise AssertionError("11a: parameter count != the config's")
-    a["params"] = cfg.param_count()
-    a["weight_GB"] = sum(p.numel() * p.element_size()
-                         for p in params.parameters()) / 1e9
+    rec = {"init_s": time.perf_counter() - t0}
+    dt = layers.torch_dtype(cfg.dtype)
+    for name, p in params.named_parameters():
+        want = (torch.float32 if p.dim() == 1 or name.endswith(".u")
+                else dt)
+        if p.dtype != want:
+            raise AssertionError(f"{tag}: {name} is {p.dtype}, not {want}")
+    if accounting.counted_params(params) != cfg.param_count():
+        raise AssertionError(f"{tag}: parameter count != the config's")
+    rec["params"] = cfg.param_count()
+    rec["weight_GB"] = sum(p.numel() * p.element_size()
+                           for p in params.parameters()) / 1e9
+    return params, rec
+
+
+def served_numbers(served) -> dict:
+    """What a served run prints: time to first token, ms/token, tok/s,
+    insert rows/s."""
+    dec = served["decode_ms"]
+    out = dict(prefill_ms=served["prefill_ms"],
+               prefill_p50_ms=float(np.percentile(served["prefill_ms"], 50)),
+               decode_p50_ms=float(np.percentile(dec, 50)),
+               decode_p95_ms=float(np.percentile(dec, 95)),
+               decode_steps_timed=len(dec), tok_per_s=served["tok_per_s"],
+               insert_rows=served["insert_rows"])
+    if "insert_rows_per_s" in served:
+        out["insert_rows_per_s"] = served["insert_rows_per_s"]
+        out["insert_p50_ms"] = float(np.percentile(served["insert_ms"], 50))
+    return out
+
+
+def check_tokens(tag, served, cfg) -> None:
+    for t in served["turns"]:
+        if not np.all((t["tokens"] >= 0) & (t["tokens"] < cfg.vocab_size)):
+            raise AssertionError(f"{tag}: a token outside the vocabulary")
+
+
+def serve_beside_paper_1m(tag, cfg, params, seed, g, kernels, excluded):
+    """`repro_torch.launch.serve`'s body with `params` beside a
+    1,000,000-row memory at dim d_model in PAPER_1M's layout (C 1024, L
+    1464, spill 4096), built through `MemoryService`: SERVE_TURNS turns of
+    SERVE_REQUESTS requests (SERVE_PROMPT-token prompts, SERVE_DECODE
+    greedy tokens) while SERVE_INSERTS rows go in as 32-row concurrent
+    inserts and each turn's query embeddings after it; every turn's
+    retrieved ids equal the plain version's on the same snapshot (scores
+    within 1e-5), every acknowledged insert is live."""
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving import rag
+
+    dev = torch.device("cuda")
+    a = {}
     ecfg = dataclasses.replace(PAPER_1M, dim=cfg.d_model, k=SERVE_MEM_K)
     x = make_corpus(N_ROWS, ecfg.dim, g)
     a["corpus_GB"] = x.numel() * 4 / 1e9
@@ -3205,7 +3255,7 @@ def phase_serving(seed: int, card: str) -> dict:
     a["build_s"] = stats["build_s"]
     a["state_GB"] = sum(t.numel() * t.element_size()
                         for t in coll.snapshot() if t is not None) / 1e9
-    a["build_assign_variants"] = assign_variants()
+    a["build_assign_variants"] = assign_variants(kernels, excluded)
     margins, errs = [], []
     try:
         inserts = torch.nn.functional.normalize(
@@ -3214,8 +3264,8 @@ def phase_serving(seed: int, card: str) -> dict:
 
         def on_turn(turn, snap, batch, ids):
             q = rag.embed_query(params, cfg, batch["tokens"])
-            errs.append(check_retrieval(f"11a turn {turn}", snap, q, ids,
-                                        ecfg, margins))
+            errs.append(check_retrieval(f"{tag} turn {turn}", snap, q, ids,
+                                        ecfg, margins, kernels, excluded))
 
         served = srv.serve(cfg, ecfg, params, svc, coll,
                            requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
@@ -3225,12 +3275,12 @@ def phase_serving(seed: int, card: str) -> dict:
         n_ins = SERVE_INSERTS + SERVE_TURNS * SERVE_REQUESTS
         want = torch.arange(N_ROWS + n_ins, dtype=torch.int32, device=dev)
         if not torch.equal(live_ids(coll), want):
-            raise AssertionError("11a: acknowledged inserts are not all live")
+            raise AssertionError(f"{tag}: acknowledged inserts are not all "
+                                 "live")
         if served["insert_rows"] != n_ins:
-            raise AssertionError(f"11a: {served['insert_rows']} rows inserted")
-        for t in served["turns"]:
-            if not np.all((t["tokens"] >= 0) & (t["tokens"] < cfg.vocab_size)):
-                raise AssertionError("11a: a token outside the vocabulary")
+            raise AssertionError(f"{tag}: {served['insert_rows']} rows "
+                                 "inserted")
+        check_tokens(tag, served, cfg)
         # the retrieval alone, at the served shape (a timing, not the path)
         q = rag.embed_query(params, cfg, torch.randint(
             0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT), generator=g,
@@ -3243,48 +3293,140 @@ def phase_serving(seed: int, card: str) -> dict:
     finally:
         srv.close(svc)
     del svc, coll
-    dec = served["decode_ms"]
-    a.update(
-        requests=SERVE_REQUESTS, prompt=SERVE_PROMPT, decode=SERVE_DECODE,
-        turns=SERVE_TURNS, prefill_ms=served["prefill_ms"],
-        prefill_p50_ms=float(np.percentile(served["prefill_ms"], 50)),
-        decode_p50_ms=float(np.percentile(dec, 50)),
-        decode_p95_ms=float(np.percentile(dec, 95)),
-        decode_steps_timed=len(dec), tok_per_s=served["tok_per_s"],
-        insert_rows=served["insert_rows"],
-        insert_rows_per_s=served["insert_rows_per_s"],
-        insert_p50_ms=float(np.percentile(served["insert_ms"], 50)),
-        retrieval_score_err=max(errs), min_topk_margin=min(margins),
-        assign_variants=assign_variants(),
-        peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
-    release()
-    want_v = ka.variant_for(N_ROWS, ecfg.n_clusters, ecfg.dim, 0, 0)
+    a.update(requests=SERVE_REQUESTS, prompt=SERVE_PROMPT,
+             decode=SERVE_DECODE, turns=SERVE_TURNS,
+             retrieval_score_err=max(errs), min_topk_margin=min(margins),
+             assign_variants=assign_variants(kernels, excluded),
+             **served_numbers(served))
+    want_v = kernels["kmeans_assign"].variant_for(N_ROWS, ecfg.n_clusters,
+                                                  ecfg.dim, 0, 0)
     if set(k for k, v in a["assign_variants"].items() if v) != {want_v}:
-        raise AssertionError(f"11a kmeans_assign variants "
+        raise AssertionError(f"{tag} kmeans_assign variants "
                              f"{a['assign_variants']}, expected {want_v}")
     a["assign_variant_expected"] = want_v
-    print(f"  11a [{card}]: {cfg.name} ({a['params']:,} params, "
-          f"{a['weight_GB']:.2f} GB bf16) over {N_ROWS:,} rows at dim "
-          f"{ecfg.dim} (state {a['state_GB']:.2f} GB): build "
-          f"{a['build_s']:.3f} s, retrieval {a['retrieval_ms']:.3f} ms, "
-          f"prefill (time to first token) {a['prefill_ms']} ms, decode "
-          f"p50/p95 {a['decode_p50_ms']:.3f}/{a['decode_p95_ms']:.3f} "
-          f"ms/token, {a['tok_per_s']:.1f} tok/s, inserts "
-          f"{a['insert_rows_per_s']:.0f} rows/s under serving (p50 "
-          f"{a['insert_p50_ms']:.3f} ms an op), peak "
-          f"{a['peak_GiB']:.1f} GiB; kmeans_assign {want_v} at D="
-          f"{ecfg.dim}", flush=True)
+    a["dim"] = ecfg.dim
+    return a
+
+
+def print_served(tag, card, cfg, r, memory: str) -> None:
+    ins = (f"inserts {r['insert_rows_per_s']:.0f} rows/s under serving "
+           f"(p50 {r['insert_p50_ms']:.3f} ms an op), "
+           if "insert_rows_per_s" in r else "")
+    print(f"  {tag} [{card}]: {cfg.name} ({r['params']:,} params, "
+          f"{r['weight_GB']:.2f} GB {cfg.dtype}) {memory}: prefill (time to "
+          f"first token) {[round(t, 3) for t in r['prefill_ms']]} ms, decode "
+          f"p50/p95 {r['decode_p50_ms']:.3f}/{r['decode_p95_ms']:.3f} "
+          f"ms/token, {r['tok_per_s']:.1f} tok/s, {ins}peak "
+          f"{r['peak_GiB']:.1f} GiB", flush=True)
+
+
+def decode_pairs(cfg, params, tokens):
+    """`forward_train` over `tokens` [2, 8], then prefill of the first 4
+    and 4 decode steps on the rest: (the forward's logits, [(step logits,
+    the forward's at that position)])."""
+    from repro_torch.models import lm
+    full, _ = lm.forward_train(params, cfg, {"tokens": tokens})
+    last, caches, _ = lm.prefill(params, cfg, {"tokens": tokens[:, :4]}, 16)
+    pairs = [(last, full[:, 3])]
+    for t in range(4, 8):
+        logits, caches = lm.decode_step(
+            params, cfg, tokens[:, t: t + 1], caches,
+            torch.full((2,), t, dtype=torch.int32, device=tokens.device))
+        pairs.append((logits, full[:, t]))
+    return full, pairs
+
+
+def decode_vs_forward(tag, cfg, seed, g, dtype="float32"):
+    """The model in `dtype` at full width from `seed`: prefill 4 teacher
+    tokens, decode 4; every step's logits equal `forward_train`'s within
+    rtol = atol = SERVE_TOL.  Returns (record, tokens, the forward's
+    logits)."""
+    from repro_torch.models import layers
+    cfgx = cfg.replace(dtype=dtype)
+    params, b = made_model(tag, cfgx, seed)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
+                           device=g.device, dtype=torch.int32)
+    full, pairs = decode_pairs(cfgx, params, tokens)
+    b.update(arch=cfg.name, dtype=dtype, positions=len(pairs),
+             tol=SERVE_TOL,
+             max_abs_err=max(float((x - y).abs().max()) for x, y in pairs),
+             logit_scale=float(full.abs().max()))
+    for got, want in pairs:
+        if got.dtype != layers.torch_dtype(dtype):
+            raise AssertionError(f"{tag}: logits in {got.dtype}")
+        torch.testing.assert_close(got, want, rtol=SERVE_TOL, atol=SERVE_TOL)
+    del params, pairs
+    release()
+    return b, tokens, full
+
+
+def float32_reading(tag, cfg, seed, tokens, full64) -> dict:
+    """The same model and tokens in float32, measured against the float64
+    run: the decode's distance from the float32 forward, and the float32
+    forward's own distance from the float64 one."""
+    cfg32 = cfg.replace(dtype="float32")
+    params, _ = made_model(tag, cfg32, seed)
+    full, pairs = decode_pairs(cfg32, params, tokens)
+    out = {"float32_decode_err": max(float((x - y).abs().max())
+                                     for x, y in pairs),
+           "float32_forward_vs_float64": float(
+               (full.double() - full64).abs().max())}
+    del params, pairs, full
+    release()
+    return out
+
+
+def phase_serving(seed: int, card: str) -> dict:
+    """The RAG serving path on the card, through
+    `repro_torch.launch.serve`.  11a: granite-3-2b at full width (40
+    layers, d_model 2048, bf16 weights from `seed`) served beside the
+    PAPER_1M-layout memory (`serve_beside_paper_1m`).  11c: the projection
+    branch (a PAPER_100K memory, dim 1024): one RAG prefill and 8 decode
+    steps, ids equal the plain version's.  11b: the same model in
+    float32: decode logits equal `forward_train`'s at every position
+    within SERVE_TOL."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_100K
+    from repro_torch.launch import serve as srv
+    from repro_torch.serving import rag
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    excluded = {}
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_arch(SERVE_ARCH)
+    if cfg.d_model != SERVE_DIM:
+        raise AssertionError(f"{SERVE_ARCH} d_model {cfg.d_model}")
+    out = {"card": card, "arch": cfg.name, "tf32": bool(
+        torch.backends.cuda.matmul.allow_tf32),
+        "bf16_reduced_precision_reduction": bool(
+            torch.backends.cuda.matmul
+            .allow_bf16_reduced_precision_reduction)}
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    # -- 11a: the model and the memory ----------------------------------
+    params, a = made_model("11a", cfg, seed)
+    a.update(serve_beside_paper_1m("11a", cfg, params, seed, g, kernels,
+                                   excluded))
+    a["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    release()
+    print(f"  11a [{card}]: {cfg.name} over {N_ROWS:,} rows at dim "
+          f"{a['dim']} (state {a['state_GB']:.2f} GB): build "
+          f"{a['build_s']:.3f} s, retrieval {a['retrieval_ms']:.3f} ms; "
+          f"kmeans_assign {a['assign_variant_expected']} at D={a['dim']}",
+          flush=True)
+    print_served("11a", card, cfg, a, f"beside {N_ROWS:,} rows")
 
     # -- 11c: the projection branch (dim 1024 != d_model 2048) ----------
     c = {}
     ecfg_c = dataclasses.replace(PAPER_100K, k=SERVE_MEM_K)
     x = make_corpus(PROJ_ROWS, ecfg_c.dim, g)
-    before = assign_variants()
+    before = assign_variants(kernels, excluded)
     svc, coll, stats = srv.build_memory(ecfg_c, x, device=dev, name="proj")
     del x
     c["build_s"] = stats["build_s"]
-    c["assign_variants"] = {v: n - before[v]
-                            for v, n in assign_variants().items()}
+    c["assign_variants"] = {v: n - before[v] for v, n in
+                            assign_variants(kernels, excluded).items()}
     try:
         # the served step's projections: both come from the same seeds
         step = rag.make_rag_prefill(cfg, ecfg_c, SERVE_PROMPT + 10,
@@ -3294,7 +3436,7 @@ def phase_serving(seed: int, card: str) -> dict:
         def on_turn_c(turn, snap, batch, ids):
             c["score_err"] = check_retrieval(
                 "11c", snap, step.query(params, batch["tokens"]), ids,
-                ecfg_c, margins_c)
+                ecfg_c, margins_c, kernels, excluded)
 
         served = srv.serve(cfg, ecfg_c, params, svc, coll,
                            requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
@@ -3314,42 +3456,14 @@ def phase_serving(seed: int, card: str) -> dict:
           f"{c['prefill_ms']:.3f} ms, 8 decode steps", flush=True)
 
     # -- 11b: decode matches forward at full width, float32 -------------
-    b = {}
-    cfg32 = cfg.replace(dtype="float32")
-    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
-                            cfg32)
-    b["weight_GB"] = sum(p.numel() * p.element_size()
-                         for p in params.parameters()) / 1e9
-    tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
-                           device=dev, dtype=torch.int32)
-    full, _ = lm.forward_train(params, cfg32, {"tokens": tokens})
-    last, caches, pos = lm.prefill(params, cfg32, {"tokens": tokens[:, :4]},
-                                   16)
-    pairs = [(last, full[:, 3])]
-    for t in range(4, 8):
-        logits, caches = lm.decode_step(
-            params, cfg32, tokens[:, t: t + 1], caches,
-            torch.full((2,), t, dtype=torch.int32, device=dev))
-        pairs.append((logits, full[:, t]))
-    for got, want in pairs:
-        torch.testing.assert_close(got, want, rtol=SERVE_TOL, atol=SERVE_TOL)
-    b.update(positions=len(pairs), tol=SERVE_TOL,
-             max_abs_err=max(float((x - y).abs().max()) for x, y in pairs),
-             logit_scale=float(full.abs().max()))
-    del params, full, caches, pairs
-    release()
+    b, _, _ = decode_vs_forward("11b", cfg, seed, g)
     print(f"  11b [{card}]: float32 ({b['weight_GB']:.2f} GB) decode logits "
           f"== forward_train's at {b['positions']} positions, max err "
-          f"{b['max_abs_err']:.3g} (logits up to {b['logit_scale']:.1f})",
-          flush=True)
+          f"{b['max_abs_err']:.3g} (tol {SERVE_TOL}; logits up to "
+          f"{b['logit_scale']:.1f})", flush=True)
 
     out["11a"], out["11b"], out["11c"] = a, b, c
-    out["launches"] = {k: m.launches.value - excluded.get(k, {}).get("all", 0)
-                       for k, m in kernels.items()}
-    out["launches_by_variant"] = {
-        k: {v: cnt.value - excluded.get(k, {}).get(v, 0)
-            for v, cnt in kernels[k].launches_by_variant.items()}
-        for k in ("scan_scores", "scan_scores_q8", "kmeans_assign")}
+    out.update(path_launches(kernels, excluded))
     for k in ("scan_scores", "kmeans_assign", "segsum_gemm"):
         if out["launches"][k] <= 0:
             raise AssertionError(f"phase 11 never launched {k}")
@@ -3358,6 +3472,144 @@ def phase_serving(seed: int, card: str) -> dict:
         raise AssertionError(f"phase 11 scan_scores by variant {by}")
     if c["assign_variants"]["generic"] or not c["assign_variants"]["wgmma"]:
         raise AssertionError(f"11c kmeans_assign {c['assign_variants']}")
+    return out
+
+
+def phase_families(seed: int, card: str) -> dict:
+    """The MoE, VLM, SSM and hybrid families on the RAG serving path, each
+    at full width with weights from `seed`.  12a: olmoe-1b-7b (16 layers,
+    64 experts top-8, 13.8 GB bf16) served beside the PAPER_1M-layout
+    memory at dim 2048 as 11a serves granite (`serve_beside_paper_1m`);
+    its MoE layer gives the same bits twice at the prefill's shape and a
+    finite aux loss.  12b: deepseek-moe-16b, qwen2-vl-7b (M-RoPE at the
+    default positions), rwkv6-1.6b and zamba2-2.7b one at a time, each
+    freed before the next: one turn of SERVE_REQUESTS x (SERVE_PROMPT +
+    SERVE_DECODE) tokens through the projection branch over one
+    PAPER_100K memory (dim 1024) while FAMILY_INSERTS rows go in; ids
+    equal the plain version's, tokens inside the vocabulary, every insert
+    live.  12c: olmoe-1b-7b and zamba2-2.7b in float32, rwkv6-1.6b in
+    float64 (`FAMILY_DECODE`), at full width and depth: decode logits
+    equal `forward_train`'s within SERVE_TOL; rwkv6's float32 decode and
+    forward are measured beside it."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_100K
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import lm, moe
+    from repro_torch.serving import rag
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    excluded = {}
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+
+    # -- 12a: olmoe-1b-7b beside the 1,000,000-row memory ---------------
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_arch(FAMILY_ARCH)
+    params, a = made_model("12a", cfg, seed)
+    a.update(serve_beside_paper_1m("12a", cfg, params, seed, g, kernels,
+                                   excluded))
+    a["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    h = torch.randn(SERVE_REQUESTS, SERVE_PROMPT, cfg.d_model, generator=g,
+                    device=dev).to(torch.bfloat16)
+    y1, aux = moe.moe_apply(params.blocks[0].mlp, h, cfg)
+    y2, _ = moe.moe_apply(params.blocks[0].mlp, h, cfg)
+    if not torch.equal(y1, y2):
+        raise AssertionError("12a: the MoE combine changed its bits")
+    a["moe_aux"] = float(aux)
+    _, aux = lm.forward_train(params, cfg, {"tokens": torch.randint(
+        0, cfg.vocab_size, (2, 64), generator=g, device=dev,
+        dtype=torch.int32)})
+    a["forward_aux"] = float(aux)
+    if not (math.isfinite(a["moe_aux"]) and math.isfinite(a["forward_aux"])):
+        raise AssertionError(f"12a: aux loss {a['moe_aux']}, "
+                             f"{a['forward_aux']}")
+    del params, h, y1, y2
+    release()
+    print_served("12a", card, cfg, a, f"beside {N_ROWS:,} rows at dim "
+                 f"{a['dim']} (build {a['build_s']:.3f} s, retrieval "
+                 f"{a['retrieval_ms']:.3f} ms)")
+    out["12a"] = a
+
+    # -- 12b: the other families over a PAPER_100K memory ---------------
+    ecfg = dataclasses.replace(PAPER_100K, k=SERVE_MEM_K)
+    x = make_corpus(PROJ_ROWS, ecfg.dim, g)
+    svc, coll, stats = srv.build_memory(ecfg, x, device=dev, name="fam")
+    del x
+    out["12b"] = {"build_s": stats["build_s"]}
+    n_live = PROJ_ROWS
+    try:
+        for i, arch in enumerate(FAMILY_ARCHS):
+            torch.cuda.reset_peak_memory_stats()
+            cfg = registry.get_arch(arch)
+            params, r = made_model(f"12b {arch}", cfg, seed)
+            step = rag.make_rag_prefill(cfg, ecfg, SERVE_PROMPT + 10,
+                                        k=SERVE_MEM_K, device=dev)
+            margins = []
+
+            def on_turn(turn, snap, batch, ids, step=step, params=params,
+                        arch=arch, r=r):
+                r["score_err"] = check_retrieval(
+                    f"12b {arch}", snap, step.query(params, batch["tokens"]),
+                    ids, ecfg, margins, kernels, excluded)
+
+            inserts = torch.nn.functional.normalize(
+                torch.randn(FAMILY_INSERTS, ecfg.dim, generator=g,
+                            device=dev), dim=1)
+            served = srv.serve(cfg, ecfg, params, svc, coll,
+                               requests=SERVE_REQUESTS,
+                               prompt_len=SERVE_PROMPT,
+                               decode_steps=SERVE_DECODE, turns=1,
+                               inserts=inserts, seed=seed + 2 + i,
+                               on_turn=on_turn)
+            n_live += FAMILY_INSERTS
+            if not torch.equal(live_ids(coll), torch.arange(
+                    n_live, dtype=torch.int32, device=dev)):
+                raise AssertionError(f"12b {arch}: acknowledged inserts are "
+                                     "not all live")
+            check_tokens(f"12b {arch}", served, cfg)
+            if "score_err" not in r:
+                raise AssertionError(f"12b {arch}: no retrieval checked")
+            r.update(served_numbers(served), min_topk_margin=min(margins),
+                     peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del params, step, on_turn
+            release()
+            print_served("12b", card, cfg, r, f"over PAPER_100K (dim "
+                         f"{ecfg.dim}, projected)")
+            out["12b"][arch] = r
+    finally:
+        srv.close(svc)
+    del svc, coll
+    release()
+
+    # -- 12c: decode matches forward at full width -----------------------
+    out["12c"] = {}
+    for arch, dtype in FAMILY_DECODE:
+        cfg = registry.get_arch(arch)
+        b, tokens, full = decode_vs_forward(f"12c {arch}", cfg, seed, g,
+                                            dtype)
+        note = ""
+        if dtype == "float64":
+            b.update(float32_reading(f"12c {arch}", cfg, seed, tokens, full))
+            note = (f"; in float32 (not held) decode is "
+                    f"{b['float32_decode_err']:.3g} from the forward, the "
+                    f"forward {b['float32_forward_vs_float64']:.3g} from "
+                    f"float64's")
+        del full
+        print(f"  12c [{card}]: {arch} {dtype} ({b['weight_GB']:.2f} GB) "
+              f"decode logits == forward_train's at {b['positions']} "
+              f"positions, max err {b['max_abs_err']:.3g} (tol "
+              f"{SERVE_TOL}; logits up to {b['logit_scale']:.1f}){note}",
+              flush=True)
+        out["12c"][arch] = b
+
+    out.update(path_launches(kernels, excluded))
+    for k in ("scan_scores", "kmeans_assign", "segsum_gemm"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"phase 12 never launched {k}")
+    by = out["launches_by_variant"]["scan_scores"]
+    if by["generic"] or by["stream"] != out["launches"]["scan_scores"]:
+        raise AssertionError(f"phase 12 scan_scores by variant {by}")
     return out
 
 
@@ -3453,6 +3705,13 @@ def main(argv=None) -> int:
     paths["serving"] = sv = phase_serving(args.seed, card)
     print(f"phase 11: serving in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(sv), flush=True)
+    release()
+    # 12. the MoE, VLM, SSM and hybrid families on the serving path (after
+    # phase 11's memory is freed), the counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["families"] = fam = phase_families(args.seed, card)
+    print(f"phase 12: families in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(fam), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -14,11 +14,13 @@ moves between the two, bit for bit, through
 
 A model of the reference is the pytree `repro.models.lm.init_params`
 returns (host arrays: ``embed.table``, ``head.w`` unless tied,
-``final_norm``, and the blocks' leaves stacked ``[L, ...]``);
-`lm_params_from_numpy` / `lm_params_to_numpy` move it onto the port's
-modules and back.  Weight matrices are cast to ``cfg.dtype`` once on the
-way in (bit-equal to the reference's cast at every use); norm scales stay
-f32.
+``final_norm``, the blocks' leaves stacked ``[L, ...]`` — the MoE
+experts' ``mlp.*``, rwkv6's and mamba2's flat leaves — and zamba2's
+unstacked ``shared_attn``); `lm_params_from_numpy` / `lm_params_to_numpy`
+move it onto the port's modules and back.  Weight matrices are cast to
+``cfg.dtype`` once on the way in (bit-equal to the reference's cast at
+every use); vectors and rwkv6's bonus ``u`` stay f32, as the reference
+uses them.
 """
 from __future__ import annotations
 

@@ -13,8 +13,11 @@ template).  On the card the Hopper kernels run; with ``--device cpu`` their
 plain versions do.  The reference's ``--production-mesh`` has no
 counterpart on one card.
 
-`build_memory` and `serve` are the body of `main`, callable at any width
-(``chip_smoke.py`` phase 11 serves granite-3-2b at full width through them).
+Every decoder-only family serves (dense, MoE, VLM, SSM, hybrid); the
+enc-dec arch is refused, as the reference refuses it.  `build_memory` and
+`serve` are the body of `main`, callable at any width (``chip_smoke.py``
+phases 11 and 12 serve granite-3-2b, olmoe-1b-7b, deepseek-moe-16b,
+qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b at full width through them).
 """
 from __future__ import annotations
 

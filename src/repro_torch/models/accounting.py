@@ -91,3 +91,16 @@ def active_param_count(cfg: ModelConfig) -> int:
     emb = cfg.vocab_padded * cfg.d_model
     head = 0 if cfg.tie_embeddings else cfg.vocab_padded * cfg.d_model
     return emb + head + cfg.num_layers * moe_active_layer_params(cfg)
+
+
+# norm scales the analytic count leaves out: the blocks' pre/post norms,
+# the q/k norms and the final norm (the SSM mixers' own vectors count)
+_UNCOUNTED = {"ln1", "ln2", "ln", "ln_attn", "ln_mlp", "ln_attn_post",
+              "ln_mlp_post", "q_norm", "k_norm", "final_norm"}
+
+
+def counted_params(model) -> int:
+    """The parameters of a port model (`repro_torch.models.lm.LM`) that
+    `param_count` counts: all but the norm scales it ignores."""
+    return sum(p.numel() for name, p in model.named_parameters()
+               if name.rsplit(".", 1)[-1] not in _UNCOUNTED)

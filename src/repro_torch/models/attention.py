@@ -3,7 +3,8 @@
 Port of ``src/repro/models/attention.py``.  Prefill/train never forms the
 [S, S] score matrix: a loop over KV chunks carries online-softmax stats
 (m, l, acc), with the reference's chunk size.  Supports GQA, sliding
-windows (gemma2 local layers), logit softcapping and causal masking.
+windows (gemma2 local layers), logit softcapping, causal masking and
+M-RoPE (qwen2-vl).
 
 The reference multiplies bf16 operands with ``preferred_element_type=f32``;
 PyTorch's ``bf16 @ bf16`` returns bf16, so the score and P·V products here
@@ -62,12 +63,18 @@ def _proj(x, w):
     return (x @ w.to(x.dtype).reshape(d, -1)).unflatten(-1, w.shape[1:])
 
 
-def _project_qkv(p: Attention, x, cfg: ModelConfig, positions):
+def _project_qkv(p: Attention, x, cfg: ModelConfig, positions,
+                 mrope_pos=None):
     q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p.q_norm, cfg.norm_eps)
         k = layers.rms_norm(k, p.k_norm, cfg.norm_eps)
-    if positions is not None:
+    if cfg.mrope_sections and mrope_pos is not None:
+        q = layers.apply_mrope(q, mrope_pos, cfg.mrope_sections,
+                               cfg.rope_theta)
+        k = layers.apply_mrope(k, mrope_pos, cfg.mrope_sections,
+                               cfg.rope_theta)
+    elif positions is not None:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -169,16 +176,17 @@ def cache_update(cache: KVCache, k_new, v_new, pos) -> KVCache:
 # ---------------------------------------------------------------------------
 
 def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
-                   positions=None, cache: KVCache = None,
+                   positions=None, mrope_pos=None, cache: KVCache = None,
                    pos=None, window: int = 0, chunk: int = 1024,
                    causal: bool = True):
-    """mode: 'train' | 'prefill' | 'decode'.
+    """mode: 'train' | 'prefill' | 'decode'.  `mrope_pos` [B,S,3] (with
+    ``cfg.mrope_sections``) rotates by M-RoPE in place of `positions`.
 
     prefill returns (out, KVCache of the whole prompt); decode writes the
     new token into `cache` at per-row `pos` and returns (out, cache).
     """
     softcap = cfg.attn_logit_softcap
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, mrope_pos)
     if mode in ("train", "prefill"):
         o = flash_attention(q, k, v, causal=causal, window=window,
                             softcap=softcap, chunk=chunk)

@@ -20,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a config's dtype name ("bfloat16", "float32")."""
+    """The torch dtype of a config's dtype name ("bfloat16", "float32",
+    "float64")."""
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
@@ -29,6 +30,12 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x for the f32 arithmetic of norms and recurrences: in f32, or in
+    f64 when x is (a float64 model computes in f64 throughout)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -53,9 +60,11 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
 # norms
 # ---------------------------------------------------------------------------
 
-def rms_norm(x, scale, eps: float, *, gemma_style: bool = False):
-    dt = x.dtype
-    x = x.float()
+def rms_norm(x, scale, eps: float, *, gemma_style: bool = False,
+             dtype=None):
+    """RMS norm in f32 (`upcast`), the result in `dtype` (default: x's)."""
+    dt = dtype or x.dtype
+    x = upcast(x)
     var = (x * x).mean(-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     scale = scale.float()
@@ -66,6 +75,28 @@ def rms_norm(x, scale, eps: float, *, gemma_style: bool = False):
 # ---------------------------------------------------------------------------
 # MLP (gated: SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
+
+def _expanded(x) -> bool:
+    """A 16-bit tensor on the CPU: XLA's CPU backend expands the logistic
+    into 1 / (1 + exp(-x)) and rounds after each step, and the port does
+    the same there.  Elsewhere (f32, or any tensor on the card) the fused
+    op runs: one launch that rounds once, which the 16-bit decode on the
+    card, bound by its launches, keeps."""
+    return x.device.type == "cpu" and x.dtype in (torch.bfloat16,
+                                                  torch.float16)
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid`` (see `_expanded` for its rounding)."""
+    if _expanded(x):
+        return torch.reciprocal(torch.exp(-x) + 1)
+    return torch.sigmoid(x)
+
+
+def silu(x):
+    """``jax.nn.silu``: x * sigmoid(x) (see `_expanded`)."""
+    return x * sigmoid(x) if _expanded(x) else F.silu(x)
+
 
 class MLP(nn.Module):
     """wi (gate) and wu (up) [d_model, d_ff], wo [d_ff, d_model]."""
@@ -82,7 +113,7 @@ class MLP(nn.Module):
         u = x @ self.wu.to(x.dtype)
         # jax.nn.gelu's default is the tanh approximation
         h = (F.gelu(h, approximate="tanh") if act == "gelu"
-             else F.silu(h)) * u
+             else silu(h)) * u
         return h @ self.wo.to(x.dtype)
 
 

@@ -1,14 +1,19 @@
-"""The model stack: init / train-forward / prefill / decode, dense family.
+"""The model stack: init / train-forward / prefill / decode for the
+decoder-only families (dense, MoE, VLM, SSM, hybrid).
 
 Port of ``src/repro/models/lm.py``.  The reference scans one traced body
 over stacked layer weights; here the layers are an ``nn.ModuleList`` run
 by a plain loop, the per-layer sliding windows (gemma2's local/global
 alternation) a list of ints.  The dense block carries every flag of the
-dense archs: ``qk_norm``, ``parallel_block``, ``post_norm``, sliding
-windows, both softcaps, ``emb_scale`` and ``tie_embeddings``.
+dense archs (``qk_norm``, ``parallel_block``, ``post_norm``, sliding
+windows, both softcaps, ``emb_scale``, ``tie_embeddings``), the MoE layer
+in place of the MLP (olmoe, deepseek-moe) and M-RoPE (qwen2-vl).  rwkv6
+stacks RWKV blocks; zamba2 stacks mamba blocks in groups of
+``shared_block_period``, each group followed by the one shared attention
+block (a KV cache per group).
 
-The other families (MoE, VLM, SSM, hybrid, enc-dec) raise a ValueError
-that names the slice which brings them.
+The enc-dec family raises a ValueError that names the slice which brings
+it.
 
 Head padding: when num_heads doesn't divide the model axis (qwen2-vl: 28),
 q-heads are padded up to the next multiple of 16, so parameter shapes
@@ -17,23 +22,20 @@ match the reference's leaf for leaf.
 from __future__ import annotations
 
 import math
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2, moe, rwkv6
 from repro_torch.models.attention import KVCache
 
 TP = 16  # model-axis width the head padding targets
 
-_LATER = {"moe": "the MoE + VLM serving slice",
-          "vlm": "the MoE + VLM serving slice",
-          "ssm": "the SSM + hybrid slice",
-          "hybrid": "the SSM + hybrid slice",
-          "encdec": "the enc-dec slice"}
+_LATER = {"encdec": "the enc-dec slice"}
+_ATTN = ("dense", "moe", "vlm")    # families of attention blocks
 
 
 def heads_padded(cfg: ModelConfig) -> int:
@@ -47,59 +49,77 @@ def _acfg(cfg: ModelConfig) -> ModelConfig:
     return cfg if hp == cfg.num_heads else cfg.replace(num_heads=hp)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_decoder(cfg: ModelConfig) -> None:
+    if cfg.family not in _ATTN + ("ssm", "hybrid"):
         raise ValueError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
             f"comes with {_LATER.get(cfg.family, 'a later slice')} "
             "(ROADMAP.md §1)")
+    if cfg.dtype == "float64" and cfg.family != "ssm":
+        raise ValueError(f"{cfg.name}: float64 runs the ssm family only "
+                         "(the attention and SSD products compute in f32)")
 
 
 # ===========================================================================
-# the dense block
+# per-family single-layer blocks
 # ===========================================================================
 
-_NORMS = ("ln_attn", "ln_mlp", "ln_attn_post", "ln_mlp_post", "final_norm")
-
-
-def _norm_scale(cfg: ModelConfig, device) -> nn.Parameter:
-    """Dense-path norm scale: f32 zeros, applied as (1 + scale)."""
-    return layers.param(torch.zeros((cfg.d_model,), device=device))
+def _norm_scale(cfg: ModelConfig, device, value: float = 0.0) -> nn.Parameter:
+    """A norm scale in f32: the dense path's zeros (applied as 1 + scale),
+    the SSM blocks' ones."""
+    return layers.param(torch.full((cfg.d_model,), value, device=device))
 
 
 class DenseBlock(nn.Module):
-    """One dense layer (`_dense_block_apply` of the reference)."""
+    """One attention layer (`_dense_block_apply` of the reference); its
+    MLP is the MoE layer in the moe family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.ln_attn = _norm_scale(cfg, device)
         self.attn = attn.Attention(_acfg(cfg), device=device)
         self.ln_mlp = _norm_scale(cfg, device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff,
-                              layers.torch_dtype(cfg.dtype), device)
+        self.mlp = (moe.MoE(cfg, device) if cfg.family == "moe" else
+                    layers.MLP(cfg.d_model, cfg.d_ff,
+                               layers.torch_dtype(cfg.dtype), device))
         if cfg.post_norm:
             self.ln_attn_post = _norm_scale(cfg, device)
             self.ln_mlp_post = _norm_scale(cfg, device)
 
     def forward(self, x, cfg: ModelConfig, *, mode: str, window: int,
-                positions, cache: KVCache = None, pos=None):
-        """window: this layer's sliding window (0 = global attention)."""
+                positions, mrope_pos=None, cache: KVCache = None, pos=None):
+        """window: this layer's sliding window (0 = global attention).
+        Returns (x, cache, aux): aux is the MoE layer's loss, else None."""
         def norm(t, w):
             return layers.rms_norm(t, w, cfg.norm_eps, gemma_style=True)
 
         h = norm(x, self.ln_attn)
         a_out, new_cache = attn.self_attention(
             self.attn, h, _acfg(cfg), mode=mode, positions=positions,
-            cache=cache, pos=pos, window=window)
+            mrope_pos=mrope_pos, cache=cache, pos=pos, window=window)
         if cfg.post_norm:
             a_out = norm(a_out, self.ln_attn_post)
         if cfg.parallel_block:
-            return x + a_out + self.mlp(h, cfg.act), new_cache
-        x = x + a_out
-        m_out = self.mlp(norm(x, self.ln_mlp), cfg.act)
+            return x + a_out + self.mlp(h, cfg.act), new_cache, None
+        x, h2 = _add_norm(x, a_out, self.ln_mlp, cfg, gemma_style=True)
+        aux = None
+        if cfg.family == "moe":
+            m_out, aux = moe.moe_apply(self.mlp, h2, cfg)
+        else:
+            m_out = self.mlp(h2, cfg.act)
         if cfg.post_norm:
             m_out = norm(m_out, self.ln_mlp_post)
-        return x + m_out, new_cache
+        return x + m_out, new_cache, aux
+
+
+def _add_norm(x, y, scale, cfg: ModelConfig, *, gemma_style: bool = False):
+    """(x + y, rms_norm(x + y)): the norm takes the sum before it is
+    rounded to x's dtype, as the reference's fused residual add and norm
+    do on XLA."""
+    s = layers.upcast(x) + y
+    return s.to(x.dtype), layers.rms_norm(s, scale, cfg.norm_eps,
+                                          gemma_style=gemma_style,
+                                          dtype=x.dtype)
 
 
 def _layer_windows(cfg: ModelConfig, n: int) -> List[int]:
@@ -109,92 +129,224 @@ def _layer_windows(cfg: ModelConfig, n: int) -> List[int]:
     return [cfg.sliding_window] * n
 
 
+class RWKVBlock(rwkv6.RWKV):
+    """rwkv6's layer: time mix and channel mix behind RMS pre-norms (ln1,
+    ln2: f32 ones)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.ln1 = _norm_scale(cfg, device, 1.0)
+        self.ln2 = _norm_scale(cfg, device, 1.0)
+
+    def forward(self, x, cfg: ModelConfig, cache: rwkv6.RWKVCache):
+        h = layers.rms_norm(x, self.ln1, cfg.norm_eps)
+        y, state, x_att = rwkv6.time_mix(self, h, cfg, cache.state,
+                                         cache.x_att)
+        x, h2 = _add_norm(x, y, self.ln2, cfg)
+        y2, x_ffn = rwkv6.channel_mix(self, h2, cfg, cache.x_ffn)
+        return x + y2, rwkv6.RWKVCache(state=state, x_att=x_att, x_ffn=x_ffn)
+
+
+class MambaBlock(mamba2.Mamba):
+    """zamba2's backbone layer: a mamba2 mixer behind an RMS pre-norm
+    (ln: f32 ones), chunk 128 as the reference's."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.ln = _norm_scale(cfg, device, 1.0)
+
+    def forward(self, x, cfg: ModelConfig, *, mode: str, cache=None):
+        h = layers.rms_norm(x, self.ln, cfg.norm_eps)
+        y, new_cache = mamba2.mamba_apply(self, h, cfg, mode=mode,
+                                          cache=cache, chunk=128)
+        return x + y, new_cache
+
+
+class ZambaCaches(NamedTuple):
+    mamba: mamba2.MambaCache   # stacked [L, ...]
+    attn: KVCache              # stacked [L/P, ...] (per shared-block call)
+
+
 # ===========================================================================
 # whole-model params
 # ===========================================================================
 
 class LM(nn.Module):
     """The reference's params pytree as modules: ``embed.table``,
-    ``head.w`` (unless tied), ``final_norm`` and ``blocks.<l>.*`` (the
-    reference stacks the blocks' leaves ``[L, ...]``)."""
+    ``head.w`` (unless tied), ``final_norm``, ``blocks.<l>.*`` (the
+    reference stacks the blocks' leaves ``[L, ...]``) and, for the hybrid,
+    ``shared_attn.*``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_dense(cfg)
+        _require_decoder(cfg)
         self.embed = layers.Embed(cfg, device)
         self.head = layers.Head(cfg, device)
         self.final_norm = _norm_scale(cfg, device)
+        block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family,
+                                                            DenseBlock)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, device) for _ in range(cfg.num_layers))
+            block(cfg, device) for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(cfg, device)
+
+
+# 2-D leaves with a constant init (rwkv6's bonus: f32 zeros), and drawn
+# matrices the reference scales after the draw
+_FIXED = {"u"}
+_SCALED = {"ww": 0.1, "conv_x": 0.1, "conv_bc": 0.1}
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     """A model on `gen`'s device with the reference's distributions, drawn
     from `gen` leaf by leaf: every matrix normal/sqrt(shape[0]) (the
-    embedding table then x sqrt(d_model)), dense-path norms at zeros
-    (applied as 1 + scale), q_norm/k_norm at ones.  Matrices are drawn in
-    f32 and held in ``cfg.dtype``; norm scales stay f32."""
+    embedding table then x sqrt(d_model); rwkv6's decay projection and
+    mamba2's convs x 0.1); the vectors and rwkv6's bonus at the
+    constructors' constants (dense norms zeros, applied as 1 + scale;
+    q_norm/k_norm and the SSM norms ones; the token-shift mixes 0.5, ...).
+    Matrices are drawn in f32 and held in ``cfg.dtype``; vectors stay f32."""
     model = LM(cfg, device=gen.device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf in _NORMS or leaf in ("q_norm", "k_norm"):
-            continue                    # zeros / ones from the constructor
+        if p.dim() == 1 or leaf in _FIXED:
+            continue                    # constants from the constructor
         w = layers.dense_init(gen, p.shape)
         if name == "embed.table":
             w.mul_(math.sqrt(float(cfg.d_model)))
+        elif leaf in _SCALED:
+            w.mul_(_SCALED[leaf])
         p.copy_(w)
         del w
     return model
 
 
 # ===========================================================================
-# the decoder stack
+# the decoder stacks
 # ===========================================================================
 
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: Dict):
-    return layers.embed_apply(params.embed, batch["tokens"], cfg)
+    x = layers.embed_apply(params.embed, batch["tokens"], cfg)
+    if cfg.family == "vlm" and "vis_embeds" in batch:
+        # the stub vision tower's patch embeddings take the first positions
+        v = batch["vis_embeds"].to(x.dtype)
+        if v.shape[1] > x.shape[1]:
+            raise ValueError(f"{v.shape[1]} vision embeddings for "
+                             f"{x.shape[1]} positions")
+        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+    return x
 
 
 def _run_stack(params: LM, x, cfg: ModelConfig, *, mode: str, caches=None,
-               pos=None, s_max: int = 0):
-    """The layers in order.  train: caches None; prefill: returns stacked
-    caches ``[L, B, max(S, s_max), KVH, Dh]`` holding the prompt (zeros
-    past it); decode: writes the token at `pos` into `caches` in place.
-    Returns (x, caches, aux)."""
-    _require_dense(cfg)
+               pos=None, s_max: int = 0, mrope_pos=None):
+    """The layers in order, for every decoder-only family.
+
+    train: caches None (the SSM families start from zero states);
+    prefill: returns the caches the prompt leaves (the attention caches
+    ``[L, B, max(S, s_max), KVH, Dh]``, zeros past the prompt; the SSM
+    states and shifts); decode: writes the token's K/V rows and the new
+    states into `caches` in place.  Returns (x, caches, aux)."""
+    _require_decoder(cfg)
+    fam = cfg.family
     b, s = x.shape[0], x.shape[1]
     if mode in ("train", "prefill"):
         positions = torch.arange(s, device=x.device).expand(b, s)
     else:
         positions = pos[:, None]
-    if mode == "prefill":
-        caches = init_caches(cfg, b, max(s, s_max), device=x.device)
-    windows = _layer_windows(cfg, cfg.num_layers)
-    for l, blk in enumerate(params.blocks):
-        cache_l = (KVCache(caches.k[l], caches.v[l]) if mode == "decode"
-                   else None)
-        x, kv = blk(x, cfg, mode=mode, window=windows[l],
-                    positions=positions, cache=cache_l, pos=pos)
+    if mrope_pos is None and fam == "vlm":
+        mrope_pos = positions[..., None].expand(*positions.shape, 3)
+    aux = torch.zeros((), device=x.device)
+
+    if fam in _ATTN:
         if mode == "prefill":
-            caches.k[l, :, :s] = kv.k
-            caches.v[l, :, :s] = kv.v
-    return x, caches, torch.zeros((), device=x.device)
+            caches = init_caches(cfg, b, max(s, s_max), device=x.device)
+        windows = _layer_windows(cfg, cfg.num_layers)
+        for l, blk in enumerate(params.blocks):
+            cache_l = (KVCache(caches.k[l], caches.v[l]) if mode == "decode"
+                       else None)
+            x, kv, a = blk(x, cfg, mode=mode, window=windows[l],
+                           positions=positions, mrope_pos=mrope_pos,
+                           cache=cache_l, pos=pos)
+            if a is not None:
+                aux = aux + a
+            if mode == "prefill":
+                caches.k[l, :, :s] = kv.k
+                caches.v[l, :, :s] = kv.v
+        return x, caches, aux
+
+    if fam == "ssm":
+        if caches is None:
+            caches = init_caches(cfg, b, 0, device=x.device)
+        for l, blk in enumerate(params.blocks):
+            x, new = blk(x, cfg, rwkv6.RWKVCache(
+                caches.state[l], caches.x_att[l], caches.x_ffn[l]))
+            if mode != "train":
+                for stack, t in zip(caches, new):
+                    stack[l] = t
+        return x, (None if mode == "train" else caches), aux
+
+    # hybrid: groups of `period` mamba layers, each followed by the shared
+    # attention block (window 0, its own KV cache per group)
+    period = cfg.shared_block_period
+    if mode == "prefill":
+        if caches is None:
+            caches = _train_caches(cfg, x)
+        caches = caches._replace(attn=_kv_caches(
+            cfg, cfg.num_layers // period, b, max(s, s_max), x.device))
+    for g in range(cfg.num_layers // period):
+        for l in range(g * period, (g + 1) * period):
+            mc = (mamba2.MambaCache(caches.mamba.state[l],
+                                    caches.mamba.conv[l])
+                  if mode == "decode" else None)
+            x, new = params.blocks[l](x, cfg, mode=mode, cache=mc)
+            if mode != "train":
+                caches.mamba.state[l] = new.state
+                caches.mamba.conv[l] = new.conv
+        ac = (KVCache(caches.attn.k[g], caches.attn.v[g]) if mode == "decode"
+              else None)
+        x, kv, _ = params.shared_attn(x, cfg, mode=mode, window=0,
+                                      positions=positions, cache=ac, pos=pos)
+        if mode == "prefill":
+            caches.attn.k[g, :, :s] = kv.k
+            caches.attn.v[g, :, :s] = kv.v
+    return x, (None if mode == "train" else caches), aux
 
 
-def init_caches(cfg: ModelConfig, batch: int, s_max: int,
-                device=None) -> KVCache:
-    """Stacked per-layer caches ``[L, B, s_max, KVH, Dh]`` in ``cfg.dtype``
-    (as the reference, which takes its dtype from the config)."""
-    _require_dense(cfg)
-    shape = (cfg.num_layers, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
+    """Stacked per-layer caches in ``cfg.dtype`` (as the reference, which
+    takes the dtype from the config; SSM states f32): KV ``[L, B, s_max,
+    KVH, Dh]``; rwkv6's `RWKVCache`; zamba2's `ZambaCaches` (a KV cache
+    per shared-block call)."""
+    _require_decoder(cfg)
+    dt = layers.torch_dtype(cfg.dtype)
+    if cfg.family in _ATTN:
+        return _kv_caches(cfg, cfg.num_layers, batch, s_max, device)
+    if cfg.family == "ssm":
+        return rwkv6.RWKVCache.init(batch, cfg, dt, device,
+                                    (cfg.num_layers,))
+    return ZambaCaches(
+        mamba=mamba2.MambaCache.init(batch, cfg, dt, device,
+                                     (cfg.num_layers,)),
+        attn=_kv_caches(cfg, cfg.num_layers // cfg.shared_block_period,
+                        batch, s_max, device))
+
+
+def _kv_caches(cfg: ModelConfig, n: int, batch: int, s_max: int,
+               device) -> KVCache:
+    shape = (n, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
     dt = layers.torch_dtype(cfg.dtype)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device))
 
 
 def _train_caches(cfg: ModelConfig, x):
-    """Train mode: the dense family needs no cache."""
-    _require_dense(cfg)
+    """Train mode: attention families need no cache; ssm/hybrid start from
+    zero states."""
+    _require_decoder(cfg)
+    if cfg.family == "ssm":
+        return init_caches(cfg, x.shape[0], 0, device=x.device)
+    if cfg.family == "hybrid":
+        return init_caches(cfg, x.shape[0], 0,
+                           device=x.device)._replace(attn=None)
     return None
 
 
@@ -213,16 +365,28 @@ def forward_train(params: LM, cfg: ModelConfig, batch):
     for the training slice."""
     x = _embed_inputs(params, cfg, batch)
     x, _, aux = _run_stack(params, x, cfg, mode="train",
-                           caches=_train_caches(cfg, x))
+                           caches=_train_caches(cfg, x),
+                           mrope_pos=batch.get("mrope_pos"))
     return _final_logits(params, cfg, x), aux
+
+
+def _prefill_caches(cfg: ModelConfig, caches, s_max: int):
+    """Grow the attention caches a prefill left to decode capacity."""
+    if cfg.family in _ATTN:
+        return _grow_caches(caches, s_max)
+    if cfg.family == "hybrid":
+        return caches._replace(attn=_grow_caches(caches.attn, s_max))
+    return caches
 
 
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch, s_max: int):
     """Run the prompt; returns (last_logits [B,Vp], caches, last_pos [B])."""
     x = _embed_inputs(params, cfg, batch)
-    x, caches, _ = _run_stack(params, x, cfg, mode="prefill", s_max=s_max)
-    caches = _grow_caches(caches, s_max)
+    x, caches, _ = _run_stack(params, x, cfg, mode="prefill",
+                              caches=_train_caches(cfg, x), s_max=s_max,
+                              mrope_pos=batch.get("mrope_pos"))
+    caches = _prefill_caches(cfg, caches, s_max)
     logits = _final_logits(params, cfg, x[:, -1:])
     last_pos = torch.full((x.shape[0],), batch["tokens"].shape[1] - 1,
                           dtype=torch.int32, device=x.device)
@@ -249,7 +413,8 @@ def _grow_caches(kv_stacked, s_max: int):
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token, caches, pos):
     """One token: token int[B,1]; pos int[B] (index being written).  The
-    token's K/V rows are written into `caches` in place.
+    token's K/V rows and the SSM states are written into `caches` in
+    place.
 
     Returns (logits [B,Vp], caches)."""
     x = _embed_inputs(params, cfg, {"tokens": token})

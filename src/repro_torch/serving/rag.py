@@ -129,9 +129,13 @@ def make_rag_prefill(cfg: ModelConfig, ecfg: EngineConfig, s_max: int,
 @torch.no_grad()
 def _prefill_with_embeddings(params: lm.LM, cfg: ModelConfig, x, batch,
                              s_max: int):
-    """Prefill given already-computed input embeddings."""
-    x, caches, _ = lm._run_stack(params, x, cfg, mode="prefill", s_max=s_max)
-    caches = lm._grow_caches(caches, s_max)
+    """Prefill given already-computed input embeddings (the SSM families
+    from zero states; `batch`'s ``mrope_pos`` for qwen2-vl)."""
+    x, caches, _ = lm._run_stack(params, x, cfg, mode="prefill",
+                                 caches=lm._train_caches(cfg, x),
+                                 s_max=s_max,
+                                 mrope_pos=batch.get("mrope_pos"))
+    caches = lm._prefill_caches(cfg, caches, s_max)
     logits = lm._final_logits(params, cfg, x[:, -1:])
     pos = torch.full((x.shape[0],), x.shape[1] - 1, dtype=torch.int32,
                      device=x.device)

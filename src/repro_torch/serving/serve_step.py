@@ -1,8 +1,10 @@
-"""Serving steps: prefill / decode with the KV caches updated in place.
+"""Serving steps: prefill / decode with the caches updated in place.
 
 Port of ``src/repro/serving/serve_step.py``.  The reference jits the steps
 and donates the caches to decode; here decode writes the new token's K/V
-rows into the stacked cache tensors in place, with no copy per step.
+rows (and, for rwkv6 and zamba2, the new recurrent states and shift or
+conv windows) into the stacked cache tensors in place, with no copy per
+step.
 """
 from __future__ import annotations
 

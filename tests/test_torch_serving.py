@@ -1,9 +1,10 @@
 """Port parity for the RAG serving path: `repro_torch.serving` against the
 JAX package's `repro.serving` on one memory state carried across with
 `ivf_state_from_numpy` and the reference's parameters carried across with
-`lm_params_from_numpy`, at reduced sizes; then the port's entry points
-(`python -m repro_torch.launch.serve`, `python -m repro_torch.serve_agent`)
-on the CPU.
+`lm_params_from_numpy`, at reduced sizes (granite-3-2b, and one arch of
+each of the MoE, VLM, SSM and hybrid families); then the port's entry
+points (`python -m repro_torch.launch.serve`, `python -m
+repro_torch.serve_agent`) on the CPU.
 
 The reference's scan runs as its own tests run it (Pallas in interpret
 mode); the port's runs its plain version on the CPU.  Tolerances: float32
@@ -121,6 +122,67 @@ def test_rag_prefill_matches_reference(setup, dim, dtype):
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=1e-2 * np.abs(want).max())
     assert tc.k.shape == jc.k.shape
+
+
+FAMILIES = ["olmoe-1b-7b", "qwen2-vl-7b", "rwkv6-1.6b", "zamba2-2.7b"]
+
+
+def _cache_leaves(caches):
+    """Every tensor of a cache tree (KV, RWKV, zamba2's), in order."""
+    if hasattr(caches, "_fields"):
+        return [t for c in caches for t in _cache_leaves(c)]
+    return [caches]
+
+
+@pytest.mark.parametrize("dim", [128, 256])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_rag_prefill_matches_reference_per_family(setup, arch, dim):
+    """One arch of each family the slice adds, float32, in both branches:
+    ids, logits, every cache leaf (zamba2's attention caches grown to
+    s_max, rwkv6's states) and pos; qwen2-vl with M-RoPE coordinates that
+    differ per axis."""
+    _, states, tokens = setup
+    jcfg = jregistry.reduced_arch(arch).replace(dtype="float32")
+    cfg = registry.reduced_arch(arch).replace(dtype="float32")
+    jp = jax.device_get(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    jecfg, ecfg = _ecfgs(dim)
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        t = np.arange(tokens.shape[1], dtype=np.int32)
+        batch["mrope_pos"] = np.broadcast_to(
+            np.stack([t, t // 3, t % 4], -1), (*tokens.shape, 3)).copy()
+    step = jax.jit(jrag.make_rag_prefill(jcfg, jecfg, s_max=32, k=K))
+    jl, jc, jpos, jids = step(jp, states[dim],
+                              {k: jnp.asarray(v) for k, v in batch.items()})
+    model = convert.lm_params_from_numpy(cfg, jp, "cpu")
+    proj = unproj = None
+    if dim != cfg.d_model:
+        proj, unproj = convert.rag_projections_from_numpy(
+            *_ref_projections(cfg, dim), "cpu")
+    prefill = rag.make_rag_prefill(cfg, ecfg, 32, k=K, proj=proj,
+                                   unproj=unproj, device="cpu")
+    tl, tc, tpos, tids = prefill(
+        model, convert.ivf_state_from_numpy(states[dim], "cpu"),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL,
+                               atol=TOL)
+    got, want = _cache_leaves(tc), jax.tree.leaves(jc)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=TOL,
+                                   atol=TOL)
+    if cfg.family == "hybrid":
+        assert tc.attn.k.shape[2] == 32
+    # decode continues from the RAG-prefilled caches
+    tok = serve_step.greedy(tl, cfg.vocab_size)[:, None]
+    logits2, _ = lm.decode_step(model, cfg, tok, tc, tpos + 1)
+    jl2, _ = jlm.decode_step(jp, jcfg, jnp.asarray(tok.numpy()), jc,
+                             jnp.asarray((tpos + 1).numpy()))
+    np.testing.assert_allclose(logits2.numpy(), np.asarray(jl2), rtol=TOL,
+                               atol=TOL)
 
 
 def _jquery(jp, jcfg, jecfg, tokens):
@@ -257,6 +319,23 @@ def test_serve_agent_main_on_cpu(capsys):
     text = capsys.readouterr().out
     assert "after 2 turns: 1028 memories" in text
     assert [t["tokens"].shape for t in out["turns"]] == [(2, 3), (2, 3)]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_entry_points_serve_each_family_on_cpu(arch, capsys):
+    """Both entry points at `--arch` of each family the slice adds."""
+    from repro_torch import serve_agent
+    out = serve.main(["--device", "cpu", "--arch", arch, "--requests", "2",
+                      "--prompt-len", "16", "--decode-steps", "3",
+                      "--corpus", "512", "--concurrent-inserts", "32"])
+    assert out["insert_rows"] == 32
+    toks = out["turns"][0]["tokens"]
+    assert toks.shape == (2, 3) and (toks < registry.get_arch(arch)
+                                     .vocab_size).all()
+    out = serve_agent.main(["--device", "cpu", "--arch", arch, "--turns",
+                            "1", "--decode-steps", "2"])
+    assert "after 1 turns: 1026 memories" in capsys.readouterr().out
+    assert out["turns"][0]["tokens"].shape == (2, 2)
 
 
 def test_serve_turns_and_acked_inserts_live():

@@ -11,7 +11,7 @@
 
     python3 tools/profile_port.py --host-copy [--out FILE]
 
-    python3 tools/profile_port.py --serving [--out FILE]
+    python3 tools/profile_port.py --serving [--arch ARCH] [--out FILE]
 
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
@@ -53,13 +53,14 @@ and reused (copies only).  Three demote/promote round trips each, the
 first apart; reports seconds, GB/s and host bytes (pinned allocations
 rounded up by the caching host allocator).
 
-``--serving`` profiles ``chip_smoke.py`` phase 11a's serving path: the
-granite-3-2b model at full width (bf16, from ``--seed``) beside the
-1,000,000-row memory at dim 2048 in PAPER_1M's layout, each op warmed
+``--serving`` profiles ``chip_smoke.py`` phase 11a's serving path (12a's
+with ``--arch olmoe-1b-7b``): the model of ``--arch`` (default
+granite-3-2b) at full width (bf16, from ``--seed``) beside the
+1,000,000-row memory at dim d_model in PAPER_1M's layout, each op warmed
 first, then one each under the profiler: the retrieval alone (the full
 scan at B = 8), the RAG prefill of 8 x 512 tokens, 8 decode steps, and
 one 32-row insert; with the same breakdown plus the number of kernels
-each op launched.
+each op launched (and, for the decode, a step's).
 """
 from __future__ import annotations
 
@@ -312,8 +313,9 @@ def host_copy(seed: int) -> dict:
     return out
 
 
-def serving(seed: int) -> dict:
-    """Profiled ops of phase 11a's serving path (see the module doc)."""
+def serving(seed: int, arch: str) -> dict:
+    """Profiled ops of phase 11a's serving path with `arch`'s model (see
+    the module doc)."""
     from repro_torch.api import MemoryOp
     from repro_torch.configs import registry
     from repro_torch.configs.ame_paper import PAPER_1M
@@ -322,7 +324,7 @@ def serving(seed: int) -> dict:
     from repro_torch.serving import rag, serve_step
 
     dev = torch.device("cuda")
-    cfg = registry.get_arch(chip_smoke.SERVE_ARCH)
+    cfg = registry.get_arch(arch)
     ecfg = dataclasses.replace(PAPER_1M, dim=cfg.d_model,
                                k=chip_smoke.SERVE_MEM_K)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
@@ -366,6 +368,8 @@ def serving(seed: int) -> dict:
         out = {name: profiled(fn) for name, fn in ops.items()}
     finally:
         srv.close(svc)
+    out["decode 8 steps"]["kernels_per_step"] = \
+        out["decode 8 steps"]["device_kernels"] / 8
     out["model"] = {"arch": cfg.name, "params": cfg.param_count(),
                     "requests": b, "prompt": s}
     return out
@@ -380,6 +384,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--host-copy", action="store_true")
     ap.add_argument("--serving", action="store_true")
+    ap.add_argument("--arch", default=chip_smoke.SERVE_ARCH,
+                    help="--serving: the model served (default "
+                    f"{chip_smoke.SERVE_ARCH})")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -402,7 +409,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
-                      "serving": serving(args.seed)}, args.out)
+                      "serving": serving(args.seed, args.arch)}, args.out)
     if args.fused:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

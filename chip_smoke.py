@@ -94,6 +94,17 @@ Phases (any failure raises and the script exits non-zero):
    through the projection branch over PAPER_100K with concurrent inserts;
    olmoe-1b-7b, rwkv6-1.6b and zamba2-2.7b in float32, decode logits equal
    to ``forward_train``'s within 2e-3.
+13. enc-dec: seamless-m4t-large-v2 at full width (24 + 24 layers, bf16
+   weights from ``--seed``): 8 requests of 256 source frames and 256
+   tokens, a prefill and 32 greedy decode steps against the cached self
+   and cross K/V, twice; in float32, decode logits equal to
+   ``forward_train``'s within 2e-3.
+14. training: granite-3-2b at full width on f32 master weights through
+   ``repro_torch.train.Trainer`` (remat, 8 x 512 tokens a step, 10 steps
+   on one batch; the loss falls); grad accumulation 2 == 1 in float32 at
+   2 layers; bf16 and int8 gradient compression train at 4 layers; a
+   checkpoint, a preemption and a restore bit-equal in a fresh trainer;
+   one step of each other family at full width and 2 layers.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -3320,13 +3331,17 @@ def print_served(tag, card, cfg, r, memory: str) -> None:
           f"{r['peak_GiB']:.1f} GiB", flush=True)
 
 
-def decode_pairs(cfg, params, tokens):
-    """`forward_train` over `tokens` [2, 8], then prefill of the first 4
-    and 4 decode steps on the rest: (the forward's logits, [(step logits,
-    the forward's at that position)])."""
+def decode_pairs(cfg, params, tokens, src=None):
+    """`forward_train` over `tokens` [2, 8] (the enc-dec family also over
+    source frames `src`), then prefill of the first 4 and 4 decode steps
+    on the rest: (the forward's logits, [(step logits, the forward's at
+    that position)])."""
     from repro_torch.models import lm
-    full, _ = lm.forward_train(params, cfg, {"tokens": tokens})
-    last, caches, _ = lm.prefill(params, cfg, {"tokens": tokens[:, :4]}, 16)
+    extra = {} if src is None else {"src_emb": src}
+    with torch.no_grad():
+        full, _ = lm.forward_train(params, cfg, {"tokens": tokens, **extra})
+    last, caches, _ = lm.prefill(params, cfg,
+                                 {"tokens": tokens[:, :4], **extra}, 16)
     pairs = [(last, full[:, 3])]
     for t in range(4, 8):
         logits, caches = lm.decode_step(
@@ -3346,7 +3361,9 @@ def decode_vs_forward(tag, cfg, seed, g, dtype="float32"):
     params, b = made_model(tag, cfgx, seed)
     tokens = torch.randint(0, cfg.vocab_size, (2, 8), generator=g,
                            device=g.device, dtype=torch.int32)
-    full, pairs = decode_pairs(cfgx, params, tokens)
+    src = (torch.randn(2, 8, cfg.d_model, generator=g, device=g.device)
+           if cfg.family == "encdec" else None)
+    full, pairs = decode_pairs(cfgx, params, tokens, src)
     b.update(arch=cfg.name, dtype=dtype, positions=len(pairs),
              tol=SERVE_TOL,
              max_abs_err=max(float((x - y).abs().max()) for x, y in pairs),
@@ -3517,9 +3534,10 @@ def phase_families(seed: int, card: str) -> dict:
     if not torch.equal(y1, y2):
         raise AssertionError("12a: the MoE combine changed its bits")
     a["moe_aux"] = float(aux)
-    _, aux = lm.forward_train(params, cfg, {"tokens": torch.randint(
-        0, cfg.vocab_size, (2, 64), generator=g, device=dev,
-        dtype=torch.int32)})
+    with torch.no_grad():
+        _, aux = lm.forward_train(params, cfg, {"tokens": torch.randint(
+            0, cfg.vocab_size, (2, 64), generator=g, device=dev,
+            dtype=torch.int32)})
     a["forward_aux"] = float(aux)
     if not (math.isfinite(a["moe_aux"]) and math.isfinite(a["forward_aux"])):
         raise AssertionError(f"12a: aux loss {a['moe_aux']}, "
@@ -3610,6 +3628,307 @@ def phase_families(seed: int, card: str) -> dict:
     by = out["launches_by_variant"]["scan_scores"]
     if by["generic"] or by["stream"] != out["launches"]["scan_scores"]:
         raise AssertionError(f"phase 12 scan_scores by variant {by}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the enc-dec family at full width; phase 14: training at full
+# width on f32 master weights
+# ---------------------------------------------------------------------------
+
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+ENCDEC_REQUESTS = 8     # 13a: 8 requests of 256 source frames + 256 tokens
+ENCDEC_SEQ = 512        # 13a: synth_batch's window (split in halves)
+ENCDEC_DECODE = 32      # 13a: greedy tokens a request
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 512   # 14a: 4,096 tokens a step
+TRAIN_STEPS = 10        # 14a: steps on one repeated batch
+TRAIN_LR = 3e-3         # 14a-14c: the reference test's lr, warmup 2
+TRAIN_FAMILIES = ("olmoe-1b-7b", "qwen2-vl-7b", "rwkv6-1.6b", "zamba2-2.7b",
+                  "seamless-m4t-large-v2")   # 14e: one step each
+
+
+def synced_ms(fn) -> tuple:
+    """(fn(), its wall time in ms with the card synchronized after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_encdec(seed: int, card: str) -> dict:
+    """The enc-dec family at full width (seamless-m4t-large-v2: 24 encoder
+    and 24 decoder layers, d_model 1024, vocab 256,206 padded to 258,048;
+    weights from `seed`).  13a: two rounds of ENCDEC_REQUESTS requests of
+    256 source frames and 256 tokens through `serve_step`: a prefill (time
+    to first token), then ENCDEC_DECODE greedy steps against the cached
+    self and cross K/V; tokens inside the vocabulary.  13b: the model in
+    float32, decode logits equal `forward_train`'s within SERVE_TOL (2 x 8
+    teacher tokens over 8 source frames)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import api
+    from repro_torch.serving import serve_step
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    cfg = registry.get_arch(ENCDEC_ARCH)
+    out = {"card": card, "arch": cfg.name}
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    torch.cuda.reset_peak_memory_stats()
+    params, a = made_model("13a", cfg, seed)
+    batch = api.synth_batch(g, cfg, "prefill", ENCDEC_REQUESTS, ENCDEC_SEQ)
+    s_max = batch["tokens"].shape[1] + ENCDEC_DECODE
+    prefill = serve_step.make_prefill(cfg, s_max)
+    decode = serve_step.make_decode(cfg)
+    a.update(src_frames=batch["src_emb"].shape[1],
+             prompt_tokens=batch["tokens"].shape[1], prefill_ms=[])
+    for _ in range(2):              # the first round warms the libraries
+        (tok, caches, pos), ms = synced_ms(lambda: prefill(params, batch))
+        a["prefill_ms"].append(ms)
+        toks, dec_ms = [tok], []
+        for _ in range(ENCDEC_DECODE - 1):
+            pos = pos + 1
+            (tok, caches), ms = synced_ms(
+                lambda: decode(params, tok, caches, pos))
+            toks.append(tok)
+            dec_ms.append(ms)
+        toks = torch.cat(toks, dim=1)
+        if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError("13a: a token outside the vocabulary")
+        if tuple(toks.shape) != (ENCDEC_REQUESTS, ENCDEC_DECODE):
+            raise AssertionError(f"13a: tokens {tuple(toks.shape)}")
+    del caches
+    a.update(decode_p50_ms=float(np.percentile(dec_ms, 50)),
+             decode_p95_ms=float(np.percentile(dec_ms, 95)),
+             tok_per_s=ENCDEC_REQUESTS * ENCDEC_DECODE
+             / ((a["prefill_ms"][-1] + sum(dec_ms)) / 1e3),
+             peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, prefill, decode
+    release()
+    print(f"  13a [{card}]: {cfg.name} ({a['params']:,} params, "
+          f"{a['weight_GB']:.2f} GB {cfg.dtype}), {ENCDEC_REQUESTS} requests "
+          f"x ({a['src_frames']} frames + {a['prompt_tokens']} tokens): "
+          f"prefill (time to first token) "
+          f"{[round(t, 3) for t in a['prefill_ms']]} ms, decode p50/p95 "
+          f"{a['decode_p50_ms']:.3f}/{a['decode_p95_ms']:.3f} ms/token, "
+          f"{a['tok_per_s']:.1f} tok/s, peak {a['peak_GiB']:.1f} GiB",
+          flush=True)
+    b, _, _ = decode_vs_forward("13b", cfg, seed, g)
+    print(f"  13b [{card}]: float32 ({b['weight_GB']:.2f} GB) decode logits "
+          f"== forward_train's at {b['positions']} positions, max err "
+          f"{b['max_abs_err']:.3g} (tol {SERVE_TOL}; logits up to "
+          f"{b['logit_scale']:.1f})", flush=True)
+    out["13a"], out["13b"] = a, b
+    out.update(path_launches(kernels, {}))
+    return out
+
+
+def _finite(tag, hist) -> None:
+    for h in hist:
+        for k in ("loss", "grad_norm", "aux"):
+            if not math.isfinite(h[k]):
+                raise AssertionError(f"{tag}: {k} {h[k]} at step {h['step']}")
+
+
+def _host_batch(batch) -> dict:
+    """A batch on the card as the numpy arrays `Trainer.train` takes
+    (floats in f32, which holds a bf16 value exactly)."""
+    return {k: (v.float() if v.is_floating_point() else v).cpu().numpy()
+            for k, v in batch.items()}
+
+
+def phase_train(seed: int, card: str) -> dict:
+    """Training at full width on f32 master weights.  14a: granite-3-2b
+    (2,537,553,920 parameters) through `Trainer` with remat, TRAIN_BATCH x
+    TRAIN_SEQ tokens a step, TRAIN_STEPS steps on one repeated batch at lr
+    TRAIN_LR (warmup 2): every loss and grad norm finite, the last loss
+    below the first.  14b: the same width at 2 layers in float32, grad
+    accumulation 2 against 1 (the reference's test: loss to rtol 1e-4, the
+    first leaf to rtol 1e-3, atol 1e-5).  14c: bf16 and int8 gradient
+    compression, 5 steps each at 4 layers, the loss falls.  14d: 4 layers,
+    a checkpoint every 5 steps, a preemption, a fresh `Trainer` restores
+    the step and every param and moment leaf `torch.equal`.  14e: one step
+    of each other family at full width (2 layers; zamba2 one group of 6,
+    seamless 2 + 2), without weight decay: loss, grads and the MoE aux
+    finite, every leaf changed (so each had a nonzero gradient)."""
+    import itertools
+    import shutil
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api, lm
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    cfg = registry.get_arch(TRAIN_ARCH)
+    if not cfg.remat:
+        raise AssertionError(f"14a: {cfg.name} without remat")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                     total_steps=TRAIN_STEPS, seed=seed)
+
+    # -- 14a: granite-3-2b at full width, f32 master weights -------------
+    torch.cuda.reset_peak_memory_stats()
+    tr, init_ms = synced_ms(lambda: Trainer(cfg, tc, device=dev))
+    if {p.dtype for p in tr.params.parameters()} != {torch.float32}:
+        raise AssertionError("14a: master weights not all f32")
+    batch = _host_batch(api.synth_batch(g, cfg, "train", TRAIN_BATCH,
+                                        TRAIN_SEQ))
+    hist = tr.train(itertools.repeat(batch), TRAIN_STEPS, log_every=1)
+    _finite("14a", hist)
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"14a: loss {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}")
+    step_s = [h["step_s"] for h in hist]
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    p50 = float(np.percentile(step_s[1:], 50))
+    a = {"arch": cfg.name, "params": cfg.param_count(),
+         "state_GB": 4 * 4 * cfg.param_count() / 1e9, "init_ms": init_ms,
+         "tokens_a_step": n_tok, "losses": [h["loss"] for h in hist],
+         "grad_norms": [h["grad_norm"] for h in hist], "step_s": step_s,
+         "step_p50_s": p50, "tokens_per_s": n_tok / p50,
+         "bf16_peak_share": 6 * cfg.param_count() * n_tok / p50 / PEAK_BF16,
+         "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del tr, hist
+    release()
+    if a["peak_GiB"] >= 80:
+        raise AssertionError(f"14a: peak {a['peak_GiB']:.1f} GiB")
+    print(f"  14a [{card}]: {cfg.name} trained at full width "
+          f"({a['params']:,} params; f32 weights, grads and both moments "
+          f"{a['state_GB']:.1f} GB), remat, {n_tok} tokens a step: loss "
+          f"{a['losses'][0]:.3f} -> {a['losses'][-1]:.3f}, step "
+          f"{a['step_s'][0]:.3f} s first, p50 {p50:.3f} s after, "
+          f"{a['tokens_per_s']:.0f} tokens/s, "
+          f"{100 * a['bf16_peak_share']:.1f} % of the bf16 peak "
+          f"(6 N tokens / step), peak {a['peak_GiB']:.1f} GiB", flush=True)
+    out["14a"] = a
+
+    # -- 14b: grad accumulation 2 == 1, f32, 2 layers --------------------
+    cfg2 = cfg.replace(num_layers=2, dtype="float32")
+    b_batch = _host_batch(api.synth_batch(g, cfg2, "train", 4, 64))
+    res = {}
+    for accum in (1, 2):
+        tr = Trainer(cfg2, TrainConfig(grad_accum=accum, learning_rate=1e-3,
+                                       seed=seed), device=dev)
+        hist = tr.train(itertools.repeat(b_batch), 1, log_every=1)
+        _finite(f"14b accum {accum}", hist)
+        res[accum] = (hist[0]["loss"], next(tr.params.parameters()).detach())
+        del tr
+    b = {"loss_1": res[1][0], "loss_2": res[2][0],
+         "leaf_max_abs_diff": float((res[1][1] - res[2][1]).abs().max())}
+    np.testing.assert_allclose(res[1][0], res[2][0], rtol=1e-4)
+    torch.testing.assert_close(res[1][1], res[2][1], rtol=1e-3, atol=1e-5)
+    del res
+    release()
+    print(f"  14b [{card}]: f32, 2 layers: accumulation 2 loss "
+          f"{b['loss_2']:.6f} == 1's {b['loss_1']:.6f}, first leaf max diff "
+          f"{b['leaf_max_abs_diff']:.3g}", flush=True)
+    out["14b"] = b
+
+    # -- 14c: bf16 and int8 gradient compression train -------------------
+    cfg4 = cfg.replace(num_layers=4)
+    c_batch = _host_batch(api.synth_batch(g, cfg4, "train", TRAIN_BATCH, 128))
+    out["14c"] = {}
+    for scheme in ("bf16", "int8"):
+        tr = Trainer(cfg4, TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                                       grad_compression=scheme, seed=seed),
+                     device=dev)
+        hist = tr.train(itertools.repeat(c_batch), 5, log_every=1)
+        del tr
+        _finite(f"14c {scheme}", hist)
+        ls = [h["loss"] for h in hist]
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"14c {scheme}: loss {ls}")
+        out["14c"][scheme] = ls
+        print(f"  14c [{card}]: {scheme} compression, 4 layers: loss "
+              f"{ls[0]:.3f} -> {ls[-1]:.3f} in 5 steps", flush=True)
+    release()
+
+    # -- 14d: checkpoint, preemption, restore in a fresh Trainer ---------
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        d_tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, seed=seed)
+        d_batch = _host_batch(api.synth_batch(g, cfg4, "train", 4, 128))
+        tr = Trainer(cfg4, d_tc, checkpoint_dir=ck_dir, checkpoint_every=5,
+                     device=dev)
+        t0 = time.perf_counter()
+        tr.train(itertools.repeat(d_batch), 6, log_every=2)
+        if tr.step_num != 6 or tr.ckpt.latest_step() != 5:
+            raise AssertionError(f"14d: step {tr.step_num}, checkpoint "
+                                 f"{tr.ckpt.latest_step()}")
+        tr.guard.request()
+        tr.train(itertools.repeat(d_batch), 10, log_every=2)
+        if tr.step_num != 7 or tr.ckpt.latest_step() != 7:
+            raise AssertionError(f"14d: preempted at {tr.step_num}")
+        train_s = time.perf_counter() - t0
+        tr2, restore_ms = synced_ms(lambda: Trainer(
+            cfg4, d_tc, checkpoint_dir=ck_dir, device=dev))
+        t0 = time.perf_counter()
+        if not tr2.maybe_restore() or tr2.step_num != 7 or not (
+                int(tr2.opt_state.step) == int(tr.opt_state.step) == 7):
+            raise AssertionError("14d: the restore lost the step")
+        restore_s = time.perf_counter() - t0
+        n = 0
+        for (name, p), (_, q) in zip(tr.params.named_parameters(),
+                                     tr2.params.named_parameters()):
+            for x, y in ((p, q), (tr.opt_state.mu[name],
+                                  tr2.opt_state.mu[name]),
+                         (tr.opt_state.nu[name], tr2.opt_state.nu[name])):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"14d: {name} differs after restore")
+                n += 1
+        ck_GB = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in
+                    os.walk(ck_dir) for f in fs) / 1e9
+        out["14d"] = {"train_s": train_s, "restore_s": restore_s,
+                      "leaves_equal": n, "checkpoints_GB": ck_GB}
+        del tr, tr2
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    release()
+    print(f"  14d [{card}]: 4 layers, checkpoint every 5 steps, preempted at "
+          f"step 7; a fresh Trainer restored step 7 and {n} param/moment "
+          f"leaves torch.equal ({ck_GB:.2f} GB on disk; 7 steps with saves "
+          f"{train_s:.1f} s, restore {restore_s:.1f} s)", flush=True)
+
+    # -- 14e: one step of each other family at full width ----------------
+    out["14e"] = {}
+    for arch in TRAIN_FAMILIES:
+        full = registry.get_arch(arch)
+        kw = {"num_layers": 2}
+        if full.family == "hybrid":
+            kw = {"num_layers": full.shared_block_period}
+        elif full.family == "encdec":
+            kw = {"num_layers": 4, "num_enc_layers": 2, "num_dec_layers": 2}
+        cfg_e = full.replace(**kw)
+        e_batch = _host_batch(api.synth_batch(g, cfg_e, "train", 4, 256))
+        # no weight decay: a leaf moves only where its gradient is nonzero
+        tr = Trainer(cfg_e, TrainConfig(learning_rate=TRAIN_LR,
+                                        warmup_steps=2, weight_decay=0.0,
+                                        seed=seed), device=dev)
+        hist = tr.train(itertools.repeat(e_batch), 1, log_every=1)
+        _finite(f"14e {arch}", hist)
+        m, params = hist[0], tr.params
+        # the same seed draws the model as it was before the step
+        before = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                                cfg_e, master=True)
+        same = [k for (k, p), (_, q) in zip(params.named_parameters(),
+                                            before.named_parameters())
+                if torch.equal(p.detach(), q)]
+        if same:
+            raise AssertionError(f"14e {arch}: leaves unchanged {same[:5]}")
+        if (m["aux"] > 0) != (full.family == "moe"):
+            raise AssertionError(f"14e {arch}: aux {m['aux']}")
+        out["14e"][arch] = {**m, "layers": kw, "params": sum(
+            p.numel() for p in params.parameters())}
+        print(f"  14e [{card}]: {arch} ({kw}), one step without weight "
+              f"decay: loss {m['loss']:.3f}, aux {m['aux']:.3f}, grad norm "
+              f"{m['grad_norm']:.3f}, every leaf changed, "
+              f"{1e3 * m['step_s']:.0f} ms", flush=True)
+        del tr, params, before
+        release()
+    out.update(path_launches(kernels, {}))
     return out
 
 
@@ -3712,6 +4031,20 @@ def main(argv=None) -> int:
     paths["families"] = fam = phase_families(args.seed, card)
     print(f"phase 12: families in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(fam), flush=True)
+    release()
+    # 13. the enc-dec family at full width (after phase 12's memory is
+    # freed), the counts set to 0 just before (it launches none of them)
+    t0 = time.perf_counter()
+    paths["encdec"] = ed = phase_encdec(args.seed, card)
+    print(f"phase 13: enc-dec in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(ed), flush=True)
+    release()
+    # 14. training at full width (after phase 13's memory is freed), the
+    # counts set to 0 just before (it launches none of them)
+    t0 = time.perf_counter()
+    paths["train"] = trn = phase_train(args.seed, card)
+    print(f"phase 14: training in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(trn), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

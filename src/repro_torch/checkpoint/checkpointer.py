@@ -57,10 +57,16 @@ def _unflatten(like: Any, leaves) -> Any:
     return next(leaves)
 
 
-def _host(leaf: Any) -> np.ndarray:
+def _host(leaf: Any, copy: bool = False) -> np.ndarray:
+    """`leaf` as a host array; with `copy`, one that shares no memory with
+    it (``.cpu()`` of a host tensor and ``np.asarray`` of an array return
+    the same memory, which the caller may go on changing in place)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if copy and t.device == leaf.device:
+            t = t.clone()
+        return t.numpy()
+    return np.array(leaf) if copy else np.asarray(leaf)
 
 
 class Checkpointer:
@@ -81,7 +87,7 @@ class Checkpointer:
         self.wait()
         leaves: List[Any] = []
         treedef = _flatten(tree, leaves)
-        host = [_host(x) for x in leaves]       # device -> host snapshot now
+        host = [_host(x, copy=True) for x in leaves]   # snapshot now
 
         def work():
             try:

@@ -1,11 +1,15 @@
-"""Config dataclasses for models, shapes and the memory engine (copies of
-``ModelConfig``, ``ShapeConfig``/``SHAPES`` and ``EngineConfig`` from
-``src/repro/configs/base.py``, the port's own, so that it imports no JAX).
+"""Config dataclasses for models, shapes, training and the memory engine
+(copies of ``ModelConfig``, ``ShapeConfig``/``SHAPES``, ``TrainConfig`` and
+``EngineConfig`` from ``src/repro/configs/base.py``, the port's own, so
+that it imports no JAX).
 
 Frozen dataclasses with the reference's fields, defaults, properties and
 checks, so both packages describe a model or an engine with the same key.
-``EngineConfig.interpret`` and ``ModelConfig.remat``/``scan_period`` are
-kept for field parity; the port runs no interpreter and no backward yet.
+``EngineConfig.interpret``, ``ModelConfig.scan_period`` and
+``TrainConfig.remat_policy`` are kept for field parity: the port runs no
+interpreter and scans no layers, and as in the reference only the dry run
+reads the remat policy (``ModelConfig.remat`` switches the per-layer
+recompute).
 """
 from __future__ import annotations
 
@@ -152,6 +156,21 @@ DECODE_32K = ShapeConfig("decode_32k", "decode", 32_768, 128)
 LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
 
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_accum: int = 1
+    grad_compression: str = "none"   # none | bf16 | int8
+    remat_policy: str = "block"      # none | block | full
+    seed: int = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,10 @@ moves between the two, bit for bit, through
 A model of the reference is the pytree `repro.models.lm.init_params`
 returns (host arrays: ``embed.table``, ``head.w`` unless tied,
 ``final_norm``, the blocks' leaves stacked ``[L, ...]`` — the MoE
-experts' ``mlp.*``, rwkv6's and mamba2's flat leaves — and zamba2's
-unstacked ``shared_attn``); `lm_params_from_numpy` / `lm_params_to_numpy`
+experts' ``mlp.*``, rwkv6's and mamba2's flat leaves — zamba2's
+unstacked ``shared_attn``, and the enc-dec family's ``enc_blocks`` and
+``dec_blocks`` (with ``ln_cross`` and ``cross``), each stacked over its
+own depth, and ``enc_final_norm``); `lm_params_from_numpy` / `lm_params_to_numpy`
 move it onto the port's modules and back.  Weight matrices are cast to
 ``cfg.dtype`` once on the way in (bit-equal to the reference's cast at
 every use); vectors and rwkv6's bonus ``u`` stay f32, as the reference
@@ -69,6 +71,14 @@ def sharded_state_to_numpy(state) -> IVFState:
     return assemble_host(state)
 
 
+def _stacks(cfg: ModelConfig) -> dict:
+    """The model's stacked block groups and their depths."""
+    if cfg.family == "encdec":
+        return {"enc_blocks": cfg.num_enc_layers,
+                "dec_blocks": cfg.num_dec_layers}
+    return {"blocks": cfg.num_layers}
+
+
 def _flatten(tree, prefix=""):
     for key, value in tree.items():
         if isinstance(value, dict):
@@ -86,15 +96,16 @@ def lm_params_from_numpy(cfg: ModelConfig, tree,
     model = lm.LM(cfg, device=resolve_device(device))
     params = dict(model.named_parameters())
     todo = set(params)
+    stacks = _stacks(cfg)
     for key, value in _flatten(tree):
         value = np.asarray(value)
-        if key.startswith("blocks."):
-            leaf = key[len("blocks."):]
-            if value.shape[0] != cfg.num_layers:
+        group, _, leaf = key.partition(".")
+        if group in stacks:
+            n = stacks[group]
+            if value.shape[0] != n:
                 raise ValueError(f"{key}: {value.shape[0]} stacked layers, "
-                                 f"config has {cfg.num_layers}")
-            pairs = [(f"blocks.{i}.{leaf}", value[i])
-                     for i in range(cfg.num_layers)]
+                                 f"config has {n}")
+            pairs = [(f"{group}.{i}.{leaf}", value[i]) for i in range(n)]
         else:
             pairs = [(key, value)]
         for name, arr in pairs:
@@ -118,23 +129,23 @@ def lm_params_to_numpy(model: lm.LM) -> dict:
     stacked: dict = {}
     for name, p in model.named_parameters():
         arr = p.detach().float().cpu().numpy()
-        if name.startswith("blocks."):
-            _, i, leaf = name.split(".", 2)
-            stacked.setdefault(leaf, {})[int(i)] = arr
+        if name.split(".", 1)[0] in ("blocks", "enc_blocks", "dec_blocks"):
+            group, i, leaf = name.split(".", 2)
+            stacked.setdefault(group, {}).setdefault(leaf, {})[int(i)] = arr
             continue
         node = tree
         *path, leaf = name.split(".")
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = arr
-    blocks: dict = {}
-    for leaf, by_layer in stacked.items():
-        node = blocks
-        *path, last = leaf.split(".")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[last] = np.stack([by_layer[i] for i in range(len(by_layer))])
-    tree["blocks"] = blocks
+    for group, leaves in stacked.items():
+        blocks = tree[group] = {}
+        for leaf, by_layer in leaves.items():
+            node = blocks
+            *path, last = leaf.split(".")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = np.stack([by_layer[i] for i in range(len(by_layer))])
     return tree
 
 

@@ -14,7 +14,8 @@ plain versions do.  The reference's ``--production-mesh`` has no
 counterpart on one card.
 
 Every decoder-only family serves (dense, MoE, VLM, SSM, hybrid); the
-enc-dec arch is refused, as the reference refuses it.  `build_memory` and
+enc-dec arch is refused, as the reference refuses it
+(``repro_torch.serving.serve_step.generate`` serves it without the memory).  `build_memory` and
 `serve` are the body of `main`, callable at any width (``chip_smoke.py``
 phases 11 and 12 serve granite-3-2b, olmoe-1b-7b, deepseek-moe-16b,
 qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b at full width through them).
@@ -167,8 +168,9 @@ def main(argv=None):
 
     cfg = registry.reduced_arch(args.arch)
     if cfg.family == "encdec":
-        raise SystemExit("the server targets decoder LMs; use "
-                         "repro_torch.quickstart for the memory alone")
+        raise SystemExit("the server splices memories into decoder-only LMs; "
+                         "repro_torch.serving.serve_step.generate serves the "
+                         "enc-dec family without the memory")
     ecfg = EngineConfig(dim=cfg.d_model, n_clusters=128, list_capacity=64,
                         nprobe=16, k=args.mem_k)
     dev = resolve_device(args.device)

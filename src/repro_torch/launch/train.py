@@ -1,0 +1,82 @@
+"""Training entry point of the port: ``python -m repro_torch.launch.train
+--arch granite-3-2b [--full] [--device cpu]``.
+
+The counterpart of ``src/repro/launch/train.py``, with its flags and
+defaults: a reduced config (``--reduced``, the default) or the full one
+(``--full``), a synthetic corpus unless ``--data-dir`` names uint32 token
+shards, and the fault-tolerant `Trainer` (checkpoint/restart, preemption,
+straggler monitor) always on.  It trains on the CUDA card unless
+``--device`` names another.  The reference's ``--production-mesh``,
+``--multi-pod`` and ``--multihost`` build a JAX mesh or a multi-host
+runtime and have no counterpart on one card.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs import registry
+from repro_torch.configs.base import TrainConfig
+from repro_torch.data.pipeline import Prefetcher, TokenDataset
+from repro_torch.models import api
+from repro_torch.train.trainer import Trainer
+
+
+def main(argv=None) -> Trainer:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True, choices=registry.list_archs())
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-compression", default="none",
+                    choices=("none", "bf16", "int8"))
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=50)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false",
+                    help="the full config")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data-dir", default=None,
+                    help="directory of uint32 .bin token shards "
+                         "(synthetic corpus when omitted)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+
+    cfg = (registry.reduced_arch(args.arch) if args.reduced
+           else registry.get_arch(args.arch))
+    tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
+                     warmup_steps=max(args.steps // 10, 1),
+                     grad_accum=args.grad_accum,
+                     grad_compression=args.grad_compression, seed=args.seed)
+
+    print(f"arch={cfg.name} params={cfg.param_count():,} "
+          f"(active {cfg.active_param_count():,}) reduced={args.reduced}")
+    trainer = Trainer(cfg, tc, checkpoint_dir=args.checkpoint_dir,
+                      checkpoint_every=args.checkpoint_every,
+                      install_signals=True, device=args.device)
+    if trainer.maybe_restore():
+        print(f"restored from step {trainer.step_num}")
+
+    ds = TokenDataset(args.data_dir, vocab_size=cfg.vocab_size,
+                      seq_len=args.seq, batch_size=args.batch,
+                      seed=args.seed,
+                      synthetic_tokens=max(1 << 18,
+                                           args.batch * args.seq * 8))
+    batches = Prefetcher(api.adapt_batches(ds, cfg, seed=args.seed), depth=2)
+    try:
+        hist = trainer.train(batches, args.steps, log_every=args.log_every)
+    finally:
+        batches.close()
+    final = hist[-1] if hist else {}
+    print(f"done: step={trainer.step_num} loss={final.get('loss', 'n/a')}")
+    if args.checkpoint_dir:
+        trainer.save(async_=False)
+        print(f"checkpointed to {args.checkpoint_dir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -94,9 +94,10 @@ def active_param_count(cfg: ModelConfig) -> int:
 
 
 # norm scales the analytic count leaves out: the blocks' pre/post norms,
-# the q/k norms and the final norm (the SSM mixers' own vectors count)
+# the q/k norms and the final norms (the SSM mixers' own vectors count)
 _UNCOUNTED = {"ln1", "ln2", "ln", "ln_attn", "ln_mlp", "ln_attn_post",
-              "ln_mlp_post", "q_norm", "k_norm", "final_norm"}
+              "ln_mlp_post", "ln_cross", "q_norm", "k_norm", "final_norm",
+              "enc_final_norm"}
 
 
 def counted_params(model) -> int:

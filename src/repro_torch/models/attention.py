@@ -4,7 +4,8 @@ Port of ``src/repro/models/attention.py``.  Prefill/train never forms the
 [S, S] score matrix: a loop over KV chunks carries online-softmax stats
 (m, l, acc), with the reference's chunk size.  Supports GQA, sliding
 windows (gemma2 local layers), logit softcapping, causal masking and
-M-RoPE (qwen2-vl).
+M-RoPE (qwen2-vl), and the enc-dec family's cross-attention over the
+encoder's K/V.
 
 The reference multiplies bf16 operands with ``preferred_element_type=f32``;
 PyTorch's ``bf16 @ bf16`` returns bf16, so the score and P·V products here
@@ -197,3 +198,28 @@ def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
     cache = cache_update(cache, k, v, pos)
     o = decode_attention(q, cache, pos, window=window, softcap=softcap)
     return _out_proj(p, o), cache
+
+
+def cross_attention(p: Attention, x, enc_kv: KVCache, cfg: ModelConfig,
+                    enc_len=None):
+    """Decoder cross-attention over the encoder's K/V [B, Sk, KVH, Dh] (no
+    RoPE, no q/k norm, as in the reference); `enc_len` int[B] masks the
+    keys at and past each row's length.  Scores and softmax in f32."""
+    q = _proj(x, p.wq)
+    b, sq, h, dh = q.shape
+    kvh = enc_kv.k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh).float()
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, enc_kv.k.float()) * (dh ** -0.5)
+    if enc_len is not None:
+        kmask = (torch.arange(enc_kv.k.shape[1], device=x.device)[None, :]
+                 < enc_len[:, None])
+        s = torch.where(kmask[:, None, None, None, :], s, NEG_INF)
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bqhgk,bkhd->bqhgd", pr.to(enc_kv.v.dtype).float(),
+                     enc_kv.v.float())
+    return _out_proj(p, o.reshape(b, sq, h, dh).to(x.dtype))
+
+
+def cross_kv(p: Attention, enc_out, cfg: ModelConfig) -> KVCache:
+    """The encoder output's K/V [B, Sk, KVH, Dh] in its dtype."""
+    return KVCache(k=_proj(enc_out, p.wk), v=_proj(enc_out, p.wv))

@@ -1,10 +1,11 @@
 """Shared model layers: norms, MLPs, embeddings, RoPE (incl. M-RoPE).
 
 Port of ``src/repro/models/layers.py``.  The reference keeps f32 weights
-and casts them to the activations' dtype at every use; the port holds the
-weight matrices in the model's dtype (cast once when the model is made or
-carried across), which is bit-equal, and the norm scales in f32, as the
-reference uses them.  Norms compute in f32 and cast back; products run in
+and casts them to the activations' dtype at every use; a serving model of
+the port holds the weight matrices in the model's dtype (cast once when
+the model is made or carried across), which is bit-equal, and a trained
+one holds them in f32 (the master weights) and casts them at each use, as
+the reference does.  Norm scales are f32 in both.  Norms compute in f32 and cast back; products run in
 the activations' dtype.
 """
 from __future__ import annotations
@@ -39,8 +40,8 @@ def upcast(x: torch.Tensor) -> torch.Tensor:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A weight of a serving model: no autograd (the backward waits for the
-    training slice)."""
+    """A weight, built without autograd: serving never differentiates, and
+    the trainer turns ``requires_grad`` on for its master weights."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -72,6 +73,15 @@ def rms_norm(x, scale, eps: float, *, gemma_style: bool = False,
     return (x * scale).to(dt)
 
 
+def layer_norm(x, scale, bias, eps: float):
+    """Layer norm in f32 (`upcast`), the result in x's dtype."""
+    dt = x.dtype
+    x = upcast(x)
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * scale + bias).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated: SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
@@ -98,6 +108,18 @@ def silu(x):
     return x * sigmoid(x) if _expanded(x) else F.silu(x)
 
 
+def gelu(x):
+    """``jax.nn.gelu``'s default tanh approximation.  On a 16-bit CPU
+    tensor it is expanded as jax writes it, with the constants in x's dtype
+    and a rounding after each step, as XLA's CPU backend computes it;
+    elsewhere the fused op (see `_expanded`)."""
+    if not _expanded(x):
+        return F.gelu(x, approximate="tanh")
+    c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c2 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c2 * (x + c1 * (x * x * x)))))
+
+
 class MLP(nn.Module):
     """wi (gate) and wu (up) [d_model, d_ff], wo [d_ff, d_model]."""
 
@@ -111,9 +133,7 @@ class MLP(nn.Module):
     def forward(self, x, act: str):
         h = x @ self.wi.to(x.dtype)
         u = x @ self.wu.to(x.dtype)
-        # jax.nn.gelu's default is the tanh approximation
-        h = (F.gelu(h, approximate="tanh") if act == "gelu"
-             else silu(h)) * u
+        h = (gelu(h) if act == "gelu" else silu(h)) * u
         return h @ self.wo.to(x.dtype)
 
 

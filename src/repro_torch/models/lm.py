@@ -1,5 +1,5 @@
-"""The model stack: init / train-forward / prefill / decode for the
-decoder-only families (dense, MoE, VLM, SSM, hybrid).
+"""The model stack: init / train-forward / prefill / decode for every
+family (dense, MoE, VLM, SSM, hybrid, enc-dec).
 
 Port of ``src/repro/models/lm.py``.  The reference scans one traced body
 over stacked layer weights; here the layers are an ``nn.ModuleList`` run
@@ -10,10 +10,16 @@ windows, both softcaps, ``emb_scale``, ``tie_embeddings``), the MoE layer
 in place of the MLP (olmoe, deepseek-moe) and M-RoPE (qwen2-vl).  rwkv6
 stacks RWKV blocks; zamba2 stacks mamba blocks in groups of
 ``shared_block_period``, each group followed by the one shared attention
-block (a KV cache per group).
+block (a KV cache per group).  The enc-dec family (seamless) runs a
+non-causal encoder over the source embeddings, then decoder blocks with
+cross-attention over the encoder's K/V; its caches are ``{"self",
+"cross"}``.
 
-The enc-dec family raises a ValueError that names the slice which brings
-it.
+`forward_train` is differentiable.  With ``cfg.remat`` and grad enabled
+each layer body runs under ``torch.utils.checkpoint`` (the reference's
+per-layer ``jax.checkpoint``); `prefill` and `decode_step` run without
+autograd and write their caches in place.  ``init_params(...,
+master=True)`` holds the matrices in f32 for the trainer.
 
 Head padding: when num_heads doesn't divide the model axis (qwen2-vl: 28),
 q-heads are padded up to the next multiple of 16, so parameter shapes
@@ -26,6 +32,7 @@ from typing import Dict, List, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -34,8 +41,8 @@ from repro_torch.models.attention import KVCache
 
 TP = 16  # model-axis width the head padding targets
 
-_LATER = {"encdec": "the enc-dec slice"}
 _ATTN = ("dense", "moe", "vlm")    # families of attention blocks
+_FAMILIES = _ATTN + ("ssm", "hybrid", "encdec")
 
 
 def heads_padded(cfg: ModelConfig) -> int:
@@ -49,15 +56,33 @@ def _acfg(cfg: ModelConfig) -> ModelConfig:
     return cfg if hp == cfg.num_heads else cfg.replace(num_heads=hp)
 
 
-def _require_decoder(cfg: ModelConfig) -> None:
-    if cfg.family not in _ATTN + ("ssm", "hybrid"):
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; it "
-            f"comes with {_LATER.get(cfg.family, 'a later slice')} "
-            "(ROADMAP.md §1)")
+def _check(cfg: ModelConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.dtype == "float64" and cfg.family != "ssm":
         raise ValueError(f"{cfg.name}: float64 runs the ssm family only "
                          "(the attention and SSD products compute in f32)")
+
+
+def _require_decoder(cfg: ModelConfig) -> None:
+    """The decoder-only stack, which the enc-dec family has not (the
+    reference's `_run_stack` raises for it, so the RAG prefill refuses
+    it)."""
+    _check(cfg)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name}: the enc-dec family has no decoder-only stack, so "
+            "the RAG prefill does not take it; "
+            "repro_torch.serving.serve_step.generate serves it")
+
+
+def _remat(cfg: ModelConfig, fn, *args, **kw):
+    """``fn(*args, **kw)``; with ``cfg.remat`` and grad enabled its
+    activations are recomputed in the backward instead of saved (the
+    reference's per-layer ``jax.checkpoint``)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)
 
 
 # ===========================================================================
@@ -110,6 +135,44 @@ class DenseBlock(nn.Module):
         if cfg.post_norm:
             m_out = norm(m_out, self.ln_mlp_post)
         return x + m_out, new_cache, aux
+
+
+class DecoderBlock(DenseBlock):
+    """An enc-dec decoder layer (the reference's `_decode_stack` body):
+    causal self-attention, cross-attention over the encoder's K/V behind
+    ``ln_cross`` (f32 zeros, applied as 1 + scale; ``cross`` at the padded
+    head count), then the MLP."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__(cfg, device)
+        self.ln_cross = _norm_scale(cfg, device)
+        self.cross = attn.Attention(_acfg(cfg), device=device)
+
+    def forward(self, x, cfg: ModelConfig, *, mode: str, positions,
+                enc_out=None, cross: KVCache = None, cache: KVCache = None,
+                pos=None):
+        """`cross`: this layer's cached encoder K/V (decode), else made from
+        `enc_out`.  Returns (x, the self-attention cache, the cross K/V)."""
+        acfg = _acfg(cfg)
+        h = layers.rms_norm(x, self.ln_attn, cfg.norm_eps, gemma_style=True)
+        a_out, kv = attn.self_attention(self.attn, h, acfg, mode=mode,
+                                        positions=positions, cache=cache,
+                                        pos=pos)
+        x, hc = _add_norm(x, a_out, self.ln_cross, cfg, gemma_style=True)
+        if cross is None:
+            cross = attn.cross_kv(self.cross, enc_out, acfg)
+        x, h2 = _add_norm(x, attn.cross_attention(self.cross, hc, cross, acfg),
+                          self.ln_mlp, cfg, gemma_style=True)
+        return x + self.mlp(h2, cfg.act), kv, cross
+
+
+def _encoder_layer(blk: DenseBlock, x, cfg: ModelConfig, positions):
+    """An enc-dec encoder layer: non-causal self-attention, then the MLP."""
+    h = layers.rms_norm(x, blk.ln_attn, cfg.norm_eps, gemma_style=True)
+    a_out, _ = attn.self_attention(blk.attn, h, _acfg(cfg), mode="train",
+                                   positions=positions, causal=False)
+    x, h2 = _add_norm(x, a_out, blk.ln_mlp, cfg, gemma_style=True)
+    return x + blk.mlp(h2, cfg.act)
 
 
 def _add_norm(x, y, scale, cfg: ModelConfig, *, gemma_style: bool = False):
@@ -174,21 +237,34 @@ class ZambaCaches(NamedTuple):
 class LM(nn.Module):
     """The reference's params pytree as modules: ``embed.table``,
     ``head.w`` (unless tied), ``final_norm``, ``blocks.<l>.*`` (the
-    reference stacks the blocks' leaves ``[L, ...]``) and, for the hybrid,
-    ``shared_attn.*``."""
+    reference stacks the blocks' leaves ``[L, ...]``), for the hybrid
+    ``shared_attn.*``, and for the enc-dec family ``enc_blocks.<l>.*``,
+    ``dec_blocks.<l>.*`` and ``enc_final_norm`` in place of ``blocks``.
+    Calling the model runs `forward_train` (so ``torch.func.functional_call``
+    can run it on other tensors)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _require_decoder(cfg)
+        _check(cfg)
         self.embed = layers.Embed(cfg, device)
         self.head = layers.Head(cfg, device)
         self.final_norm = _norm_scale(cfg, device)
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                DenseBlock(cfg, device) for _ in range(cfg.num_enc_layers))
+            self.dec_blocks = nn.ModuleList(
+                DecoderBlock(cfg, device) for _ in range(cfg.num_dec_layers))
+            self.enc_final_norm = _norm_scale(cfg, device)
+            return
         block = {"ssm": RWKVBlock, "hybrid": MambaBlock}.get(cfg.family,
                                                             DenseBlock)
         self.blocks = nn.ModuleList(
             block(cfg, device) for _ in range(cfg.num_layers))
         if cfg.family == "hybrid":
             self.shared_attn = DenseBlock(cfg, device)
+
+    def forward(self, cfg: ModelConfig, batch):
+        return forward_train(self, cfg, batch)
 
 
 # 2-D leaves with a constant init (rwkv6's bonus: f32 zeros), and drawn
@@ -197,15 +273,20 @@ _FIXED = {"u"}
 _SCALED = {"ww": 0.1, "conv_x": 0.1, "conv_bc": 0.1}
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                master: bool = False) -> LM:
     """A model on `gen`'s device with the reference's distributions, drawn
     from `gen` leaf by leaf: every matrix normal/sqrt(shape[0]) (the
     embedding table then x sqrt(d_model); rwkv6's decay projection and
     mamba2's convs x 0.1); the vectors and rwkv6's bonus at the
     constructors' constants (dense norms zeros, applied as 1 + scale;
     q_norm/k_norm and the SSM norms ones; the token-shift mixes 0.5, ...).
-    Matrices are drawn in f32 and held in ``cfg.dtype``; vectors stay f32."""
-    model = LM(cfg, device=gen.device)
+    Matrices are drawn in f32 and held in ``cfg.dtype``, or in f32 with
+    `master` (the trainer's master weights: the layers cast them to the
+    activations' dtype at each use); vectors stay f32.  The same `gen`
+    gives the same draws either way."""
+    model = LM(cfg.replace(dtype="float32") if master else cfg,
+               device=gen.device)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if p.dim() == 1 or leaf in _FIXED:
@@ -263,9 +344,9 @@ def _run_stack(params: LM, x, cfg: ModelConfig, *, mode: str, caches=None,
         for l, blk in enumerate(params.blocks):
             cache_l = (KVCache(caches.k[l], caches.v[l]) if mode == "decode"
                        else None)
-            x, kv, a = blk(x, cfg, mode=mode, window=windows[l],
-                           positions=positions, mrope_pos=mrope_pos,
-                           cache=cache_l, pos=pos)
+            x, kv, a = _remat(cfg, blk, x, cfg, mode=mode,
+                              window=windows[l], positions=positions,
+                              mrope_pos=mrope_pos, cache=cache_l, pos=pos)
             if a is not None:
                 aux = aux + a
             if mode == "prefill":
@@ -277,7 +358,7 @@ def _run_stack(params: LM, x, cfg: ModelConfig, *, mode: str, caches=None,
         if caches is None:
             caches = init_caches(cfg, b, 0, device=x.device)
         for l, blk in enumerate(params.blocks):
-            x, new = blk(x, cfg, rwkv6.RWKVCache(
+            x, new = _remat(cfg, blk, x, cfg, rwkv6.RWKVCache(
                 caches.state[l], caches.x_att[l], caches.x_ffn[l]))
             if mode != "train":
                 for stack, t in zip(caches, new):
@@ -297,14 +378,15 @@ def _run_stack(params: LM, x, cfg: ModelConfig, *, mode: str, caches=None,
             mc = (mamba2.MambaCache(caches.mamba.state[l],
                                     caches.mamba.conv[l])
                   if mode == "decode" else None)
-            x, new = params.blocks[l](x, cfg, mode=mode, cache=mc)
+            x, new = _remat(cfg, params.blocks[l], x, cfg, mode=mode,
+                            cache=mc)
             if mode != "train":
                 caches.mamba.state[l] = new.state
                 caches.mamba.conv[l] = new.conv
         ac = (KVCache(caches.attn.k[g], caches.attn.v[g]) if mode == "decode"
               else None)
-        x, kv, _ = params.shared_attn(x, cfg, mode=mode, window=0,
-                                      positions=positions, cache=ac, pos=pos)
+        x, kv, _ = _remat(cfg, params.shared_attn, x, cfg, mode=mode,
+                          window=0, positions=positions, cache=ac, pos=pos)
         if mode == "prefill":
             caches.attn.k[g, :, :s] = kv.k
             caches.attn.v[g, :, :s] = kv.v
@@ -315,9 +397,13 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
     """Stacked per-layer caches in ``cfg.dtype`` (as the reference, which
     takes the dtype from the config; SSM states f32): KV ``[L, B, s_max,
     KVH, Dh]``; rwkv6's `RWKVCache`; zamba2's `ZambaCaches` (a KV cache
-    per shared-block call)."""
-    _require_decoder(cfg)
+    per shared-block call); the enc-dec family's ``{"self": [L_dec] KV,
+    "cross": None}`` (the cross K/V come with the prefill)."""
+    _check(cfg)
     dt = layers.torch_dtype(cfg.dtype)
+    if cfg.family == "encdec":
+        return {"self": _kv_caches(cfg, cfg.num_dec_layers, batch, s_max,
+                                   device), "cross": None}
     if cfg.family in _ATTN:
         return _kv_caches(cfg, cfg.num_layers, batch, s_max, device)
     if cfg.family == "ssm":
@@ -341,7 +427,7 @@ def _kv_caches(cfg: ModelConfig, n: int, batch: int, s_max: int,
 def _train_caches(cfg: ModelConfig, x):
     """Train mode: attention families need no cache; ssm/hybrid start from
     zero states."""
-    _require_decoder(cfg)
+    _check(cfg)
     if cfg.family == "ssm":
         return init_caches(cfg, x.shape[0], 0, device=x.device)
     if cfg.family == "hybrid":
@@ -356,14 +442,73 @@ def _final_logits(params: LM, cfg: ModelConfig, x):
 
 
 # ===========================================================================
+# encoder-decoder (seamless)
+# ===========================================================================
+
+def _encode(params: LM, cfg: ModelConfig, src_emb):
+    """The encoder over the source frame embeddings [B, Se, D]: non-causal
+    self-attention layers, then ``enc_final_norm``."""
+    x = src_emb.to(layers.torch_dtype(cfg.dtype))
+    b, s = x.shape[0], x.shape[1]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    for blk in params.enc_blocks:
+        x = _remat(cfg, _encoder_layer, blk, x, cfg, positions)
+    return layers.rms_norm(x, params.enc_final_norm, cfg.norm_eps,
+                           gemma_style=True)
+
+
+def _decode_stack(params: LM, cfg: ModelConfig, x, enc_out, *, mode: str,
+                  caches=None, pos=None, s_max: int = 0):
+    """The decoder layers: self-attention, then cross-attention over
+    `cross_kv(enc_out)` (train, prefill) or over the cached cross K/V
+    (decode).  prefill returns ``{"self": KV [L_dec, B, max(S, s_max),
+    KVH, Dh] (zeros past the prompt), "cross": KV [L_dec, B, Se, KVH,
+    Dh]}``; decode writes the token's K/V rows into ``caches["self"]`` in
+    place.  Returns (x, caches)."""
+    b, s = x.shape[0], x.shape[1]
+    if mode in ("train", "prefill"):
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    else:
+        positions = pos[:, None]
+    if mode == "decode":
+        sc, cc = caches["self"], caches["cross"]
+        for l, blk in enumerate(params.dec_blocks):
+            x, _, _ = blk(x, cfg, mode=mode, positions=positions,
+                          cross=KVCache(cc.k[l], cc.v[l]),
+                          cache=KVCache(sc.k[l], sc.v[l]), pos=pos)
+        return x, caches
+    if mode == "prefill":
+        sc = _kv_caches(cfg, cfg.num_dec_layers, b, max(s, s_max), x.device)
+        crosses = []
+    for l, blk in enumerate(params.dec_blocks):
+        x, kv, cross = _remat(cfg, blk, x, cfg, mode=mode,
+                              positions=positions, enc_out=enc_out)
+        if mode == "prefill":
+            sc.k[l, :, :s] = kv.k
+            sc.v[l, :, :s] = kv.v
+            crosses.append(cross)
+    if mode == "train":
+        return x, None
+    cc = KVCache(k=torch.stack([c.k for c in crosses]),
+                 v=torch.stack([c.v for c in crosses]))
+    return x, {"self": sc, "cross": cc}
+
+
+# ===========================================================================
 # public API
 # ===========================================================================
 
-@torch.no_grad()
 def forward_train(params: LM, cfg: ModelConfig, batch):
-    """-> (logits [B,S,Vp], aux_loss).  Forward only: the backward waits
-    for the training slice."""
+    """-> (logits [B,S,Vp], aux_loss), differentiable (the enc-dec family
+    takes ``src_emb`` beside its target ``tokens``; its aux is 0).  Callers
+    that only read it and hold parameters that require grad run it under
+    ``torch.no_grad()``."""
     x = _embed_inputs(params, cfg, batch)
+    if cfg.family == "encdec":
+        x, _ = _decode_stack(params, cfg, x,
+                             _encode(params, cfg, batch["src_emb"]),
+                             mode="train")
+        return _final_logits(params, cfg, x), torch.zeros((), device=x.device)
     x, _, aux = _run_stack(params, x, cfg, mode="train",
                            caches=_train_caches(cfg, x),
                            mrope_pos=batch.get("mrope_pos"))
@@ -383,10 +528,15 @@ def _prefill_caches(cfg: ModelConfig, caches, s_max: int):
 def prefill(params: LM, cfg: ModelConfig, batch, s_max: int):
     """Run the prompt; returns (last_logits [B,Vp], caches, last_pos [B])."""
     x = _embed_inputs(params, cfg, batch)
-    x, caches, _ = _run_stack(params, x, cfg, mode="prefill",
-                              caches=_train_caches(cfg, x), s_max=s_max,
-                              mrope_pos=batch.get("mrope_pos"))
-    caches = _prefill_caches(cfg, caches, s_max)
+    if cfg.family == "encdec":
+        x, caches = _decode_stack(params, cfg, x,
+                                  _encode(params, cfg, batch["src_emb"]),
+                                  mode="prefill", s_max=s_max)
+    else:
+        x, caches, _ = _run_stack(params, x, cfg, mode="prefill",
+                                  caches=_train_caches(cfg, x), s_max=s_max,
+                                  mrope_pos=batch.get("mrope_pos"))
+        caches = _prefill_caches(cfg, caches, s_max)
     logits = _final_logits(params, cfg, x[:, -1:])
     last_pos = torch.full((x.shape[0],), batch["tokens"].shape[1] - 1,
                           dtype=torch.int32, device=x.device)
@@ -413,11 +563,15 @@ def _grow_caches(kv_stacked, s_max: int):
 @torch.no_grad()
 def decode_step(params: LM, cfg: ModelConfig, token, caches, pos):
     """One token: token int[B,1]; pos int[B] (index being written).  The
-    token's K/V rows and the SSM states are written into `caches` in
-    place.
+    token's K/V rows and the SSM states are written into `caches` in place
+    (the enc-dec family's cross K/V are read only).
 
     Returns (logits [B,Vp], caches)."""
     x = _embed_inputs(params, cfg, {"tokens": token})
-    x, caches, _ = _run_stack(params, x, cfg, mode="decode", caches=caches,
-                              pos=pos)
+    if cfg.family == "encdec":
+        x, caches = _decode_stack(params, cfg, x, None, mode="decode",
+                                  caches=caches, pos=pos)
+    else:
+        x, caches, _ = _run_stack(params, x, cfg, mode="decode",
+                                  caches=caches, pos=pos)
     return _final_logits(params, cfg, x)[:, 0], caches

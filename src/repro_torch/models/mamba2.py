@@ -109,11 +109,14 @@ def _ssd_chunked(xh, dt, a_log, b, c, chunk: int):
     total = cum[:, :, -1]                                  # [B,nc,H]
 
     # ---- intra-chunk (dense, causal-masked) ----
-    # L[q,t] = exp(cum_q - cum_t) for q >= t
+    # L[q,t] = exp(cum_q - cum_t) for q >= t.  The mask goes in before the
+    # exponent: above the diagonal cum_q - cum_t > 0 grows with the chunk,
+    # and exp's overflow there, masked after it as the reference masks it,
+    # makes the backward 0 x inf = NaN (the same values forward)
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # [B,nc,Q,Q,H]
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=xh.device))
-    L = torch.where(causal[:, :, None], torch.exp(diff), 0.0)
+    L = torch.exp(torch.where(causal[:, :, None], diff, float("-inf")))
     del diff
     cb = c_c @ b_c.transpose(-1, -2)                       # [B,nc,Q,Q]
     m = (cb[..., None] * L).permute(0, 1, 4, 2, 3)         # [B,nc,H,Q,Q]

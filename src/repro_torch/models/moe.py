@@ -26,7 +26,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -101,9 +100,7 @@ def _ffn_body(x, cidx, cgate, wi, wu, wo, *, act: str):
     xe = x.reshape(b * s, d).index_select(0, dst).view(e, b * c, d)
     h = torch.bmm(xe, wi.to(dt))
     u = torch.bmm(xe, wu.to(dt))
-    # jax.nn.gelu's default is the tanh approximation
-    h = (F.gelu(h, approximate="tanh") if act == "gelu"
-         else layers.silu(h)) * u
+    h = (layers.gelu(h) if act == "gelu" else layers.silu(h)) * u
     ye = torch.bmm(h, wo.to(dt))                              # [E,B*C,D]
     ye = ye * cgate.transpose(0, 1).reshape(e, b * c, 1).to(dt)
     # scatter-add back in that order: through the card's stable sort a

@@ -1,0 +1,137 @@
+"""AdamW with a warmup-then-cosine schedule and global-norm clipping.
+
+Port of ``src/repro/train/optimizer.py``.  The reference maps the update
+over the params pytree and returns new trees; here the parameters and both
+f32 moments are updated in place on their device, with ``torch._foreach_*``
+over groups of leaves (each group's temporaries bounded by `GROUP_ELEMS`).
+
+Weight decay is decoupled and applies where the reference's leaf has
+``ndim >= 2``.  The reference stacks each block leaf over its layers, so
+a block's vectors (its norm scales, rwkv6's mixes, mamba2's ``A_log``...)
+are 2-D there and decayed; `decayed` keeps that rule for the port's
+unstacked leaves.  The schedule and the bias corrections are computed in
+float32 on the host, as the reference computes them in f32.  The element
+arithmetic is the reference's in f32; where a product and a sum fuse into
+one rounding differs (XLA's CPU backend contracts ``b1 * m + ...`` into a
+fused multiply-add), results differ in the last place.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+
+Tree = Dict[str, torch.Tensor]
+
+# leaves whose reference counterpart is stacked over a layer axis
+STACKED = ("blocks.", "enc_blocks.", "dec_blocks.")
+GROUP_ELEMS = 1 << 27        # elements a foreach group updates at once
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor       # int32 0-d, on the host
+    mu: Tree                 # first moment, f32, one per parameter
+    nu: Tree                 # second moment
+
+
+def named(params) -> Tree:
+    """``{name: parameter}`` of a model, or the dict itself."""
+    return (dict(params.named_parameters())
+            if isinstance(params, torch.nn.Module) else dict(params))
+
+
+def init(params) -> OptState:
+    z = {k: torch.zeros_like(p, dtype=torch.float32)
+         for k, p in named(params).items()}
+    return OptState(step=torch.zeros((), dtype=torch.int32), mu=z,
+                    nu={k: v.clone() for k, v in z.items()})
+
+
+def lr_at(tc: TrainConfig, step) -> float:
+    """Linear warmup to the peak, then a cosine down to 0.1x at
+    ``total_steps`` (float32 arithmetic)."""
+    f = np.float32
+    step = f(int(step))
+    warm = min(step / f(max(tc.warmup_steps, 1)), f(1.0))
+    prog = np.clip((step - f(tc.warmup_steps))
+                   / f(max(tc.total_steps - tc.warmup_steps, 1)),
+                   f(0), f(1))
+    cos = f(0.5) * (f(1) + np.cos(f(np.pi) * prog))
+    return float(f(tc.learning_rate) * warm * (f(0.1) + f(0.9) * cos))
+
+
+def global_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, f32, on the leaves'
+    device."""
+    norms = torch._foreach_norm([x.float() for x in tree.values()])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads: Tree, max_norm: float
+                        ) -> Tuple[Tree, torch.Tensor]:
+    """Scales `grads` in place so their global norm is at most `max_norm`;
+    returns (grads, the norm before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    torch._foreach_mul_(list(grads.values()), scale)
+    return grads, norm
+
+
+def decayed(name: str, p: torch.Tensor) -> bool:
+    """Whether AdamW decays this leaf: the reference's leaf is at least
+    2-D (a block leaf carries the layer axis there)."""
+    return p.dim() + name.startswith(STACKED) >= 2
+
+
+def _groups(names: List[str], params: Tree) -> List[List[str]]:
+    out, cur, size = [], [], 0
+    for k in names:
+        if cur and size + params[k].numel() > GROUP_ELEMS:
+            out.append(cur)
+            cur, size = [], 0
+        cur.append(k)
+        size += params[k].numel()
+    return out + [cur] if cur else out
+
+
+@torch.no_grad()
+def apply_updates(params, grads: Tree, state: OptState, tc: TrainConfig
+                  ) -> Tuple[Tree, OptState, dict]:
+    """One AdamW step in place on f32 params (the master weights): clip the
+    grads to ``tc.grad_clip``, update the moments (bias-corrected, eps
+    1e-8), decay the `decayed` leaves by ``tc.weight_decay``, step by the
+    scheduled lr.  Returns (params, the state with its step advanced,
+    {"grad_norm", "lr"})."""
+    params = named(params)
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    step = state.step + 1
+    t = int(step)
+    lr = lr_at(tc, t)
+    b1, b2 = tc.b1, tc.b2
+    bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(t))
+    bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
+    for decay in (True, False):
+        names = [k for k, p in params.items() if decayed(k, p) == decay]
+        for grp in _groups(names, params):
+            ps = [params[k] for k in grp]
+            gs = [grads[k].float() for k in grp]
+            ms = [state.mu[k] for k in grp]
+            vs = [state.nu[k] for k in grp]
+            torch._foreach_mul_(ms, b1)
+            torch._foreach_add_(ms, gs, alpha=1 - b1)
+            torch._foreach_mul_(vs, b2)
+            torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+            den = torch._foreach_div(vs, bc2)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, 1e-8)
+            delta = torch._foreach_div(ms, bc1)
+            torch._foreach_div_(delta, den)
+            del den
+            if decay:
+                torch._foreach_add_(delta, ps, alpha=tc.weight_decay)
+            torch._foreach_add_(ps, delta, alpha=-lr)
+    return params, OptState(step=step, mu=state.mu, nu=state.nu), \
+        {"grad_norm": gnorm, "lr": lr}

@@ -47,12 +47,18 @@ def test_port_files_found():
             "hnsw.py", "replication.py", "fault.py", "archs.py",
             "registry.py", "accounting.py", "layers.py", "attention.py",
             "lm.py", "serve_step.py", "rag.py", "serve.py",
-            "serve_agent.py"} <= names
+            "serve_agent.py", "optimizer.py", "train_step.py", "trainer.py",
+            "pipeline.py", "collectives.py", "elastic.py", "train.py",
+            "train_micro.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/distributed/fault.py",
             "src/repro_torch/api/replication.py",
             "src/repro_torch/models/api.py",
-            "src/repro_torch/launch/serve.py"} <= rel
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/distributed/collectives.py",
+            "src/repro_torch/distributed/elastic.py",
+            "src/repro_torch/data/pipeline.py"} <= rel
 
 
 def test_import_leaves_jax_unloaded():
@@ -63,7 +69,12 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.checkpoint.checkpointer, repro_torch.models.lm, "
             "repro_torch.models.api, repro_torch.serving.rag, "
             "repro_torch.serving.serve_step, repro_torch.launch.serve, "
-            "repro_torch.serve_agent, repro_torch.configs.registry; "
+            "repro_torch.serve_agent, repro_torch.configs.registry, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.train.trainer, repro_torch.data.pipeline, "
+            "repro_torch.distributed.collectives, "
+            "repro_torch.distributed.elastic, repro_torch.launch.train, "
+            "repro_torch.train_micro; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")
@@ -119,6 +130,44 @@ def test_model_config_has_the_reference_fields():
     assert fields(base.ShapeConfig) == fields(jbase.ShapeConfig)
     assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+
+
+def test_train_config_has_the_reference_fields():
+    """TrainConfig has the reference's fields and defaults, in order."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(base.TrainConfig) == fields(jbase.TrainConfig)
+
+
+def test_data_pipeline_copy_keeps_the_reference_public_names():
+    """`data/pipeline.py` is a copy: the same public classes, methods and
+    signatures."""
+    import inspect
+    from repro.data import pipeline as ref
+    from repro_torch.data import pipeline as mine
+    for cls in ("TokenDataset", "Prefetcher"):
+        a, b = getattr(mine, cls), getattr(ref, cls)
+        assert {n: str(inspect.signature(getattr(a, n))) for n in dir(a)
+                if not n.startswith("_")} == \
+            {n: str(inspect.signature(getattr(b, n))) for n in dir(b)
+             if not n.startswith("_")}
+        assert str(inspect.signature(a.__init__)) == \
+            str(inspect.signature(b.__init__))
+
+
+def test_every_arch_builds_in_the_port():
+    """All ten archs build (the enc-dec family too, which no longer
+    raises) and give their caches, on the meta device."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    for name in registry.list_archs():
+        cfg = registry.reduced_arch(name)
+        lm.LM(cfg, device="meta")
+        lm.init_caches(cfg, 1, 8, device="meta")
 
 
 def test_all_archs_equal_the_reference():

@@ -1,9 +1,9 @@
 """Port parity for the LM substrate: `repro_torch.models` against the JAX
 package's `repro.models` on the same numpy inputs, at reduced sizes
-(d_model 128; 2 layers, zamba2 12), for the dense archs and the MoE
-(olmoe, deepseek-moe), VLM (qwen2-vl), SSM (rwkv6) and hybrid (zamba2)
-ones, with the reference's parameters carried across by
-`repro_torch.convert.lm_params_from_numpy`.
+(d_model 128; 2 layers, zamba2 12, seamless 2 + 2), for the dense archs
+and the MoE (olmoe, deepseek-moe), VLM (qwen2-vl), SSM (rwkv6), hybrid
+(zamba2) and enc-dec (seamless) ones, with the reference's parameters
+carried across by `repro_torch.convert.lm_params_from_numpy`.
 
 Tolerances: in float32 the port holds the reference to rtol = atol = 1e-4
 (the reference's own decode-vs-forward check is 2e-3); in bfloat16 logits
@@ -35,16 +35,21 @@ jax.config.update("jax_platform_name", "cpu")
 DENSE = ["granite-3-2b", "stablelm-12b", "gemma2-9b", "gemma2-27b"]
 NEW = ["olmoe-1b-7b", "deepseek-moe-16b", "qwen2-vl-7b", "rwkv6-1.6b",
        "zamba2-2.7b"]
-ARCHS = DENSE + NEW
+ENCDEC = ["seamless-m4t-large-v2"]
+ARCHS = DENSE + NEW + ENCDEC
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
 F32_TOL = 1e-4
 BF16_REL = 1e-2
 # zamba2 (12 layers reduced) is held to 2e-2 of the scale, short of the
 # 1e-2 the other archs meet: 12 of 81,920 forward logits differ by 0.055
-# where 1e-2 of the scale is 0.045.  Each mamba block equals the
-# reference's on equal inputs but for single-ulp roundings of bf16 GEMMs
-# that accumulate in another order (XLA's CPU dot against PyTorch's); that
-# the stack of mamba layers grows these into the gap is the likely cause,
-# not yet shown against a second witness (ROADMAP.md section 3)
+# where 1e-2 of the scale is 0.045.  Bisected on the reference's own bf16
+# inputs, each mamba block and SSD term rounds where the reference does;
+# the first bf16 value that differs is a GEMM output (the gate projection
+# of layer 2) whose exact value lies on a bf16 rounding midpoint, so f32
+# accumulation order alone decides it (XLA's CPU dot against oneDNN's).
+# The 12-layer recurrent stack grows such flips into the gap;
+# `test_zamba2_bf16_is_no_farther_from_f32_than_the_reference` is the
+# second witness (ROADMAP.md section 3)
 BF16_REL_ARCH = {"zamba2-2.7b": 2e-2}
 
 
@@ -108,6 +113,32 @@ def test_sigmoid_and_silu_match_reference(dtype):
             np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
         else:
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_matches_reference(dtype):
+    """On CPU tensors: float32 to 1e-4; bfloat16 bit for bit (jax's tanh
+    form expanded with its constants in bf16, rounded step by step)."""
+    x = _randn(8, 4, 1000, scale=3.0)
+    want = _j(jax.jit(jax.nn.gelu)(jnp.asarray(x).astype(dtype)))
+    got = _np(layers.gelu(_t(x, getattr(torch, dtype))))
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=F32_TOL, atol=F32_TOL)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_reference(dtype):
+    x = _randn(20, 3, 5, 64, scale=3.0) + 1.5
+    scale, bias = _randn(21, 64, scale=0.5) + 1.0, _randn(22, 64, scale=0.1)
+    want = jlayers.layer_norm(jnp.asarray(x).astype(dtype),
+                              jnp.asarray(scale), jnp.asarray(bias), 1e-5)
+    got = layers.layer_norm(_t(x, getattr(torch, dtype)), _t(scale),
+                            _t(bias), 1e-5)
+    assert got.dtype == getattr(torch, dtype)
+    tol = F32_TOL if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(got), _j(want), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu"])
@@ -190,8 +221,43 @@ def test_decode_attention_matches_reference(window, softcap, dtype):
     np.testing.assert_allclose(_np(got), _j(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_and_cross_kv_match_reference(dtype, masked):
+    """GQA (4 query heads over 2 kv heads), 7 decoder positions over 9
+    encoder positions; `enc_len` masks each row's keys past its length."""
+    cfg = registry.reduced_arch("seamless-m4t-large-v2").replace(
+        dtype=dtype, num_kv_heads=2)
+    jcfg = jregistry.reduced_arch("seamless-m4t-large-v2").replace(
+        dtype=dtype, num_kv_heads=2)
+    d, h, kvh, dh = cfg.d_model, cfg.num_heads, 2, cfg.head_dim
+    w = {"wq": _randn(30, d, h, dh, scale=d ** -0.5),
+         "wk": _randn(31, d, kvh, dh, scale=d ** -0.5),
+         "wv": _randn(32, d, kvh, dh, scale=d ** -0.5),
+         "wo": _randn(33, h, dh, d, scale=h ** -0.5)}
+    x, enc = _randn(34, 2, 7, d), _randn(35, 2, 9, d)
+    enc_len = np.array([9, 4], np.int32) if masked else None
+    jw = {k: jnp.asarray(v) for k, v in w.items()}
+    jkv = jattn.cross_kv(jw, jnp.asarray(enc).astype(dtype), jcfg)
+    want = jattn.cross_attention(
+        jw, jnp.asarray(x).astype(dtype), jkv, jcfg,
+        None if enc_len is None else jnp.asarray(enc_len))
+    p = attention.Attention(cfg)
+    for k, v in w.items():
+        getattr(p, k).copy_(_t(v))
+    dt = getattr(torch, dtype)
+    kv = attention.cross_kv(p, _t(enc, dt), cfg)
+    got = attention.cross_attention(
+        p, _t(x, dt), kv, cfg,
+        None if enc_len is None else torch.from_numpy(enc_len))
+    tol = F32_TOL if dtype == "float32" else 2e-2
+    for a, b in ((kv.k, jkv.k), (kv.v, jkv.v), (got, want)):
+        assert a.dtype == dt
+        np.testing.assert_allclose(_np(a), _j(b), rtol=tol, atol=tol)
+
+
 # ---------------------------------------------------------------------------
-# the model: each dense reduced arch, forward / prefill / decode
+# the model: each reduced arch, forward / prefill / decode
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -231,8 +297,10 @@ def _check(got, want, dtype, what, rel=BF16_REL) -> int:
 def _batch(cfg, tokens):
     """The model's inputs as numpy: qwen2-vl also takes stub vision
     embeddings over its first 4 positions and M-RoPE coordinates that
-    differ per axis."""
+    differ per axis; seamless takes 10 source frame embeddings."""
     batch = {"tokens": tokens}
+    if cfg.family == "encdec":
+        batch["src_emb"] = _randn(6, tokens.shape[0], 10, cfg.d_model)
     if cfg.family == "vlm":
         b, s = tokens.shape
         batch["vis_embeds"] = _randn(5, b, 4, cfg.d_model)
@@ -252,6 +320,9 @@ def _cache_pairs(cfg, tc, jc):
                  for n in ("state", "conv")]
                 + [(f"attn.{n}", getattr(tc.attn, n), getattr(jc.attn, n))
                    for n in ("k", "v")])
+    if cfg.family == "encdec":
+        return [(f"{c}.{n}", getattr(tc[c], n), getattr(jc[c], n))
+                for c in ("self", "cross") for n in ("k", "v")]
     return [("k", tc.k, jc.k), ("v", tc.v, jc.v)]
 
 
@@ -260,9 +331,10 @@ def _cache_pairs(cfg, tc, jc):
 def test_model_matches_reference(ref_params, arch, dtype):
     """forward_train, prefill of 12 tokens into a 32-slot cache, then three
     decode_steps on teacher tokens: logits, caches (KV, the SSM states and
-    shifts) and positions.  rwkv6's forward runs 32 tokens (two 16-token
-    blocks: 16 < S < 64 must be a multiple of 16); qwen2-vl's prefill and
-    forward take vision embeddings and M-RoPE positions."""
+    shifts, seamless's self and cross K/V) and positions.  rwkv6's forward
+    runs 32 tokens (two 16-token blocks: 16 < S < 64 must be a multiple of
+    16); qwen2-vl's prefill and forward take vision embeddings and M-RoPE
+    positions; seamless's take 10 source frames."""
     jcfg = jregistry.reduced_arch(arch).replace(dtype=dtype)
     cfg = registry.reduced_arch(arch).replace(dtype=dtype)
     jp = ref_params[arch]
@@ -354,14 +426,17 @@ def test_float64_refused_outside_the_ssm_family(arch):
 def test_decode_matches_forward(arch):
     """The reference's `test_decode_matches_forward` on the port: decode
     logits == teacher-forced logits at the same position, in float32, at
-    the reference's rtol = atol = 2e-3."""
+    the reference's rtol = atol = 2e-3 (seamless over 6 source frames)."""
     cfg = registry.reduced_arch(arch).replace(dtype="float32")
     params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
-                           generator=torch.Generator().manual_seed(2))
-    full, _ = lm.forward_train(params, cfg, {"tokens": tokens})
-    logits_last, caches, pos = lm.prefill(params, cfg,
-                                          {"tokens": tokens[:, :4]}, 16)
+                           generator=gen)
+    src = ({"src_emb": torch.randn(2, 6, cfg.d_model, generator=gen)}
+           if cfg.family == "encdec" else {})
+    full, _ = lm.forward_train(params, cfg, {"tokens": tokens, **src})
+    logits_last, caches, pos = lm.prefill(
+        params, cfg, {"tokens": tokens[:, :4], **src}, 16)
     torch.testing.assert_close(logits_last, full[:, 3], rtol=2e-3, atol=2e-3)
     for t in range(4, 7):
         logits_t, caches = lm.decode_step(
@@ -392,13 +467,16 @@ def test_gemma2_window_alternation_changes_output():
 
 def _port_shapes(cfg: ModelConfig) -> dict:
     """The port's parameter shapes in the reference's tree layout (block
-    leaves stacked; zamba2's shared block unstacked), from a model on the
-    meta device (nothing allocated)."""
+    leaves stacked over their group's depth; zamba2's shared block
+    unstacked), from a model on the meta device (nothing allocated)."""
+    depth = {"blocks": cfg.num_layers, "enc_blocks": cfg.num_enc_layers,
+             "dec_blocks": cfg.num_dec_layers}
     out = {}
     for name, p in lm.LM(cfg, device="meta").named_parameters():
-        if name.startswith("blocks."):
+        group = name.split(".", 1)[0]
+        if group in STACKS:
             leaf = name.split(".", 2)[2]
-            out["blocks." + leaf] = (cfg.num_layers, *p.shape)
+            out[f"{group}.{leaf}"] = (depth[group], *p.shape)
         else:
             out[name] = tuple(p.shape)
     return out
@@ -433,8 +511,6 @@ def test_param_count_matches_reference_for_all_archs():
             cfg, jcfg = get(name), jget(name)
             assert cfg.param_count() == jcfg.param_count(), name
             assert cfg.active_param_count() == jcfg.active_param_count()
-            if cfg.family == "encdec":
-                continue
             model = lm.LM(cfg, device="meta")
             assert accounting.counted_params(model) == cfg.param_count()
             if cfg.family in ("dense", "moe", "vlm"):
@@ -452,7 +528,7 @@ def _in_model_dtype(key: str, ndim: int) -> bool:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["gemma2-9b"] + NEW)
+@pytest.mark.parametrize("arch", ["gemma2-9b"] + NEW + ENCDEC)
 def test_lm_params_round_trip(ref_params, arch, dtype):
     """reference tree -> port -> tree: vectors bit-equal, matrices equal to
     the reference's cast to the model dtype; and port -> tree -> port is
@@ -469,7 +545,8 @@ def test_lm_params_round_trip(ref_params, arch, dtype):
     for path, want in flat.items():
         key = jax.tree_util.keystr(path)
         want = np.asarray(want)
-        if _in_model_dtype(key, want.ndim - key.startswith("['blocks']")):
+        stacked = key.startswith(tuple(f"['{g}']" for g in STACKS))
+        if _in_model_dtype(key, want.ndim - stacked):
             want = np.asarray(jnp.asarray(want).astype(dtype)
                               .astype(jnp.float32))
         np.testing.assert_array_equal(by_key[key], want, err_msg=key)
@@ -508,8 +585,44 @@ def test_init_params_distributions():
                                   if jregistry.get_arch(a).family
                                   == "encdec"])
 def test_other_families_name_their_slice(arch):
+    """The enc-dec family runs forward, prefill and decode now; where the
+    reference refuses it (the decoder-only stack under the RAG prefill,
+    the serve driver) the port refuses it too, naming the call that
+    serves it."""
+    from repro_torch.launch import serve
     cfg = registry.reduced_arch(arch)
-    with pytest.raises(ValueError, match="slice"):
-        lm.init_params(torch.Generator(), cfg)
-    with pytest.raises(ValueError, match="not ported yet"):
-        lm.init_caches(cfg, 1, 8)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    assert set(lm.init_caches(cfg, 1, 8)) == {"self", "cross"}
+    x = torch.zeros((1, 4, cfg.d_model), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="serve_step.generate"):
+        lm._run_stack(params, x, cfg, mode="prefill")
+    with pytest.raises(SystemExit, match="serve_step.generate"):
+        serve.main(["--device", "cpu", "--arch", arch])
+
+
+def test_zamba2_bf16_is_no_farther_from_f32_than_the_reference():
+    """The second witness for zamba2's 2e-2: the float32 forward of the
+    same bf16-rounded weights (the port's, equal to the reference's within
+    2e-6 of the scale) is the answer both bf16 forwards approximate; over
+    three token draws the port's bf16 logits are no farther from it than
+    1.5 x the reference's (measured: 0.97-1.0 x, both about 3 % of the
+    scale away)."""
+    arch = "zamba2-2.7b"
+    jcfg = jregistry.reduced_arch(arch).replace(dtype="bfloat16")
+    cfg = registry.reduced_arch(arch).replace(dtype="bfloat16")
+    jp = jax.device_get(jlm.init_params(jax.random.PRNGKey(0), jcfg))
+    model = convert.lm_params_from_numpy(cfg, jp, "cpu")
+    cfg32 = cfg.replace(dtype="float32")
+    model32 = convert.lm_params_from_numpy(
+        cfg32, convert.lm_params_to_numpy(model), "cpu")
+    forward = jax.jit(lambda p, b: jlm.forward_train(p, jcfg, b))
+    for seed in (1, 2, 4):
+        toks = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (2, 20)).astype(np.int32)
+        ref = _j(forward(jp, {"tokens": jnp.asarray(toks)})[0])
+        got, _ = lm.forward_train(model, cfg, {"tokens": torch.from_numpy(toks)})
+        f32, _ = lm.forward_train(model32, cfg32,
+                                  {"tokens": torch.from_numpy(toks)})
+        d_ref = np.abs(ref - _np(f32)).max()
+        d_port = np.abs(_np(got) - _np(f32)).max()
+        assert d_port <= 1.5 * d_ref, (seed, d_port, d_ref)

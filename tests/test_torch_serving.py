@@ -268,6 +268,27 @@ def test_generate_loop_on_the_port():
     assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
 
 
+def test_generate_serves_the_encdec_family():
+    """`serve_step.generate` on seamless (the family the serve drivers
+    refuse): prefill over source frames and tokens, then decode against
+    the cached self and cross K/V; tokens inside the vocabulary, equal to
+    the greedy tokens of teacher-forced `forward_train` calls."""
+    cfg = registry.reduced_arch("seamless-m4t-large-v2").replace(
+        dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = api.synth_batch(torch.Generator().manual_seed(1), cfg,
+                            "prefill", 2, 16)
+    toks = serve_step.generate(params, cfg, batch, steps=4, s_max=16)
+    assert toks.shape == (2, 4)
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    seq = batch["tokens"]
+    for t in range(4):
+        logits, _ = lm.forward_train(params, cfg, {**batch, "tokens": seq})
+        nxt = serve_step.greedy(logits[:, -1], cfg.vocab_size)
+        assert torch.equal(nxt, toks[:, t])
+        seq = torch.cat([seq, nxt[:, None]], dim=1)
+
+
 def test_synth_batch_shapes_match_reference():
     for arch, kind in (("granite-3-2b", "train"), ("qwen2-vl-7b", "train"),
                        ("seamless-m4t-large-v2", "train"),

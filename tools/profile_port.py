@@ -13,6 +13,8 @@
 
     python3 tools/profile_port.py --serving [--arch ARCH] [--out FILE]
 
+    python3 tools/profile_port.py --train [--out FILE]
+
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
 kind once, then runs each op once more under ``torch.profiler`` (CPU + CUDA
@@ -61,6 +63,14 @@ first, then one each under the profiler: the retrieval alone (the full
 scan at B = 8), the RAG prefill of 8 x 512 tokens, 8 decode steps, and
 one 32-row insert; with the same breakdown plus the number of kernels
 each op launched (and, for the decode, a step's).
+
+``--train`` profiles ``chip_smoke.py`` phase 14a's train step (granite-3-2b
+at full width on f32 master weights, remat, 8 x 512 tokens, lr 3e-3 with
+warmup 2), warmed by one step first, then one step under the profiler;
+then the optimizer's update alone on the same state (random grads); then
+one warm decode step of phase 13a's seamless-m4t-large-v2 (8 requests of
+256 source frames and 256 tokens, prefilled first).  Same breakdown, with
+the peak device memory of the train step.
 """
 from __future__ import annotations
 
@@ -375,6 +385,69 @@ def serving(seed: int, arch: str) -> dict:
     return out
 
 
+def train(seed: int) -> dict:
+    """Profiled train step of phase 14a, its optimizer update alone, and
+    one decode step of phase 13a (see the module doc)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api, lm
+    from repro_torch.serving import serve_step
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import make_train_step, trainable
+
+    dev = torch.device("cuda")
+    out = {}
+    cfg = registry.get_arch(chip_smoke.TRAIN_ARCH)
+    tc = TrainConfig(learning_rate=chip_smoke.TRAIN_LR, warmup_steps=2,
+                     total_steps=chip_smoke.TRAIN_STEPS, seed=seed)
+    params = trainable(lm.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg, master=True))
+    state = {"opt": optimizer.init(params)}
+    step = make_train_step(cfg, tc)
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    batch = api.synth_batch(g, cfg, "train", chip_smoke.TRAIN_BATCH,
+                            chip_smoke.TRAIN_SEQ)
+
+    def one():
+        _, state["opt"], m = step(params, state["opt"], batch)
+        state["loss"] = float(m["loss"])
+
+    one()                                       # warm
+    torch.cuda.reset_peak_memory_stats()
+    out["train step"] = profiled(one)
+    out["train step"]["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["train step"]["loss"] = state["loss"]
+    grads = {k: torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for k, p in params.named_parameters()}
+    out["optimizer update"] = profiled(
+        lambda: optimizer.apply_updates(params, grads, state["opt"], tc))
+    out["train model"] = {"arch": cfg.name, "params": cfg.param_count(),
+                          "tokens": chip_smoke.TRAIN_BATCH
+                          * chip_smoke.TRAIN_SEQ, "remat": cfg.remat}
+    del params, state, grads
+    chip_smoke.release()
+
+    cfg = registry.get_arch(chip_smoke.ENCDEC_ARCH)
+    params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+    batch = api.synth_batch(g, cfg, "prefill", chip_smoke.ENCDEC_REQUESTS,
+                            chip_smoke.ENCDEC_SEQ)
+    s_max = batch["tokens"].shape[1] + chip_smoke.ENCDEC_DECODE
+    tok, caches, pos = serve_step.make_prefill(cfg, s_max)(params, batch)
+    decode = serve_step.make_decode(cfg)
+    cur = {"tok": tok, "pos": pos}
+
+    def dec():
+        cur["pos"] = cur["pos"] + 1
+        cur["tok"], _ = decode(params, cur["tok"], caches, cur["pos"])
+
+    dec()                                       # warm
+    out["seamless decode step"] = profiled(dec)
+    out["seamless model"] = {"arch": cfg.name, "params": cfg.param_count(),
+                             "requests": chip_smoke.ENCDEC_REQUESTS}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -384,6 +457,7 @@ def main(argv=None) -> int:
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--host-copy", action="store_true")
     ap.add_argument("--serving", action="store_true")
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--arch", default=chip_smoke.SERVE_ARCH,
                     help="--serving: the model served (default "
                     f"{chip_smoke.SERVE_ARCH})")
@@ -410,6 +484,11 @@ def main(argv=None) -> int:
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
                       "serving": serving(args.seed, args.arch)}, args.out)
+    if args.train:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "train": train(args.seed)}, args.out)
     if args.fused:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

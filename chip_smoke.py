@@ -105,6 +105,13 @@ Phases (any failure raises and the script exits non-zero):
    2 layers; bf16 and int8 gradient compression train at 4 layers; a
    checkpoint, a preemption and a restore bit-equal in a fresh trainer;
    one step of each other family at full width and 2 layers.
+15. dry run: ``repro_torch.launch.dryrun`` over the 40-cell grid at full
+   width on the meta device (32 cells, 8 skipped) within 120 s of host
+   time, each cell's H100 roofline terms; then granite-3-2b in three cells
+   cut only in batch (train at S = 4096, prefill of 32,768 tokens, decode
+   over a 32,768-slot cache), each dry-run and run on the card: the same
+   dot FLOPs, the same argument bytes, the peak within 0.8-1.25 x the
+   predicted, and the median step beside its roofline bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -3932,6 +3939,228 @@ def phase_train(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the dry run of the grid, and three cells against it on the card
+# ---------------------------------------------------------------------------
+
+DRY_BUDGET_S = 120      # 15a: host seconds for the 40-cell grid
+DRY_ARCH = "granite-3-2b"
+DRY_SEQ = 4096          # 15b train: train_4k's sequence
+DRY_PREFILL = (1, 32_768)       # 15b prefill: (batch, prompt tokens)
+DRY_DECODE = (8, 32_768)        # 15b decode: (batch, cache slots)
+# 15b train: the predicted peak at most this share of the card, leaving room
+# for the top of DRY_PEAK_BAND and the allocator's fragmentation
+DRY_FIT = 0.75
+DRY_PEAK_BAND = (0.8, 1.25)     # 15b: measured / predicted temp bytes
+DRY_WARM = 5            # 15b: timed steps after the counted one
+
+
+class _GlobalScope:
+    """A stand-in for FlopCounterMode's module tracker, which puts gradient
+    hooks on every module's inputs and outputs: on a train step with remat
+    they hold each recomputed layer's activations in reference cycles until
+    the collector runs (the counted granite step ran out of memory at B = 2
+    and 4).  The count needs no module breakdown: every op counts in the
+    global scope."""
+    parents = {"Global"}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return None
+
+
+def phase_dryrun(seed: int, card: str) -> dict:
+    """15a (`dry_grid`), then 15b (`dry_cells`), the kernels' launch counts
+    set to 0 just before: none may launch."""
+    kernels = serving_kernels()
+    out = {"card": card}
+    out["15a"], out["15a_s"] = dry_grid(card)
+    out["15b"] = dry_cells(seed, card)
+    out.update(path_launches(kernels, {}))
+    if any(out["launches"].values()):
+        raise AssertionError(f"15: kernel launches {out['launches']}")
+    return out
+
+
+def dry_grid(card: str):
+    """15a: `repro_torch.launch.dryrun` over the 40-cell grid at full width
+    on the meta device (10 archs x train_4k, prefill_32k, decode_32k,
+    long_500k; 8 cells skipped for the reference's reason): each record's
+    parameter count equals `accounting.param_count`, its H100 roofline
+    terms printed; at most DRY_BUDGET_S host seconds in all.  Returns
+    ({cell: terms}, seconds)."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import accounting
+
+    cells = {}
+    t0 = time.perf_counter()
+    skipped = 0
+    for arch in registry.list_archs():
+        for shape in dryrun.SHAPES:
+            rec = dryrun.run_cell(arch, shape)
+            if rec["status"] == "skipped":
+                skipped += 1
+                print(f"  15a [{card}]: {arch} x {shape}: skipped "
+                      f"({rec['reason']})", flush=True)
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"15a: {arch} x {shape} {rec['status']}:"
+                                     f" {rec.get('error')}")
+            if rec["params"] != accounting.param_count(
+                    registry.get_arch(arch)):
+                raise AssertionError(f"15a: {arch} params {rec['params']}")
+            t = roofline.terms(rec)
+            cells[f"{arch}/{shape}"] = {
+                k: t[k] for k in ("compute_s", "memory_s", "collective_s",
+                                  "dominant", "useful_ratio", "fits_hbm",
+                                  "hbm_resident_gib")} | {
+                "trace_s": rec["trace_s"], "traces": rec["traces"]}
+            print(f"  15a [{card}]: {arch} x {shape}: compute "
+                  f"{t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+                  f"collective {t['collective_s']:.4g} s, dominant "
+                  f"{t['dominant']}, useful {t['useful_ratio']:.3f}, fits_hbm "
+                  f"{t['fits_hbm']} ({t['hbm_resident_gib']:.1f} GiB), "
+                  f"{rec['trace_s']:.2f} s ({rec['traces']} traces)",
+                  flush=True)
+    secs = time.perf_counter() - t0
+    if skipped != 8 or len(cells) != 32:
+        raise AssertionError(f"15a: {len(cells)} cells, {skipped} skipped "
+                             "(32 and 8)")
+    if secs > DRY_BUDGET_S:
+        raise AssertionError(f"15a: {secs:.1f} s > {DRY_BUDGET_S} s")
+    print(f"  15a [{card}]: 32 cells dry-run, 8 skipped, in {secs:.1f} s "
+          f"(limit {DRY_BUDGET_S} s)", flush=True)
+    return cells, secs
+
+
+def dry_cells(seed: int, card: str) -> dict:
+    """15b: granite-3-2b at full width in three cells cut only in batch
+    (train at S = 4096 on f32 master weights with remat, at the largest
+    batch whose dry-run peak takes at most DRY_FIT of the card; prefill of
+    32,768 tokens at B = 1; decode over a 32,768-slot cache at B = 8), each
+    dry-run and then run with tensors from `seed`: the dot FLOPs
+    ``FlopCounterMode`` counts on the card equal the dry run's, the
+    arguments' bytes equal the dry run's, the peak allocated above them
+    lies within DRY_PEAK_BAND of the dry run's temp bytes, and the median
+    of DRY_WARM timed steps stands beside the roofline bound max(compute,
+    memory): the step's share of the H100 roofline."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, op_analysis, roofline
+    from repro_torch.models import api, lm
+    from repro_torch.train import optimizer, train_step
+
+    dev = torch.device("cuda")
+    out = {}
+    cfg = registry.get_arch(DRY_ARCH)
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    for b in (8, 4, 2, 1):
+        train = ShapeConfig(f"train_{DRY_SEQ}_b{b}", "train", DRY_SEQ, b)
+        rec = dryrun.analyze(dryrun.trace_cell(cfg, train)[0], cfg, train)
+        if rec["memory_analysis"]["peak_memory_in_bytes"] \
+                <= DRY_FIT * capacity:
+            break
+    else:
+        raise AssertionError("15b: no train batch fits the card")
+    cells = [(train, rec)]
+    for kind, (b, s) in (("prefill", DRY_PREFILL), ("decode", DRY_DECODE)):
+        shape = ShapeConfig(f"{kind}_{s}_b{b}", kind, s, b)
+        cells.append((shape, dryrun.analyze(
+            dryrun.trace_cell(cfg, shape)[0], cfg, shape)))
+    full = {"train": "train_4k", "prefill": "prefill_32k",
+            "decode": "decode_32k"}
+    print(f"  15b [{card}]: {cfg.name} at full width, cut only in batch: "
+          + ", ".join(f"{full[sh.kind]} B={registry.get_shape(full[sh.kind]).global_batch}"
+                      f" -> {sh.global_batch}" for sh, _ in cells),
+          flush=True)
+    for shape, rec in cells:
+        g = torch.Generator(device=dev).manual_seed(seed + 15)
+        if shape.kind == "train":
+            params = train_step.trainable(
+                lm.init_params(g, cfg, master=True))
+            args = (params, optimizer.init(params),
+                    api.synth_batch(g, cfg, "train", shape.global_batch,
+                                    shape.seq_len))
+        elif shape.kind == "prefill":
+            args = (lm.init_params(g, cfg),
+                    api.synth_batch(g, cfg, "prefill", shape.global_batch,
+                                    shape.seq_len))
+        else:
+            b, s = shape.global_batch, shape.seq_len
+            args = (lm.init_params(g, cfg),
+                    torch.randint(0, cfg.vocab_size, (b, 1), generator=g,
+                                  device=dev, dtype=torch.int32),
+                    lm.init_caches(cfg, b, s, device=dev),
+                    torch.full((b,), s - 1, dtype=torch.int32, device=dev))
+        fn = dryrun.step_fn(cfg, shape)
+        mem = rec["memory_analysis"]
+        arg_b = op_analysis.storage_bytes(args)[0]
+        if arg_b != mem["argument_size_in_bytes"]:
+            raise AssertionError(f"15b {shape.name}: argument bytes {arg_b} "
+                                 f"!= {mem['argument_size_in_bytes']:.0f}")
+        fc = FlopCounterMode(display=False)
+        fc.mod_tracker = _GlobalScope()
+        with fc:                                      # also warms up
+            res = fn(*args)
+        del res
+        torch.cuda.synchronize()
+        flops = fc.get_total_flops()
+        dry = rec["hlo_rollup_per_device"]["dot_flops"]
+        if flops != dry:
+            raise AssertionError(f"15b {shape.name}: FlopCounterMode "
+                                 f"{flops} != the dry run's {dry:.0f}")
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(DRY_WARM):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            res = fn(*args)
+            e1.record()
+            e1.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            del res
+        ratio = peak / mem["temp_size_in_bytes"]
+        t = roofline.terms(rec)
+        bound_s = max(t["compute_s"], t["memory_s"])
+        med = float(np.median(ms))
+        row = {"batch": shape.global_batch, "seq": shape.seq_len,
+               "dot_flops": flops, "argument_bytes": arg_b,
+               "temp_predicted": mem["temp_size_in_bytes"],
+               "temp_measured": peak, "peak_ratio": ratio,
+               "hbm_bytes_est": rec["hlo_rollup_per_device"]["hbm_bytes_est"],
+               "step_ms": ms, "median_ms": med,
+               "compute_ms": 1e3 * t["compute_s"],
+               "memory_ms": 1e3 * t["memory_s"],
+               "bound_ms": 1e3 * bound_s, "roofline_share": 1e3 * bound_s / med,
+               "dot_flops_by_dtype": rec["dot_flops_by_dtype"]}
+        out[shape.kind] = row
+        print(f"  15b [{card}]: {shape.kind} B={shape.global_batch} "
+              f"S={shape.seq_len}: dot FLOPs {flops:.6e} (FlopCounterMode on "
+              f"the card) == the dry run's; arguments {arg_b / 2**30:.3f} GiB "
+              f"== the dry run's; peak above them {peak / 2**30:.3f} GiB vs "
+              f"{mem['temp_size_in_bytes'] / 2**30:.3f} GiB predicted "
+              f"({ratio:.3f}x); median step {med:.3f} ms over {DRY_WARM} "
+              f"({[round(x, 3) for x in ms]}), bound {1e3 * bound_s:.3f} ms "
+              f"({'compute' if t['compute_s'] >= t['memory_s'] else 'memory'}"
+              f"; compute {1e3 * t['compute_s']:.3f}, memory "
+              f"{1e3 * t['memory_s']:.3f}): {row['roofline_share']:.4f} of "
+              "the H100 roofline", flush=True)
+        if not DRY_PEAK_BAND[0] <= ratio <= DRY_PEAK_BAND[1]:
+            raise AssertionError(f"15b {shape.name}: measured / predicted "
+                                 f"temp {ratio:.3f} outside {DRY_PEAK_BAND}")
+        del args, fn
+        release()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4045,6 +4274,14 @@ def main(argv=None) -> int:
     paths["train"] = trn = phase_train(args.seed, card)
     print(f"phase 14: training in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(trn), flush=True)
+    release()
+    # 15. the dry run of the grid and three granite-3-2b cells against it
+    # (after phase 14's memory is freed), the counts set to 0 just before
+    # (it launches none of them)
+    t0 = time.perf_counter()
+    paths["dryrun"] = dry = phase_dryrun(args.seed, card)
+    print(f"phase 15: dry run in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(dry), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

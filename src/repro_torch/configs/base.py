@@ -1,7 +1,8 @@
-"""Config dataclasses for models, shapes, training and the memory engine
-(copies of ``ModelConfig``, ``ShapeConfig``/``SHAPES``, ``TrainConfig`` and
-``EngineConfig`` from ``src/repro/configs/base.py``, the port's own, so
-that it imports no JAX).
+"""Config dataclasses for models, shapes, training, the memory engine and
+the roofline's hardware (copies of ``ModelConfig``, ``ShapeConfig``/
+``SHAPES``, ``TrainConfig``, ``EngineConfig`` and ``HardwareConfig`` from
+``src/repro/configs/base.py``, the port's own, so that it imports no JAX;
+``HardwareConfig`` holds one H100's figures, `H100`).
 
 Frozen dataclasses with the reference's fields, defaults, properties and
 checks, so both packages describe a model or an engine with the same key.
@@ -254,3 +255,30 @@ class EngineConfig:
     def quantized(self) -> bool:
         """True when the scan store is int8 (coarse scan + f32 rescore)."""
         return self.store_dtype == "int8"
+
+
+# ---------------------------------------------------------------------------
+# Roofline hardware model (one NVIDIA H100)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class HardwareConfig:
+    """The reference's fields, with the figures of one H100 SXM5 80GB
+    (NVIDIA's data sheet, dense rates at the 700 W limit).  The reference's
+    default is a TPU; the port has no TPU figure, so its default is the
+    H100 (`H100`)."""
+
+    name: str = "h100_sxm5_80gb"
+    peak_flops_bf16: float = 989e12      # dense bf16 tensor-core FLOP/s
+    hbm_bandwidth: float = 3.35e12       # HBM3 bytes/s
+    ici_bandwidth: float = 450e9         # NVLink bytes/s, one direction
+    dcn_bandwidth: float = 0.0           # no link between hosts: one card
+    hbm_bytes: float = 80e9              # device memory
+    # the on-chip scratch a kernel tiles into: a block's shared memory
+    # (232,448 bytes of the SM's 256 KB)
+    vmem_bytes: float = 232_448
+    # the matrix unit's tile: one warpgroup's wgmma, 64 rows x up to 256
+    mxu_tile: Tuple[int, int] = (64, 256)
+
+
+H100 = HardwareConfig()

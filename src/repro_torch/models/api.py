@@ -1,10 +1,13 @@
-"""Model-facing helpers: batch synthesis and the pipeline-batch adapters.
+"""Model-facing helpers: input specs per (arch x shape), batch synthesis
+and the pipeline-batch adapters.
 
-Port of ``src/repro/models/api.py``.  `synth_batch` draws from an explicit
+Port of ``src/repro/models/api.py``.  The ``*_specs`` functions return
+tensors on the ``meta`` device (shapes and dtypes, no storage) where the
+reference returns ``jax.ShapeDtypeStruct``s, for the dry run
+(`repro_torch.launch.dryrun`).  `synth_batch` draws from an explicit
 ``torch.Generator`` (on its device); `adapt_token_batch`/`adapt_batches`
-are numpy-only copies.  The ``*_specs`` functions of the reference build
-``jax.ShapeDtypeStruct``s for the dry run and wait for the launch slice.
-The [audio]/[vlm] modality frontends are stubs, as in the reference.
+are numpy-only copies.  The [audio]/[vlm] modality frontends are stubs, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -13,12 +16,52 @@ from typing import Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models.layers import torch_dtype
 
 
 def _vis_len(cfg: ModelConfig, seq: int) -> int:
     return min(1024, max(seq // 4, 4))
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    b, s = shape.global_batch, shape.seq_len
+    dt = torch_dtype(cfg.dtype)
+    specs = {"tokens": _meta((b, s), torch.int32),
+             "targets": _meta((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        specs["vis_embeds"] = _meta((b, _vis_len(cfg, s), cfg.d_model), dt)
+        specs["mrope_pos"] = _meta((b, s, 3), torch.int32)
+    if cfg.family == "encdec":
+        # half source frames (stubbed audio encoder output), half target text
+        specs = {"src_emb": _meta((b, s // 2, cfg.d_model), dt),
+                 "tokens": _meta((b, s // 2), torch.int32),
+                 "targets": _meta((b, s // 2), torch.int32)}
+    return specs
+
+
+def prefill_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    specs = train_batch_specs(cfg, shape)
+    specs.pop("targets", None)
+    return specs
+
+
+def decode_inputs_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """(token, caches, pos) on the meta device for a decode step at KV
+    length seq_len (the enc-dec family's cross K/V at ``seq_len // 2``)."""
+    from repro_torch.models import lm
+    b, s = shape.global_batch, shape.seq_len
+    token = _meta((b, 1), torch.int32)
+    pos = _meta((b,), torch.int32)
+    caches = lm.init_caches(cfg, b, s, device="meta")
+    if cfg.family == "encdec":
+        cross = lm.init_caches(cfg, b, s // 2, device="meta")["self"]
+        caches = {"self": caches["self"], "cross": cross}
+    return token, caches, pos
 
 
 def adapt_token_batch(batch: Dict[str, "np.ndarray"], cfg: ModelConfig,

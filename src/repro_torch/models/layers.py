@@ -137,6 +137,13 @@ class MLP(nn.Module):
         return h @ self.wo.to(x.dtype)
 
 
+def mlp_specs():
+    """Logical axes of the MLP's leaves (the reference's; `models/specs.py`
+    maps them onto a mesh's axes)."""
+    return {"wi": ("fsdp", "model"), "wu": ("fsdp", "model"),
+            "wo": ("model", "fsdp")}
+
+
 # ---------------------------------------------------------------------------
 # Embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -216,8 +223,7 @@ def apply_mrope(x, positions3, sections: Tuple[int, ...], theta: float):
     freqs = rope_freqs(dh, theta, x.device)                   # [Dh/2]
     if sum(sections) != dh // 2:
         raise ValueError(f"M-RoPE sections {sections} do not split {dh // 2}")
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     pos = positions3.float().index_select(-1, sec_id)         # [..., S, Dh/2]
     return _rotate(x, pos * freqs)

@@ -3,7 +3,8 @@
 Port of ``src/repro/models/mamba2.py``.  Chunked state-space-duality form:
 the sequence is cut into chunks of Q tokens; within a chunk the recurrence
 is dense masked products, and only the small per-chunk state recurrence
-runs as a loop (the reference's ``lax.scan``).  Decode is the O(1)
+runs as a loop (the reference's ``lax.scan``; a `loops.scan` marked for
+the dry run).  Decode is the O(1)
 recurrent update on the state [B, H, P, N].
 
 The reference writes the intra-chunk term as one three-operand einsum; here
@@ -20,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, loops
 
 
 class MambaCache(NamedTuple):
@@ -131,12 +132,13 @@ def _ssd_chunked(xh, dt, a_log, b, c, chunk: int):
     s_chunk = xd @ b_c[:, :, None]                         # [B,nc,H,P,N]
 
     # ---- inter-chunk recurrence (a loop over nc) ----
-    s_prev = torch.zeros((bsz, h, p, n), device=xh.device)
-    s_prevs = []
-    for ci in range(nc):
-        s_prevs.append(s_prev)
-        s_prev = (s_prev * torch.exp(total[:, ci])[:, :, None, None]
-                  + s_chunk[:, ci])
+    def step(ci, s_prev):
+        return (s_prev * torch.exp(total[:, ci])[:, :, None, None]
+                + s_chunk[:, ci]), s_prev
+
+    s_prev, s_prevs = loops.scan(
+        "mamba2.chunks", step,
+        torch.zeros((bsz, h, p, n), device=xh.device), nc)
     s_prevs = torch.stack(s_prevs, dim=1)                  # [B,nc,H,P,N]
 
     # ---- inter-chunk contribution ----

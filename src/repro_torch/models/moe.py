@@ -50,6 +50,17 @@ class MoE(nn.Module):
                                      device)
 
 
+def moe_specs(cfg: ModelConfig):
+    """Logical axes of the MoE layer's leaves (the reference's)."""
+    sp = {"router": (None, None),
+          "wi": ("expert", "fsdp", None),
+          "wu": ("expert", "fsdp", None),
+          "wo": ("expert", None, "fsdp")}
+    if cfg.num_shared_experts:
+        sp["shared"] = layers.mlp_specs()
+    return sp
+
+
 def _capacity(cfg: ModelConfig, seq: int) -> int:
     c = int(cfg.capacity_factor * seq * cfg.moe_top_k / cfg.num_experts)
     return min(seq, max(8, -(-c // 8) * 8))

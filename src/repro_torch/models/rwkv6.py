@@ -11,7 +11,8 @@ Prefill, train and decode use the chunked GEMM form: per chunk of CHUNK
 tokens, SUB-token blocks chained through the state, each a few dense
 products with the separated decay exponents (all <= 1 except e^{-b_tau},
 clipped at EXP_CLIP nats; RATE_CAP keeps the clip from binding).  The
-reference's ``lax.scan`` over chunks is a Python loop here.  The exact
+reference's ``lax.scan`` over chunks, and the cascade of SUB blocks, are
+`loops.scan` loops here (marked for the dry run).  The exact
 unrolled recurrence (`_wkv_chunk`) is the correctness oracle.
 
 The reference asserts that a chunk longer than SUB is a whole number of
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, loops
 
 UNROLL = 8          # exact-path chunk (oracle)
 CHUNK = 64          # GEMM-path outer chunk (state I/O boundary)
@@ -160,12 +161,11 @@ def _wkv_chunk_gemm(state, r, k, v, w, u):
         raise ValueError(f"an RWKV chunk of {l} tokens is not a whole number "
                          f"of {SUB}-token blocks (a sequence of 16 < S < "
                          f"{CHUNK} tokens must be a multiple of {SUB})")
-    ys = []
-    for i in range(0, l, SUB):
-        sl = slice(i, i + SUB)
-        state, y = _wkv_sub_gemm(state, r[:, sl], k[:, sl], v[:, sl],
-                                 w[:, sl], u)
-        ys.append(y)
+    def sub_block(i, state):
+        sl = slice(i * SUB, (i + 1) * SUB)
+        return _wkv_sub_gemm(state, r[:, sl], k[:, sl], v[:, sl], w[:, sl], u)
+
+    state, ys = loops.scan("rwkv6.sub_blocks", sub_block, state, l // SUB)
     return state, torch.cat(ys, dim=1)
 
 
@@ -198,12 +198,12 @@ def time_mix(p: RWKV, x, cfg: ModelConfig, state, x_prev):
     if pad:
         r_, k_, v_ = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (r_, k_, v_))
         w_ = F.pad(w_, (0, 0, 0, 0, 0, pad), value=1.0)
-    ys = []
-    for i in range(0, nc * clen, clen):
-        sl = slice(i, i + clen)
-        state, y = _wkv_chunk_gemm(state, r_[:, sl], k_[:, sl], v_[:, sl],
-                                   w_[:, sl], p.u)
-        ys.append(y)
+    def chunk(i, state):
+        sl = slice(i * clen, (i + 1) * clen)
+        return _wkv_chunk_gemm(state, r_[:, sl], k_[:, sl], v_[:, sl],
+                               w_[:, sl], p.u)
+
+    state, ys = loops.scan("rwkv6.chunks", chunk, state, nc)
     y = torch.cat(ys, dim=1)[:, :s]
     # GroupNorm over each head (RWKV6's ln_x)
     ln = p.ln_x.float().reshape(h, hd)

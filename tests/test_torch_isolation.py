@@ -2,9 +2,9 @@
 `api/replication.py` included), nor `chip_smoke.py`,
 `tools/profile_port.py` or `tools/ab_phases.py`, imports jax or anything
 of the JAX package `repro`; importing the port leaves jax unloaded; its
-EngineConfig and ModelConfig have exactly the reference's fields, its arch
-configs equal the reference's, and its copies of framework-free modules
-keep the reference's public names.
+EngineConfig, ModelConfig and HardwareConfig have exactly the reference's
+fields, its arch configs equal the reference's, and its copies of
+framework-free modules keep the reference's public names.
 """
 import ast
 import dataclasses
@@ -49,7 +49,9 @@ def test_port_files_found():
             "lm.py", "serve_step.py", "rag.py", "serve.py",
             "serve_agent.py", "optimizer.py", "train_step.py", "trainer.py",
             "pipeline.py", "collectives.py", "elastic.py", "train.py",
-            "train_micro.py"} <= names
+            "train_micro.py", "dryrun.py", "op_analysis.py", "roofline.py",
+            "profile.py", "specs.py", "loops.py", "granite_3_2b.py",
+            "seamless_m4t_large_v2.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/distributed/fault.py",
             "src/repro_torch/api/replication.py",
@@ -74,7 +76,11 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.train.trainer, repro_torch.data.pipeline, "
             "repro_torch.distributed.collectives, "
             "repro_torch.distributed.elastic, repro_torch.launch.train, "
-            "repro_torch.train_micro; "
+            "repro_torch.train_micro, repro_torch.launch.dryrun, "
+            "repro_torch.launch.op_analysis, repro_torch.launch.roofline, "
+            "repro_torch.launch.profile, repro_torch.models.specs, "
+            "repro_torch.configs.granite_3_2b, "
+            "repro_torch.configs.zamba2_2_7b; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules), 'repro loaded'")
@@ -141,6 +147,20 @@ def test_train_config_has_the_reference_fields():
         return [(f.name, f.default) for f in dataclasses.fields(cls)]
 
     assert fields(base.TrainConfig) == fields(jbase.TrainConfig)
+
+
+def test_hardware_config_has_the_reference_fields():
+    """HardwareConfig has the reference's fields in order; its defaults
+    are one H100's (`H100`), none of the reference's TPU figures."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+
+    names = [f.name for f in dataclasses.fields(base.HardwareConfig)]
+    assert names == [f.name for f in dataclasses.fields(jbase.HardwareConfig)]
+    assert base.H100 == base.HardwareConfig()
+    mine, tpu = dataclasses.asdict(base.H100), dataclasses.asdict(jbase.V5E)
+    assert all(mine[k] != tpu[k] for k in names), \
+        [k for k in names if mine[k] == tpu[k]]
 
 
 def test_data_pipeline_copy_keeps_the_reference_public_names():

@@ -12,8 +12,11 @@ Phases (any failure raises and the script exits non-zero):
    least time the card could take, and one PyTorch library call's time.
    Both scans are checked and timed in both variants (``stream``,
    ``generic``), and ``kmeans_assign`` in both of its (``wgmma``,
-   ``generic``) at the build, rebuild and insert shapes, with ties across
-   centroid tiles and slices.  Both scans also take a lane axis (G
+   ``generic``) at the build, rebuild and insert shapes and at phase 11a's
+   build and 32-row insert (D = 2048, the ``wgmma`` variant's streamed
+   mode), with ties across centroid tiles and slices; the streamed mode is
+   also checked at D = 1664-5120 with ragged M and C, and the f32-product
+   rung timed beside ``torch.mm`` in f32.  Both scans also take a lane axis (G
    collections in one launch): each is checked against its lane plain
    version in both variants, lane g against the 2-D launch on lane g bit
    for bit, and timed at phase 6's fused shapes.  ``scan_scores`` is also
@@ -146,6 +149,11 @@ PEAK_BYTES = 3.35e12
 N_ROWS = 1_000_000       # PAPER_1M's corpus: HotpotQA's 1 M passages
 SERVE_REQUESTS = 8       # phase 11a's requests a turn (phase 3 times its scan)
 SERVE_DIM = 2048         # granite-3-2b's d_model, the memory's dim in 11a
+SERVE_INSERT = 32        # the serve drivers' insert batch (11a, 12a)
+# depths past what kmeans_assign's resident row tile can take (D > 1536),
+# which phase 3 checks in the streamed mode: the serving dim and the
+# widths around it
+WIDE_DIMS = (1664, 2048, 2560, 3584, 5120)
 # phase 6a's per-lane query batches, eight f32 tenants and four int8 ones;
 # phase 3 checks and times the lane launches at the Bmax these give
 F32_BATCHES = (1, 2, 3, 5, 8, 13, 16, 21)
@@ -476,6 +484,7 @@ def phase_kernels(seed: int, cfg) -> dict:
                                   cent.data_ptr()) == "wgmma"
                 else ("generic",))
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     err = 0.0
     err_f32 = 0.0
     for (m, cc, dd) in [(1000, 96, 128), (777, 200, 130), (300, 1, 64),
@@ -487,6 +496,40 @@ def phase_kernels(seed: int, cfg) -> dict:
         # the f32-product variant (ablation rung fused_conversion=False)
         idx, dist = ka.kmeans_assign(x, cent, fused_conversion=False)
         err_f32 = max(err_f32, check_assign(x, cent, idx, dist, fused=False))
+    # the streamed mode at every depth past the resident tile, ragged M and
+    # C: copies of three rows in every block's centroid tile (every quarter
+    # of C) and every C slice go to the lowest index, a second call gives
+    # the same bits; the f32 rung on the same inputs
+    wide = {}
+    for dd in WIDE_DIMS:
+        for m, cc, bases in ((4097, 1000, (990, 600, 300, 5)),
+                             (777, 1000, (990, 600, 300, 5)),
+                             (32, c, (1000, 700, 300, 5))):
+            x, cent = randn(m, dd), randn(cc, dd)
+            for base in bases:
+                cent[base:base + 3] = x[:3]
+            if (ka.variant_for(m, cc, dd, x.data_ptr(), cent.data_ptr())
+                    != "wgmma" or ka.wgmma_mode(dd) != "streamed"):
+                raise AssertionError(f"kmeans_assign M={m} C={cc} D={dd} "
+                                     "does not take the streamed wgmma")
+            idx, dist = ka.kmeans_assign(x, cent)
+            err = max(err, check_assign(x, cent, idx, dist))
+            if idx[:3].tolist() != [5, 6, 7]:
+                raise AssertionError(f"kmeans_assign D={dd} M={m} tie went "
+                                     f"to {idx[:3].tolist()}, not [5, 6, 7]")
+            again = ka.kmeans_assign(x, cent)
+            if not (torch.equal(idx, again[0])
+                    and torch.equal(dist, again[1])):
+                raise AssertionError(f"kmeans_assign D={dd} M={m} is not "
+                                     "deterministic")
+            idx, dist = ka.kmeans_assign(x, cent, fused_conversion=False)
+            err_f32 = max(err_f32, check_assign(x, cent, idx, dist,
+                                                fused=False))
+            wide[f"M={m} C={cc} D={dd}"] = {
+                "c_split": ka.c_split(m, cc, sms, "streamed"),
+                "tile_width": ka.tile_width(m, sms)}
+            del x, cent, idx, dist, again
+    print(f"  kmeans_assign streamed checks: {json.dumps(wide)}", flush=True)
     # ties: copies of three rows in every centroid tile, and at M = 1024 in
     # every C-slice of the wgmma variant, go to the lowest index; the split
     # merge gives the same bits twice
@@ -502,17 +545,21 @@ def phase_kernels(seed: int, cfg) -> dict:
         again = ka.kmeans_assign(x, cent, _variant=v)
         if not (torch.equal(idx, again[0]) and torch.equal(dist, again[1])):
             raise AssertionError(f"kmeans_assign ({v}) is not deterministic")
-    # the main path's three shapes: build (the corpus), rebuild (every
-    # slot of the lists and the spill), insert (one batch)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the main path's shapes: build (the corpus), rebuild (every slot of
+    # the lists and the spill), insert (one batch) at PAPER_1M's dim; phase
+    # 11a's (and 12a's) build and 32-row insert at granite-3-2b's d_model,
+    # which the streamed mode takes
     assign_times = {}
-    for label, m in (("build", m_build), ("rebuild", n_full),
-                     ("insert", 1024)):
-        x, cent = randn(m, d), randn(c, d)
-        if ka.variant_for(m, c, d, x.data_ptr(),
+    for label, m, dd in (("build", m_build, d), ("rebuild", n_full, d),
+                         ("insert", 1024, d),
+                         ("serving_build", m_build, SERVE_DIM),
+                         ("serving_insert", SERVE_INSERT, SERVE_DIM)):
+        x, cent = randn(m, dd), randn(c, dd)
+        if ka.variant_for(m, c, dd, x.data_ptr(),
                           cent.data_ptr()) != "wgmma":
             raise AssertionError(f"kmeans_assign at the {label} shape does "
                                  "not take the wgmma variant")
+        mode = ka.wgmma_mode(dd)
         for v in ka.VARIANTS:
             idx, dist = ka.kmeans_assign(x, cent, _variant=v)
             err = max(err, check_assign(x, cent, idx, dist))
@@ -526,13 +573,18 @@ def phase_kernels(seed: int, cfg) -> dict:
         # the bf16 product alone, on operands converted before the timing
         xb, cb = x.to(torch.bfloat16), cent.to(torch.bfloat16)
         lib = queued_ms(lambda: torch.mm(xb, cb.t()), reps)
-        ab, aby = bound_ms(4 * (m * d + c * d + 2 * m), 2 * m * c * d,
+        ab, aby = bound_ms(4 * (m * dd + c * dd + 2 * m), 2 * m * c * dd,
                            PEAK_BF16)
         assign_times[label] = {
-            "shape": f"M={m} C={c} D={d}", "ms": var_ms["wgmma"],
-            "variant_ms": var_ms, "plain_ms": plain, "bound_ms": ab,
-            "bound_by": aby, "library_ms": lib,
-            "c_split": ka.c_split(m, c, sms)}
+            "shape": f"M={m} C={c} D={dd}", "mode": mode,
+            "ms": var_ms["wgmma"], "variant_ms": var_ms, "plain_ms": plain,
+            "bound_ms": ab, "bound_by": aby, "library_ms": lib,
+            "c_split": ka.c_split(m, c, sms, mode)}
+        print(f"  kmeans_assign {label} M={m} C={c} D={dd}: wgmma "
+              f"({mode}) {var_ms['wgmma']:.4f} ms, generic "
+              f"{var_ms['generic']:.4f} ms, bound {ab:.4f} ms ({aby}), "
+              f"torch.mm bf16 {lib:.4f} ms, plain {plain:.4f} ms",
+              flush=True)
         if label == "build":
             # the f32-product rung (ablation B): kernel, plain version, and
             # the f32 product alone (TF32 off) as its yardstick
@@ -543,33 +595,11 @@ def phase_kernels(seed: int, cfg) -> dict:
             f32_lib = cuda_ms(lambda: torch.mm(x, cent.t()), reps=3)
         del x, cent, xb, cb
         torch.cuda.empty_cache()
-    # phase 11a's build and insert at granite-3-2b's d_model: the wgmma
-    # variant's resident row tile leaves no room for two ring stages at
-    # D = 2048, so `variant_for` gives these shapes to generic
-    for label, m in (("serving_build", m_build), ("serving_insert", 32)):
-        x, cent = randn(m, SERVE_DIM), randn(c, SERVE_DIM)
-        picked = ka.variant_for(m, c, SERVE_DIM, x.data_ptr(),
-                                cent.data_ptr())
-        idx, dist = ka.kmeans_assign(x, cent)
-        err = max(err, check_assign(x, cent, idx, dist))
-        del idx, dist
-        reps = 3 if m > 100_000 else 50
-        ms = cuda_ms(lambda: ka.kmeans_assign(x, cent), reps=reps)
-        plain = cuda_ms(lambda: ref.kmeans_assign_ref(x, cent), reps=3)
-        xb, cb = x.to(torch.bfloat16), cent.to(torch.bfloat16)
-        lib = queued_ms(lambda: torch.mm(xb, cb.t()), reps)
-        ab, aby = bound_ms(4 * (m * SERVE_DIM + c * SERVE_DIM + 2 * m),
-                           2 * m * c * SERVE_DIM, PEAK_BF16)
-        assign_times[label] = {
-            "shape": f"M={m} C={c} D={SERVE_DIM}", "variant": picked,
-            "ms": ms, "plain_ms": plain, "bound_ms": ab, "bound_by": aby,
-            "library_ms": lib}
-        del x, cent, xb, cb
-        torch.cuda.empty_cache()
-    print(f"  kmeans_assign serving: {assign_times['serving_build']} "
-          f"{assign_times['serving_insert']}", flush=True)
     f32_bound = bound_ms(4 * (m_build * d + c * d + 2 * m_build),
                          2 * m_build * c * d, PEAK_F32)
+    print(f"  kmeans_assign f32 rung M={m_build} C={c} D={d}: {f32_ms:.3f} "
+          f"ms, torch.mm f32 (TF32 off) {f32_lib:.3f} ms, plain "
+          f"{f32_plain:.3f} ms, bound {f32_bound[0]:.3f} ms", flush=True)
     build_t = assign_times["build"]
     out["kmeans_assign"] = {
         "name": "kmeans_assign", "route": "cuda",
@@ -585,6 +615,7 @@ def phase_kernels(seed: int, cfg) -> dict:
         "insert": assign_times["insert"],
         "serving_build": assign_times["serving_build"],
         "serving_insert": assign_times["serving_insert"],
+        "streamed_checks": wide,
         "f32_variant": {"max_abs_err": err_f32, "ms": f32_ms,
                         "plain_ms": f32_plain, "library_ms": f32_lib,
                         "library_call": "torch.mm(x, c.t()) f32, TF32 off: "

@@ -228,7 +228,8 @@ def test_q8_dispatch_on_quantized_rows(dev, metric):
 
 
 @pytest.mark.parametrize("m,c,d", [(1000, 96, 128), (777, 200, 130),
-                                   (300, 1, 64), (4097, 1024, 1024)])
+                                   (300, 1, 64), (4097, 1024, 1024),
+                                   (32, 1024, 2048), (4097, 1024, 2560)])
 @pytest.mark.parametrize("fused", [True, False])
 def test_kmeans_assign_kernel_matches_plain(dev, m, c, d, fused):
     x, cent = _randn(dev, m, d, seed=3), _randn(dev, c, d, seed=4)
@@ -253,13 +254,34 @@ def test_kmeans_assign_ties_go_to_lowest_index(dev, fused):
     assert idx[:3].tolist() == [0, 1, 2]
 
 
+@pytest.mark.parametrize("m,c,d", [(4099, 1000, 1030), (129, 257, 33),
+                                   (1, 3, 4), (130, 1, 2052),
+                                   (1000, 300, 2048)])
+def test_kmeans_assign_f32_rung_at_ragged_shapes(dev, m, c, d):
+    """The f32-product rung (register-tiled SGEMM) at ragged M, C and D."""
+    x, cent = _randn(dev, m, d, seed=21), _randn(dev, c, d, seed=22)
+    before = ka.launches_by_variant["generic"].value
+    idx, dist = ka.kmeans_assign(x, cent, fused_conversion=False)
+    assert ka.launches_by_variant["generic"].value == before + 1
+    ridx, rdist = ref.kmeans_assign_ref(x, cent, fused_conversion=False)
+    torch.testing.assert_close(dist, rdist, rtol=1e-4, atol=1e-3)
+    if c > 1:
+        dd = (cent ** 2).sum(1)[None, :] - 2 * (x @ cent.T)
+        two = torch.topk(dd, 2, dim=1, largest=False).values
+        sure = (two[:, 1] - two[:, 0]) > 1e-2
+        assert torch.equal(idx[sure], ridx[sure])
+    assert int(idx.min()) >= 0 and int(idx.max()) < c
+
+
 def _assign_cases():
     """(shape, variant) for both kmeans_assign variants where the shape
     takes wgmma (fresh tensors are 16-byte aligned), else generic only."""
     cases = []
     for shape in [(1000, 96, 128), (777, 200, 130), (300, 1, 64),
                   (4097, 1024, 1024), (1024, 1024, 1024),
-                  (70_000, 1024, 1024), (65, 300, 1280), (100, 50, 68)]:
+                  (70_000, 1024, 1024), (65, 300, 1280), (100, 50, 68),
+                  (32, 1024, 2048), (4097, 1024, 2048), (777, 200, 2048),
+                  (100, 1000, 2560), (4097, 300, 2560)]:
         for v in ka.VARIANTS:
             if v == "generic" or ka.variant_for(*shape, 256, 256) == v:
                 cases.append((shape, v))
@@ -302,6 +324,37 @@ def test_kmeans_assign_far_apart_ties_go_to_lowest_index(dev, m, variant):
     idx, dist = ka.kmeans_assign(x, cent, _variant=variant)
     assert idx[:3].tolist() == [5, 6, 7]
     _check_assign(x, cent, idx, dist)
+
+
+@pytest.mark.parametrize("m,d", [(32, 2048), (4097, 2048), (1024, 2560)])
+@pytest.mark.parametrize("mode", ["streamed", "resident"])
+def test_kmeans_assign_modes_ties_go_to_lowest_index(dev, m, d, mode):
+    """Copies of a row in every block's centroid tile and every C slice of
+    the streamed mode (and, forced at D = 1024, of the resident one): the
+    lowest index wins, and a second call gives the same bits."""
+    if mode == "resident":
+        d = 1024
+    x, cent = _randn(dev, m, d, seed=23), _randn(dev, 1024, d, seed=24)
+    for base in (1000, 700, 300, 5):
+        cent[base:base + 3] = x[:3]
+    idx, dist = ka.kmeans_assign(x, cent, _variant="wgmma", _mode=mode)
+    assert idx[:3].tolist() == [5, 6, 7]
+    _check_assign(x, cent, idx, dist)
+    again = ka.kmeans_assign(x, cent, _variant="wgmma", _mode=mode)
+    assert torch.equal(idx, again[0]) and torch.equal(dist, again[1])
+
+
+@pytest.mark.parametrize("m", [32, 4097])
+def test_kmeans_assign_streamed_at_resident_depth(dev, m):
+    """The streamed mode forced at D = 1024 (the profiler's crossover
+    sweep) agrees with the plain version; the resident one refuses D =
+    2048."""
+    x, cent = _randn(dev, m, 1024, seed=25), _randn(dev, 1000, 1024, seed=26)
+    idx, dist = ka.kmeans_assign(x, cent, _variant="wgmma", _mode="streamed")
+    _check_assign(x, cent, idx, dist)
+    x2 = _randn(dev, m, 2048, seed=27)
+    with pytest.raises(ValueError, match="resident"):
+        ka.kmeans_assign(x2, cent.repeat(1, 2), _mode="resident")
 
 
 @pytest.mark.parametrize("m", [1024, 4097, 70_000])

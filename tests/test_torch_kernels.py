@@ -103,7 +103,8 @@ def _margin(x, cent):
 
 
 @pytest.mark.parametrize("m,c,d", [(64, 8, 64), (500, 128, 256),
-                                   (1000, 96, 128), (77, 130, 96)])
+                                   (1000, 96, 128), (77, 130, 96),
+                                   (40, 136, 2048)])    # the serving dim
 def test_kmeans_assign_plain_matches_pallas(m, c, d):
     x, cent = _randn(6, (m, d)), _randn(7, (c, d))
     jidx, jdist = jops.kmeans_assign(jnp.asarray(x), jnp.asarray(cent),

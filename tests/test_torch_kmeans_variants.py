@@ -1,12 +1,14 @@
 """Variant choice of the `kmeans_assign` kernel, on the CPU.
 
-`kmeans_assign` has a ``wgmma`` variant (resident bf16 row tile, centroid
-stages multicast to a 2-block cluster, argmin folded from the accumulator,
-centroids split across clusters when M is small) and a ``generic`` one.
-The choice and the split are pure functions of shapes, alignment and the
-card's SM count; these tests pin them down, the order of the key that
-merges the centroid slices, that CPU tensors still take the plain version,
-and that an edited shared header rebuilds the kernel.
+`kmeans_assign` has a ``wgmma`` variant (centroid stages through a TMA
+ring, argmin folded from the accumulator, centroids split across clusters
+when M is small) in two modes by depth (``resident``: a bf16 row tile held
+for all of D, 2-block clusters; ``streamed``: 4-block clusters streaming
+slabs of a 128-row tile) and a ``generic`` one.  The choice, the mode and
+the split are pure functions of shapes, alignment and the card's SM count;
+these tests pin them down, the order of the key that merges the blocks and
+centroid slices, that CPU tensors still take the plain version, and that
+an edited shared header rebuilds the kernel.
 """
 import math
 import re
@@ -23,6 +25,8 @@ C, D = PAPER_1M.n_clusters, PAPER_1M.dim
 M_BUILD = 1_000_000                                   # build over the corpus
 M_REBUILD = C * PAPER_1M.list_capacity + 4096         # rebuild over all slots
 M_INSERT = 1024                                       # one insert batch
+SERVE_D = 2048            # granite-3-2b's d_model: the serving memory's dim
+M_SERVE_INSERT = 32       # the serve drivers' insert batch
 
 
 @pytest.mark.parametrize("m,c,d,ptrs,fused,want", [
@@ -41,18 +45,74 @@ M_INSERT = 1024                                       # one insert batch
     (4097, C, D, (A + 4, A), True, "generic"),    # misaligned x
     (4097, C, D, (A, A + 8), True, "generic"),    # misaligned centroids
     (4097, C, D, (A, A), False, "generic"),       # f32 products
-    (4097, C, 1664, (A, A), True, "generic"),     # the row tile does not fit
+    (4097, C, 1664, (A, A), True, "wgmma"),       # streamed: no row tile
+    # the serving memory at granite-3-2b's and olmoe-1b-7b's d_model
+    (M_BUILD, C, SERVE_D, (A, A), True, "wgmma"),
+    (M_SERVE_INSERT, C, SERVE_D, (A, A), True, "wgmma"),
+    (4097, C, 2560, (A, A), True, "wgmma"),
+    (4097, C, 3584, (A, A), True, "wgmma"),
+    (4097, C, 4608, (A, A), True, "wgmma"),
+    (4097, C, 5120, (A, A), True, "wgmma"),
+    (4097, C, 2050, (A, A), True, "generic"),     # D % 4 != 0
+    (4097, C, SERVE_D, (A + 4, A), True, "generic"),
+    (4097, C, SERVE_D, (A, A + 8), True, "generic"),
+    (4097, C, SERVE_D, (A, A), False, "generic"),
+    (2 ** 31 - 128, C, SERVE_D, (A, A), True, "generic"),   # past int rows
 ])
 def test_variant_choice(m, c, d, ptrs, fused, want):
     assert ka.variant_for(m, c, d, *ptrs, fused_conversion=fused) == want
 
 
+def test_every_aligned_depth_takes_wgmma():
+    """Every D % 4 == 0 from 4 to 5120 takes wgmma with aligned pointers and
+    fused conversion; every other D takes generic."""
+    for d in range(1, 5121):
+        want = "wgmma" if d % 4 == 0 else "generic"
+        assert ka.variant_for(4097, C, d, A, A) == want, d
+        assert ka.variant_for(4097, C, d, A, A,
+                              fused_conversion=False) == "generic", d
+
+
 @pytest.mark.parametrize("d,want", [(64, 4), (1024, 4), (1152, 3),
-                                    (1280, 3), (1408, 2), (1664, 1)])
+                                    (1280, 3), (1408, 2), (1536, 2),
+                                    (1664, 1)])
 def test_ring_stages(d, want):
     """At D = 1024 the first 256 of depth held in registers leave room for
     four 32 KB centroid stages beside the 96 KB bf16 row tile."""
     assert ka.ring_stages(d) == want
+
+
+@pytest.mark.parametrize("d,want", [
+    (4, "resident"), (64, "resident"), (D, "resident"),  # all four stages
+    (1028, "streamed"), (1152, "streamed"), (1280, "streamed"),
+    (1408, "streamed"), (1536, "streamed"),   # the resident kernel could
+    (1540, "streamed"), (1664, "streamed"), (SERVE_D, "streamed"),
+    (2560, "streamed"), (5120, "streamed"), (65_536, "streamed")])
+def test_wgmma_mode(d, want):
+    """The resident row tile where all MAX_STAGES ring stages fit beside it
+    (D <= 1024), the streamed mode above: the measured crossover, though
+    the resident kernel takes D up to 1536."""
+    assert ka.wgmma_mode(d) == want
+
+
+def test_wgmma_mode_follows_ring_stages():
+    for d in range(4, 8193, 4):
+        assert (ka.wgmma_mode(d) == "resident") == \
+            (ka.ring_stages(d) == ka.MAX_STAGES), d
+        if ka.wgmma_mode(d) == "streamed" and d <= 1536:
+            assert ka.ring_stages(d) >= ka.MIN_STAGES, d
+
+
+def test_streamed_rings_fill_shared_memory():
+    """Six 16 KB x slots (128 rows x 32 f32) and four 32 KB centroid slots
+    (256 x 64 bf16) fit in the 227 KB a block may have, at any D, and one
+    more slot of either would not."""
+    smem = (ka.ALIGN + ka.S_XSTAGES * ka.S_XSTAGE_BYTES
+            + ka.S_CSTAGES * ka.STAGE_BYTES
+            + 2 * (ka.S_XSTAGES + ka.S_CSTAGES) * 8 + ka.S_FLAG_BYTES)
+    assert ka.S_XSTAGE_BYTES == 16_384 and ka.STAGE_BYTES == 32_768
+    assert smem == 230_576 <= ka.SMEM_LIMIT
+    assert smem + ka.S_XSTAGE_BYTES > ka.SMEM_LIMIT
 
 
 def test_python_sizes_mirror_the_source():
@@ -71,6 +131,26 @@ def test_python_sizes_mirror_the_source():
     assert "MERGE_BYTES = 2 * ROWS * 8;" in body
 
 
+def test_python_streamed_sizes_mirror_the_source():
+    """The streamed mode's sizes (stages, row tile, cluster, key counters)
+    are the ones the kernel is built with."""
+    src = (build.CSRC / "kmeans_assign.cu").read_text()
+    body = src[src.index("namespace wg {"):]
+    for name in ("S_CLUSTER", "S_XSTAGES", "S_CSTAGES", "S_FLAG_BYTES"):
+        m = re.search(rf"constexpr int {name} = (\d+);", body)
+        assert m, name
+        assert int(m.group(1)) == getattr(ka, name), name
+    assert "constexpr int S_ROWS = 2 * ROWS;" in body and ka.S_ROWS == 128
+    assert "constexpr int HALF = CTILE / 2;" in body and ka.HALF == 128
+    assert "S_XSTAGE_BYTES = S_ROWS * 128;" in body
+    smem = re.search(r"constexpr int S_SMEM_BYTES = ([^;]+);", body)
+    assert smem and " ".join(smem.group(1).split()) == (
+        "ALIGN + S_XSTAGES * S_XSTAGE_BYTES + S_CSTAGES * STAGE_BYTES + "
+        "2 * (S_XSTAGES + S_CSTAGES) * 8 + S_FLAG_BYTES")
+    assert "return (M + S_ROWS - 1) / S_ROWS;" in body      # s_tiles
+    assert ka._streamed_tiles(129) == 2 and ka._streamed_tiles(128) == 1
+
+
 @pytest.mark.parametrize("m,c,sms,want", [
     (M_INSERT, C, 132, 4),      # 8 row-tile pairs: one slice per tile of C
     (4097, C, 132, 2),          # 33 pairs: two slices of two tiles each
@@ -85,6 +165,46 @@ def test_python_sizes_mirror_the_source():
 ])
 def test_c_split(m, c, sms, want):
     assert ka.c_split(m, c, sms) == want
+
+
+@pytest.mark.parametrize("m,c,sms,want", [
+    # the 32-row insert: one row tile; 128-centroid block tiles, so two
+    # slices of four reach 8 SMs
+    (M_SERVE_INSERT, C, 132, 2),
+    (M_BUILD, C, 132, 1),       # 7813 row tiles fill the card
+    (M_REBUILD, C, 132, 1),
+    (4097, C, 132, 1),          # 33 row tiles x 4 blocks = 132
+    (M_INSERT, C, 132, 2),      # 8 row tiles: 2 slices of 512 centroids
+    (M_SERVE_INSERT, 4096, 132, 8),
+    (M_SERVE_INSERT, 96, 132, 1),
+    (M_SERVE_INSERT, C, 4, 1),  # a small card: one cluster already fills it
+])
+def test_c_split_streamed(m, c, sms, want):
+    assert ka.c_split(m, c, sms, "streamed") == want
+
+
+@pytest.mark.parametrize("m,sms,want", [(M_SERVE_INSERT, 132, 128),
+                                        (M_INSERT, 132, 128),
+                                        (4097, 132, 256),
+                                        (M_BUILD, 132, 256),
+                                        (M_SERVE_INSERT, 4, 256)])
+def test_streamed_tile_width(m, sms, want):
+    assert ka.tile_width(m, sms) == want
+
+
+@pytest.mark.parametrize("m", [1, 32, 1024, 4097, 8192, M_BUILD])
+@pytest.mark.parametrize("c", [1, 96, 300, C, 1100, 4096])
+def test_streamed_slices_cover_c(m, c):
+    """The kernel's slices (tiles per slice rounded up to a multiple of the
+    cluster) cover every centroid tile once, and none is empty."""
+    width = ka.tile_width(m, 132)
+    nct = -(-c // ka.CTILE) * ka.CTILE // width     # the kernel's Cp / width
+    split = ka.c_split(m, c, 132, "streamed")
+    tps = -(-nct // split)
+    tps = -(-tps // ka.S_CLUSTER) * ka.S_CLUSTER
+    slices = [range(s * tps, min(s * tps + tps, nct)) for s in range(split)]
+    assert all(len(r) for r in slices)
+    assert sorted(t for r in slices for t in r) == list(range(nct))
 
 
 @pytest.mark.parametrize("m", [1, 64, 1024, 2048, 4097, 6000, 8192])
@@ -150,6 +270,18 @@ def test_cpu_tensors_take_the_plain_version(fused):
                                      _variant=variant)
         assert torch.equal(idx, want[0]) and torch.equal(dist, want[1])
     idx, dist = ops.kmeans_assign(x, cent, fused_conversion=fused)
+    assert torch.equal(idx, want[0]) and torch.equal(dist, want[1])
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("mode", ["resident", "streamed"])
+def test_cpu_tensors_ignore_the_mode(mode):
+    g = torch.Generator().manual_seed(1)
+    x, cent = torch.randn(70, 2048, generator=g), torch.randn(9, 2048,
+                                                            generator=g)
+    before = _counts()
+    want = ref.kmeans_assign_ref(x, cent)
+    idx, dist = ka.kmeans_assign(x, cent, _variant="wgmma", _mode=mode)
     assert torch.equal(idx, want[0]) and torch.equal(dist, want[1])
     assert _counts() == before
 

@@ -28,13 +28,15 @@ of a PAPER_1M full scan at B = 1, 8, 16, 32 and 64 (CUDA events, f32 rows
 and int8 codes from ``--seed``) beside their one-call yardsticks
 (``torch.mm`` with TF32, ``torch._int_mm``) and their byte bounds.
 
-``--assign-sweep`` times both ``kmeans_assign`` variants (``wgmma``,
-``generic``) at C = D = 1024 (PAPER_1M) for M = 1024 (an insert batch),
-8192, 65,536, 1,000,000 (a build) and 1,503,232 (a rebuild over every
-slot), with launches queued behind a spin kernel and timed with CUDA
-events, beside the bf16 ``torch.mm`` of the same operands converted
-beforehand (the product alone: a lower yardstick) and the least time the
-card could take (operations at C = 1024, bytes at small M).
+``--assign-sweep`` times ``kmeans_assign`` at C = 1024 (PAPER_1M) over D =
+1024, 1280, 1408, 1536, 2048 and 4096 and M = 32 (the serving insert),
+1024 (an insert batch), 65,536 and 1,000,000 (a build): the ``wgmma``
+variant in the mode ``wgmma_mode`` picks and in each mode that can take
+the depth (resident up to D = 1536, streamed at every D: the crossover),
+and ``generic``, with launches queued behind a spin kernel and timed with
+CUDA events in turns, beside the bf16 ``torch.mm`` of the same operands
+converted beforehand (the product alone: a lower yardstick) and the least
+time the card could take (operations at large M, bytes at small M).
 
 ``--fused`` profiles one cross-collection fused window per store policy at
 ``chip_smoke.py`` phase 6a's size: eight f32 PAPER_100K tenants, then four
@@ -165,33 +167,43 @@ def scan_sweep(seed: int) -> dict:
 
 
 def assign_sweep(seed: int) -> dict:
-    """ms of each kmeans_assign variant and of the bf16 product over M."""
+    """ms of kmeans_assign in each variant and wgmma mode, and of the bf16
+    product, over D and M."""
     from repro_torch.configs.ame_paper import PAPER_1M
     from repro_torch.kernels import kmeans_assign as ka
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    c, d = PAPER_1M.n_clusters, PAPER_1M.dim
+    c = PAPER_1M.n_clusters
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    cent = torch.randn(c, d, generator=g, device=dev)
-    cb = cent.to(torch.bfloat16)
-    out = {"shape": f"C={c} D={d}", "rows": {}}
-    for m in (1024, 8192, 65_536, 1_000_000,
-              c * PAPER_1M.list_capacity + 4096):
-        x = torch.randn(m, d, generator=g, device=dev)
-        xb = x.to(torch.bfloat16)
-        reps = 50 if m <= 65_536 else 10
-        row = {v: chip_smoke.queued_ms(
-            lambda v=v: ka.kmeans_assign(x, cent, _variant=v), reps)
-            for v in ka.VARIANTS}
-        row["torch.mm_bf16"] = chip_smoke.queued_ms(
-            lambda: torch.mm(xb, cb.t()), reps)
-        row["bound"], row["bound_by"] = chip_smoke.bound_ms(
-            4 * (m * d + c * d + 2 * m), 2 * m * c * d, chip_smoke.PEAK_BF16)
-        row["c_split"] = ka.c_split(m, c, sms)
-        out["rows"][m] = row
-        del x, xb
-        torch.cuda.empty_cache()
+    out = {"C": c, "depths": {}}
+    for d in (1024, 1280, 1408, 1536, 2048, 4096):
+        cent = torch.randn(c, d, generator=g, device=dev)
+        cb = cent.to(torch.bfloat16)
+        modes = [m for m in ka.MODES
+                 if m == "streamed" or ka.ring_stages(d) >= ka.MIN_STAGES]
+        rows = {}
+        for m in (32, 1024, 65_536, 1_000_000):
+            x = torch.randn(m, d, generator=g, device=dev)
+            xb = x.to(torch.bfloat16)
+            reps = 50 if m <= 65_536 else 5
+            calls = {f"wgmma_{mode}": (lambda mode=mode: ka.kmeans_assign(
+                x, cent, _variant="wgmma", _mode=mode)) for mode in modes}
+            calls["generic"] = lambda: ka.kmeans_assign(x, cent,
+                                                        _variant="generic")
+            calls["torch.mm_bf16"] = lambda: torch.mm(xb, cb.t())
+            row = chip_smoke.race(calls, reps)
+            row["wgmma"] = row[f"wgmma_{ka.wgmma_mode(d)}"]
+            row["bound"], row["bound_by"] = chip_smoke.bound_ms(
+                4 * (m * d + c * d + 2 * m), 2 * m * c * d,
+                chip_smoke.PEAK_BF16)
+            row["c_split"] = {mode: ka.c_split(m, c, sms, mode)
+                              for mode in modes}
+            rows[m] = row
+            del x, xb
+            torch.cuda.empty_cache()
+        out["depths"][d] = {"mode": ka.wgmma_mode(d), "rows": rows}
+        del cent, cb
     return out
 
 

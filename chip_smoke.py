@@ -115,6 +115,19 @@ Phases (any failure raises and the script exits non-zero):
    over a 32,768-slot cache), each dry-run and run on the card: the same
    dot FLOPs, the same argument bytes, the peak within 0.8-1.25 x the
    predicted, and the median step beside its roofline bound.
+16. mesh: the model placed on a (data, model) ``ShardMesh`` of the one
+   card by the reference's placements (``repro_torch.launch.mesh``,
+   ``models.specs.place_params``), its shards run one after another:
+   granite-3-2b in float32 on (2, 4), 8 shards (TP over 'model', FSDP over
+   'data'), prefill of 8 x 128 tokens and 8 decode steps within 2e-3 of
+   the unsharded model, the 'model' replicas bit-identical, each shard's
+   bytes as the placements predict; that placed model saved and restored
+   onto (4, 2) and onto ``remesh()`` over the live cards, every leaf
+   equal; granite-3-2b in bf16 on (1, 4) with phase 11a's workload and
+   checks beside the 1,000,000-row memory; olmoe-1b-7b expert-parallel on
+   (1, 4) (16 of 64 experts a shard), in float32 at 4 layers against the
+   unsharded model, then in bf16 at full depth for one turn over
+   PAPER_100K.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -4192,6 +4205,312 @@ def dry_cells(seed: int, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the (data, model) device mesh on the serving path
+# ---------------------------------------------------------------------------
+
+MESH_TP_FSDP = (2, 4)   # 16a: granite-3-2b f32, (data, model) on the card
+MESH_TP = (1, 4)        # 16b, 16c: 'model' only (olmoe: 16 of 64 experts)
+MESH_OTHER = (4, 2)     # 16d: the elastic restart's other factorization
+MESH_BATCH = 8          # 16a, 16c: requests of MESH_PROMPT tokens
+MESH_PROMPT = 128
+MESH_DECODE = 8         # 16a, 16c: decode steps against the unsharded run
+MOE_F32_LAYERS = 4      # 16c: olmoe in f32 cut to 4 of 16 layers (27.7 GB a
+#                         copy at full depth; the unsharded model is beside)
+
+
+def device_ops(fn):
+    """The device operations (kernels, copies) `fn` runs, counted by the
+    profiler; None when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def sync_cards() -> None:
+    """Wait for every card (a mesh may span several)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def mesh_decode(cfg, params, tokens, forced=None):
+    """Prefill `tokens` [B, S] (S_max S + MESH_DECODE), then MESH_DECODE
+    decode steps on `forced` tokens [B, MESH_DECODE] (default: the greedy
+    ones): (the logits of each step, whole, the tokens fed, ms a decode
+    step, the device ops of one decode step, the caches)."""
+    from repro_torch.models import lm
+    from repro_torch.serving import serve_step
+    b, s = tokens.shape
+    logits, caches, pos = lm.prefill(params, cfg, {"tokens": tokens},
+                                     s + MESH_DECODE)
+    out, fed, ms = [], [], []
+
+    def whole(t):
+        return t.full() if hasattr(t, "full") else t
+
+    for step in range(MESH_DECODE):
+        out.append(whole(logits).float())
+        tok = (forced[:, step: step + 1] if forced is not None else
+               serve_step.greedy(logits, cfg.vocab_size)[:, None])
+        fed.append(tok)
+        pos = pos + 1
+        sync_cards()
+        t0 = time.perf_counter()
+        logits, caches = lm.decode_step(params, cfg, tok, caches, pos)
+        sync_cards()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    out.append(whole(logits).float())
+    ops = device_ops(lambda: lm.decode_step(params, cfg, fed[-1], caches,
+                                            pos))
+    return out, torch.cat(fed, dim=1), ms, ops, caches
+
+
+def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
+    """`cfg` at full width from `seed`, unsharded and placed on a
+    `shape` (data, model) mesh (`devices` as `launch.mesh` takes them: by
+    default every shard on the card): prefill + MESH_DECODE steps
+    fed the unsharded run's greedy tokens, every step's logits within
+    SERVE_TOL; the 'model' replicas of each data block bit-identical
+    after the stack; each shard's parameter bytes exactly the
+    placements' prediction.  Returns (record, the placed model)."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import lm, sharding, specs
+    params, r = made_model(tag, cfg, seed)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT),
+                           generator=g, device="cuda", dtype=torch.int32)
+    want, fed, ms1, ops1, _ = mesh_decode(cfg, params, tokens)
+    if cfg.family == "moe":
+        with torch.no_grad():
+            _, aux1 = lm.forward_train(params, cfg, {"tokens": tokens})
+        r["aux_one_device"] = float(aux1)
+    mesh = lmesh.model_mesh(shape, ("data", "model"), devices)
+    t0 = time.perf_counter()
+    sp = specs.place_params(params, cfg, mesh)
+    sync_cards()
+    r["place_s"] = time.perf_counter() - t0
+    del params
+    release()
+    got, _, ms, ops, _ = mesh_decode(cfg, sp, tokens, fed)
+    r.update(arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+             mesh=lmesh.describe(mesh), shards=mesh.size, tol=SERVE_TOL,
+             steps=len(got), logit_scale=float(want[0].abs().max()),
+             max_abs_err=max(float((a - b).abs().max())
+                             for a, b in zip(got, want)),
+             decode_ms_one_device=float(np.median(ms1)),
+             decode_ms_mesh=float(np.median(ms)),
+             decode_device_ops_one_device=ops1, decode_device_ops_mesh=ops)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=SERVE_TOL, atol=SERVE_TOL)
+    # the replicas, and the aux loss of the placed MoE layers
+    xs, call = lm.embed_mesh(sp, cfg, tokens)
+    xs, _, aux = lm._run_stack_mesh(sp, xs, cfg, call, mode="prefill")
+    for grp in sharding.groups(mesh, ("model",)):
+        for i in grp[1:]:
+            if not torch.equal(xs[i].to(xs[grp[0]].device), xs[grp[0]]):
+                raise AssertionError(f"{tag}: shard {i}'s activations differ "
+                                     f"from shard {grp[0]}'s")
+    r["replicas_equal"] = True
+    r["expert_parallel"] = call.ep
+    if cfg.family == "moe":
+        # the load-balancing loss summed over the layers, as forward_train's
+        r["aux_mesh"] = float(aux)
+        if not (math.isfinite(r["aux_mesh"]) and abs(
+                r["aux_mesh"] - r["aux_one_device"]) <= SERVE_TOL * max(
+                1.0, abs(r["aux_one_device"]))):
+            raise AssertionError(f"{tag}: aux {r['aux_mesh']} vs the "
+                                 f"unsharded {r['aux_one_device']}")
+    del xs
+    sizes = sharding.axis_sizes(mesh)
+    want_b = [sum(specs.shard_bytes(math.prod(sp.shapes[k])
+                                    * sp.shards[i][k].element_size(), s,
+                                    sizes) for k, s in sp.specs.items())
+              for i in range(mesh.size)]
+    r["shard_bytes"] = [sp.nbytes(i) for i in range(mesh.size)]
+    if r["shard_bytes"] != want_b:
+        raise AssertionError(f"{tag}: shard bytes {r['shard_bytes']} != "
+                             f"the placements' {want_b}")
+    cards = len(set(mesh.devices))
+    r["cards"] = cards
+    print(f"  {tag} [{card}]: {cfg.name} {cfg.dtype} ({cfg.num_layers} "
+          f"layers) on {r['mesh']} ({mesh.size} shards on {cards} card(s); "
+          f"expert-parallel {call.ep}): {len(got)} steps' logits within "
+          f"{r['max_abs_err']:.3g} of the unsharded run's (tol {SERVE_TOL}; "
+          f"logits up to {r['logit_scale']:.1f}); 'model' replicas "
+          f"bit-identical; {r['shard_bytes'][0] / 1e9:.3f} GB a shard, as "
+          f"the placements predict; decode {r['decode_ms_mesh']:.2f} ms a "
+          f"step ({r['decode_device_ops_mesh']} device ops) vs "
+          f"{r['decode_ms_one_device']:.2f} ms "
+          f"({r['decode_device_ops_one_device']}) unsharded", flush=True)
+    return r, sp
+
+
+def phase_mesh(seed: int, card: str, served_11a=None) -> dict:
+    """The model side over a (data, model) mesh of the one card
+    (`repro_torch.launch.mesh`, the reference's placements, Megatron
+    tensor parallelism, olmoe's experts in parallel).  16a: granite-3-2b
+    at full width in float32 on a (2, 4) mesh (8 shards: TP over 'model',
+    FSDP over 'data'), prefill and 8 decode steps against the unsharded
+    port within SERVE_TOL, replicas bit-identical, shard bytes as
+    predicted.  16b: granite-3-2b in bf16 on a (1, 4) mesh beside the
+    1,000,000-row memory: phase 11a's workload and checks
+    (`serve_beside_paper_1m`).  16c: olmoe-1b-7b expert-parallel on (1,
+    4): float32 at 4 layers against the unsharded port, then bf16 at full
+    depth, one turn over a PAPER_100K memory.  16d: 16a's placed model
+    saved, restored onto (4, 2) and onto `remesh()` over the live cards,
+    every leaf equal."""
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_100K
+    from repro_torch.distributed import elastic
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import specs
+    from repro_torch.serving import rag
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    excluded = {}
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    granite = registry.get_arch(SERVE_ARCH)
+    mesh_tp = lmesh.model_mesh(MESH_TP, ("data", "model"), "cuda")
+
+    # -- 16a: granite-3-2b f32 on (2, 4) --------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    a, sp = mesh_against_one("16a", granite.replace(dtype="float32"), seed,
+                             g, MESH_TP_FSDP, card)
+    a["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["16a"] = a
+
+    # -- 16d: save 16a's placed model, restore it onto other meshes -----
+    d = {}
+    cfg32 = granite.replace(dtype="float32")
+    tree = specs.param_shardings(cfg32, sp.mesh)
+    placed = {k: sp.placed(k) for k in sp.specs}
+
+    def fill(node, path=()):
+        return {k: fill(v, path + (k,)) if isinstance(v, dict) else
+                placed[".".join(path + (k,))] for k, v in node.items()}
+
+    tree = fill(tree)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ckpt.save(0, tree)
+        d["save_s"] = time.perf_counter() - t0
+        d["GB"] = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(tmp) for f in fs) / 1e9
+        for name, mesh in (("other", lmesh.model_mesh(
+                MESH_OTHER, ("data", "model"), "cuda")),
+                           ("remesh", elastic.remesh())):
+            t0 = time.perf_counter()
+            back = elastic.reshard_restore(ckpt, tree, mesh, cfg32, step=0)
+            torch.cuda.synchronize()
+            d[f"restore_{name}_s"] = time.perf_counter() - t0
+            d[f"mesh_{name}"] = lmesh.describe(mesh)
+            for k in sp.specs:
+                if not torch.equal(back.placed(k).full(), placed[k].full()):
+                    raise AssertionError(f"16d {name}: {k} changed")
+            d[f"leaves_{name}"] = len(sp.specs)
+            del back
+            release()
+    del sp, placed, tree
+    release()
+    out["16d"] = d
+    print(f"  16d [{card}]: 16a's placed model saved ({d['GB']:.2f} GB, "
+          f"{d['save_s']:.2f} s), restored onto {d['mesh_other']} "
+          f"({d['restore_other_s']:.2f} s) and onto remesh() = "
+          f"{d['mesh_remesh']} over the live cards "
+          f"({d['restore_remesh_s']:.2f} s): all {d['leaves_other']} leaves "
+          "torch.equal", flush=True)
+
+    # -- 16b: granite-3-2b bf16 on (1, 4) beside the 1M-row memory -------
+    torch.cuda.reset_peak_memory_stats()
+    params, b = made_model("16b", granite, seed)
+    sp = specs.place_params(params, granite, mesh_tp)
+    del params
+    release()
+    b.update(serve_beside_paper_1m("16b", granite, sp, seed, g, kernels,
+                                   excluded))
+    b["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    b["mesh"], b["shards"] = lmesh.describe(mesh_tp), mesh_tp.size
+    del sp
+    release()
+    out["16b"] = b
+    print_served("16b", card, granite, b, f"on {b['mesh']} ({b['shards']} "
+                 f"shards on the card) beside {N_ROWS:,} rows at dim "
+                 f"{b['dim']}")
+    if served_11a is not None:
+        print_served("  (11a, one device)", card, granite, served_11a,
+                     f"beside {N_ROWS:,} rows")
+
+    # -- 16c: olmoe-1b-7b expert-parallel on (1, 4) ----------------------
+    olmoe = registry.get_arch(FAMILY_ARCH)
+    c, sp = mesh_against_one(
+        "16c", olmoe.replace(dtype="float32", num_layers=MOE_F32_LAYERS),
+        seed, g, MESH_TP, card)
+    if not c["expert_parallel"]:
+        raise AssertionError("16c: the experts did not run expert-parallel")
+    c["experts_a_shard"] = olmoe.num_experts // MESH_TP[1]
+    del sp
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    params, e = made_model("16c", olmoe, seed)
+    sp = specs.place_params(params, olmoe, mesh_tp)
+    del params
+    release()
+    ecfg = dataclasses.replace(PAPER_100K, k=SERVE_MEM_K)
+    x = make_corpus(PROJ_ROWS, ecfg.dim, g)
+    svc, coll, _ = srv.build_memory(ecfg, x, device=dev, name="mesh")
+    del x
+    try:
+        step = rag.make_rag_prefill(olmoe, ecfg, SERVE_PROMPT + 10,
+                                    k=SERVE_MEM_K, device=dev)
+        margins = []
+
+        def on_turn(turn, snap, batch, ids):
+            e["score_err"] = check_retrieval(
+                "16c", snap, step.query(sp, batch["tokens"]), ids, ecfg,
+                margins, kernels, excluded)
+
+        served = srv.serve(olmoe, ecfg, sp, svc, coll,
+                           requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                           decode_steps=SERVE_DECODE, turns=1,
+                           inserts=torch.nn.functional.normalize(
+                               torch.randn(FAMILY_INSERTS, ecfg.dim,
+                                           generator=g, device=dev), dim=1),
+                           seed=seed + 3, on_turn=on_turn)
+        if not torch.equal(live_ids(coll), torch.arange(
+                PROJ_ROWS + FAMILY_INSERTS, dtype=torch.int32, device=dev)):
+            raise AssertionError("16c: acknowledged inserts are not all live")
+        check_tokens("16c", served, olmoe)
+        if "score_err" not in e:
+            raise AssertionError("16c: no retrieval checked")
+        e.update(served_numbers(served), min_topk_margin=min(margins),
+                 peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+    finally:
+        srv.close(svc)
+    del svc, coll, sp, step, on_turn
+    release()
+    c["bf16_full_depth"] = e
+    out["16c"] = c
+    print_served("16c", card, olmoe, e, f"expert-parallel on "
+                 f"{lmesh.describe(mesh_tp)} ({c['experts_a_shard']} of "
+                 f"{olmoe.num_experts} experts a shard) over PAPER_100K (dim "
+                 f"{ecfg.dim}, projected)")
+
+    out.update(path_launches(kernels, excluded))
+    for k in ("scan_scores", "kmeans_assign", "segsum_gemm"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"phase 16 never launched {k}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4313,6 +4632,13 @@ def main(argv=None) -> int:
     paths["dryrun"] = dry = phase_dryrun(args.seed, card)
     print(f"phase 15: dry run in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(dry), flush=True)
+    release()
+    # 16. the (data, model) mesh on the serving path (after phase 15's
+    # memory is freed), the counts set to 0 just before
+    t0 = time.perf_counter()
+    paths["mesh"] = msh = phase_mesh(args.seed, card, sv["11a"])
+    print(f"phase 16: mesh in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(msh), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -11,8 +11,9 @@ Leaves are numbered in the order ``jax.tree.flatten`` gives the same tree —
 a dict's keys sorted, a list's or tuple's items in order, ``None`` no leaf —
 so each package restores the other's checkpoints.  `save_async` snapshots
 the tensors to the host, then writes on a background thread; ``keep_n``
-garbage-collects old steps.  `restore` rebuilds the tree, as numpy arrays or
-as tensors on a given device.
+garbage-collects old steps.  `restore` rebuilds the tree, as numpy arrays,
+as tensors on a given device, or placed on a mesh (``shardings=``: each
+full array cut onto its shards, a `repro_torch.models.sharding.Placed`).
 """
 from __future__ import annotations
 
@@ -60,7 +61,10 @@ def _unflatten(like: Any, leaves) -> Any:
 def _host(leaf: Any, copy: bool = False) -> np.ndarray:
     """`leaf` as a host array; with `copy`, one that shares no memory with
     it (``.cpu()`` of a host tensor and ``np.asarray`` of an array return
-    the same memory, which the caller may go on changing in place)."""
+    the same memory, which the caller may go on changing in place).  A
+    leaf placed on a mesh is saved whole."""
+    if hasattr(leaf, "full"):                    # a sharding.Placed
+        return leaf.full("cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if copy and t.device == leaf.device:
@@ -151,9 +155,12 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device: DeviceLike = None) -> Any:
-        """Restore into the structure of `tree_like`: numpy leaves, or
-        tensors on `device` when one is given."""
+                device: DeviceLike = None, shardings: Any = None) -> Any:
+        """Restore into the structure of `tree_like`: numpy leaves, tensors
+        on `device` when one is given, or with `shardings` (a tree of the
+        same structure whose leaves are
+        `repro_torch.models.sharding.NamedSharding`s) each full array
+        placed on its mesh."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(
@@ -168,6 +175,14 @@ class Checkpointer:
             raise ValueError(f"checkpoint has {len(leaves_meta)} leaves, "
                              f"target structure {len(target)}")
         arrs = (np.load(os.path.join(path, m["file"])) for m in leaves_meta)
-        if device is not None:
+        if shardings is not None:
+            places: List[Any] = []
+            _flatten(shardings, places)
+            if len(places) != len(target):
+                raise ValueError(f"{len(places)} shardings for "
+                                 f"{len(target)} leaves")
+            arrs = (sh.place(torch.from_numpy(a))
+                    for a, sh in zip(arrs, places))
+        elif device is not None:
             arrs = (torch.from_numpy(a).to(device) for a in arrs)
         return _unflatten(tree_like, arrs)

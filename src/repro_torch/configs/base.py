@@ -159,6 +159,37 @@ LONG_500K = ShapeConfig("long_500k", "decode", 524_288, 1)
 SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
+# ---------------------------------------------------------------------------
+# Mesh / distribution
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    multi_pod: bool = False
+    # axis sizes: fixed by the production spec
+    pods: int = 2
+    data: int = 16
+    model: int = 16
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.pods, self.data, self.model) if self.multi_pod else (self.data, self.model)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("pod", "data", "model") if self.multi_pod else ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = self.data * self.model
+        return n * self.pods if self.multi_pod else n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """Axes that batch (DP/FSDP) shards over."""
+        return ("pod", "data") if self.multi_pod else ("data",)
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 3e-4

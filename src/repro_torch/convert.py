@@ -19,7 +19,9 @@ experts' ``mlp.*``, rwkv6's and mamba2's flat leaves — zamba2's
 unstacked ``shared_attn``, and the enc-dec family's ``enc_blocks`` and
 ``dec_blocks`` (with ``ln_cross`` and ``cross``), each stacked over its
 own depth, and ``enc_final_norm``); `lm_params_from_numpy` / `lm_params_to_numpy`
-move it onto the port's modules and back.  Weight matrices are cast to
+move it onto the port's modules and back, and `lm_params_to_mesh` cuts it
+straight onto a mesh (`repro_torch.models.specs.ShardedLM`) without
+building the whole model on a device.  Weight matrices are cast to
 ``cfg.dtype`` once on the way in (bit-equal to the reference's cast at
 every use); vectors and rwkv6's bonus ``u`` stay f32, as the reference
 uses them.
@@ -34,7 +36,7 @@ from repro_torch.core.distributed import ShardMesh, assemble_host, \
 from repro_torch.core.index import IVFState
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, specs
 
 
 def ivf_state_from_numpy(state, device: DeviceLike = None) -> IVFState:
@@ -87,15 +89,11 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", value
 
 
-def lm_params_from_numpy(cfg: ModelConfig, tree,
-                         device: DeviceLike = None) -> lm.LM:
-    """The port's model on `device` from the reference's params pytree of
-    host arrays (``jax.device_get(lm.init_params(key, cfg))``): every leaf
-    copied into its parameter (block leaves unstacked along their layer
-    axis), matrices cast to ``cfg.dtype``.  Every parameter must be set."""
-    model = lm.LM(cfg, device=resolve_device(device))
-    params = dict(model.named_parameters())
-    todo = set(params)
+def _port_leaves(cfg: ModelConfig, tree, want: dict):
+    """(parameter name, host array) of every leaf of the reference's params
+    tree, block leaves unstacked along their layer axis, each checked
+    against `want`'s {name: shape}; every parameter must be set."""
+    todo = set(want)
     stacks = _stacks(cfg)
     for key, value in _flatten(tree):
         value = np.asarray(value)
@@ -109,17 +107,40 @@ def lm_params_from_numpy(cfg: ModelConfig, tree,
         else:
             pairs = [(key, value)]
         for name, arr in pairs:
-            if name not in params:
+            if name not in want:
                 raise KeyError(f"the port's model has no parameter {name!r}")
-            p = params[name]
-            if tuple(arr.shape) != tuple(p.shape):
+            if tuple(arr.shape) != tuple(want[name]):
                 raise ValueError(f"{name}: shape {arr.shape} != the port's "
-                                 f"{tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+                                 f"{tuple(want[name])}")
             todo.discard(name)
+            yield name, arr
     if todo:
         raise KeyError(f"leaves missing from the tree: {sorted(todo)}")
+
+
+def lm_params_from_numpy(cfg: ModelConfig, tree,
+                         device: DeviceLike = None) -> lm.LM:
+    """The port's model on `device` from the reference's params pytree of
+    host arrays (``jax.device_get(lm.init_params(key, cfg))``): every leaf
+    copied into its parameter (block leaves unstacked along their layer
+    axis), matrices cast to ``cfg.dtype``.  Every parameter must be set."""
+    model = lm.LM(cfg, device=resolve_device(device))
+    params = dict(model.named_parameters())
+    for name, arr in _port_leaves(cfg, tree, {n: p.shape for n, p in
+                                              params.items()}):
+        params[name].copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
     return model
+
+
+def lm_params_to_mesh(cfg: ModelConfig, tree,
+                      mesh: ShardMesh) -> "specs.ShardedLM":
+    """The reference's params pytree of host arrays cut straight onto
+    `mesh` by the reference's placements (`specs.place_tree`), each leaf
+    in the dtype the port's model holds it in: the whole model is never on
+    a device."""
+    return specs.place_tree(cfg, {
+        key: torch.from_numpy(np.array(value, dtype=np.float32))
+        for key, value in _flatten(tree)}, mesh)
 
 
 def lm_params_to_numpy(model: lm.LM) -> dict:

@@ -1,7 +1,7 @@
 """Serving entry point of the port: batched RAG generation with the agentic memory.
 
     python -m repro_torch.launch.serve --arch granite-3-2b --requests 8 \\
-        [--device cpu]
+        [--device cpu] [--production-mesh]
 
 The counterpart of ``src/repro/launch/serve.py``, with its flags and
 defaults: build an IVF memory over a synthetic corpus, accept a batch of
@@ -10,15 +10,19 @@ fused full scan), splice them into the prompt as a soft-prefix embedding,
 prefill, then decode N tokens from the KV cache, while concurrent inserts
 run through the windowed scheduler (the paper's query-update hybrid
 template).  On the card the Hopper kernels run; with ``--device cpu`` their
-plain versions do.  The reference's ``--production-mesh`` has no
-counterpart on one card.
+plain versions do.  ``--production-mesh`` serves the model placed on the
+reference's 16 x 16 (data, model) mesh (`repro_torch.launch.mesh`): 256
+cards, or with ``--device`` all 256 shards on that one device; the memory
+stays one collection on its own device.
 
 Every decoder-only family serves (dense, MoE, VLM, SSM, hybrid); the
 enc-dec arch is refused, as the reference refuses it
 (``repro_torch.serving.serve_step.generate`` serves it without the memory).  `build_memory` and
 `serve` are the body of `main`, callable at any width (``chip_smoke.py``
 phases 11 and 12 serve granite-3-2b, olmoe-1b-7b, deepseek-moe-16b,
-qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b at full width through them).
+qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b at full width through them, and
+phase 16 granite-3-2b and olmoe-1b-7b placed on a (data, model) mesh of
+the one card).
 """
 from __future__ import annotations
 
@@ -32,19 +36,24 @@ import torch
 from repro_torch.api import MemoryOp, MemoryService
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig, ModelConfig
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.core.scheduler import WindowedScheduler
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import api, lm
+from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.models import api, lm, specs
 from repro_torch.serving import rag, serve_step
 
 INSERT_CHUNK = 32        # rows a concurrent insert op carries
 
 
 def build_memory(ecfg: EngineConfig, corpus, *, device: DeviceLike = None,
-                 name: str = "serve"):
+                 name: str = "serve", mesh: Optional[ShardMesh] = None):
     """A `MemoryService` on its own windowed scheduler, one collection
-    `name` built over `corpus`.  Returns (service, collection, build stats);
+    `name` built over `corpus`, on `device` (with a model `mesh` and no
+    device: its shard 0's).  Returns (service, collection, build stats);
     shut the service and its scheduler down with `close`."""
+    if device is None and mesh is not None:
+        device = mesh.devices[0]
     sched = WindowedScheduler(window=ecfg.window)
     svc = MemoryService(scheduler=sched, device=device)
     memory = svc.create_collection(name, ecfg)
@@ -58,16 +67,18 @@ def close(svc: MemoryService) -> None:
     sched.shutdown()
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(*devs: torch.device) -> None:
+    for dev in set(devs):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def serve(cfg: ModelConfig, ecfg: EngineConfig, params: lm.LM,
           svc: MemoryService, memory, *, requests: int = 8,
           prompt_len: int = 64, decode_steps: int = 16, turns: int = 1,
           inserts=None, insert_queries: bool = False, seed: int = 0,
-          on_turn: Optional[Callable] = None) -> dict:
+          on_turn: Optional[Callable] = None,
+          mesh: Optional[ShardMesh] = None) -> dict:
     """`turns` batches of `requests` prompts of `prompt_len` tokens through
     the RAG prefill (the top ``ecfg.k`` memories) and `decode_steps`
     greedy tokens each, on the service's device.  `inserts` (rows) go in
@@ -81,8 +92,15 @@ def serve(cfg: ModelConfig, ecfg: EngineConfig, params: lm.LM,
     Returns per-turn ids, tokens and times (prefill ms = time to first
     token, decode ms per step), tok/s, each insert's ms on its worker, and
     `inserts`' rows/s from their submission to the last acknowledgement
-    (they run while the first turn is served)."""
+    (they run while the first turn is served).
+
+    With a `mesh` (or `params` already placed, a `specs.ShardedLM`) the
+    model runs over the mesh; the memory stays on the service's device."""
     dev = svc.device
+    if mesh is not None and not isinstance(params, specs.ShardedLM):
+        params = specs.place_params(params, cfg, mesh)
+    devs = (dev, *(params.mesh.devices
+                   if isinstance(params, specs.ShardedLM) else ()))
     s_max = prompt_len + decode_steps + 1
     prefill = rag.make_rag_prefill(cfg, ecfg, s_max, k=ecfg.k, device=dev)
     decode = serve_step.make_decode(cfg)
@@ -102,22 +120,22 @@ def serve(cfg: ModelConfig, ecfg: EngineConfig, params: lm.LM,
     for turn in range(turns):
         batch = api.synth_batch(gen, cfg, "prefill", requests, prompt_len)
         snap = memory.snapshot()
-        _sync(dev)
+        _sync(*devs)
         t0 = time.perf_counter()
         logits, caches, pos, mem_ids = prefill(params, snap, batch)
         tok = serve_step.greedy(logits, cfg.vocab_size)[:, None]
-        _sync(dev)
+        _sync(*devs)
         t1 = time.perf_counter()
         toks = [tok]
         for _ in range(decode_steps - 1):
             pos = pos + 1
             ts = time.perf_counter()
             tok, caches = decode(params, tok, caches, pos)
-            _sync(dev)
+            _sync(*devs)
             out["decode_ms"].append(1e3 * (time.perf_counter() - ts))
             toks.append(tok)
         seq = torch.cat(toks, dim=1)
-        _sync(dev)
+        _sync(*devs)
         t_serve += time.perf_counter() - t0
         out["prefill_ms"].append(1e3 * (t1 - t0))
         out["turns"].append({"ids": mem_ids.cpu().numpy(),
@@ -161,6 +179,9 @@ def main(argv=None):
     ap.add_argument("--corpus", type=int, default=4096)
     ap.add_argument("--mem-k", type=int, default=4)
     ap.add_argument("--concurrent-inserts", type=int, default=256)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the model on the 16 x 16 (data, model) mesh: 256 "
+                    "cards, or every shard on --device")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
@@ -173,9 +194,14 @@ def main(argv=None):
                          "enc-dec family without the memory")
     ecfg = EngineConfig(dim=cfg.d_model, n_clusters=128, list_capacity=64,
                         nprobe=16, k=args.mem_k)
-    dev = resolve_device(args.device)
+    mesh = (make_production_mesh(devices=args.device)
+            if args.production_mesh else None)
+    dev = mesh.devices[0] if mesh is not None else resolve_device(args.device)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(args.seed),
                             cfg)
+    if mesh is not None:
+        params = specs.place_params(params, cfg, mesh)
+        print(f"model placed on the mesh {describe(mesh)}")
 
     # ---- agentic memory: build + concurrent inserts via the scheduler ----
     corpus = np.random.default_rng(args.seed).standard_normal(

@@ -6,9 +6,10 @@ defaults: a reduced config (``--reduced``, the default) or the full one
 (``--full``), a synthetic corpus unless ``--data-dir`` names uint32 token
 shards, and the fault-tolerant `Trainer` (checkpoint/restart, preemption,
 straggler monitor) always on.  It trains on the CUDA card unless
-``--device`` names another.  The reference's ``--production-mesh``,
-``--multi-pod`` and ``--multihost`` build a JAX mesh or a multi-host
-runtime and have no counterpart on one card.
+``--device`` names another.  The reference's ``--production-mesh`` and
+``--multi-pod`` (training over the device mesh, which the port's
+`repro_torch.launch.mesh` builds for serving) and ``--multihost`` (a
+multi-host runtime) are not ported yet.
 """
 from __future__ import annotations
 

@@ -13,18 +13,23 @@ take operands upcast to f32 (exact for bf16 values) and sum in f32, and
 ``p`` is rounded to the cache dtype first, as in the reference.
 
 Decode writes the new token's K/V rows in place into the stacked caches
-(the reference donates them).  One card: the reference's ``shard`` calls
-(no-ops without a mesh) have no counterpart.
+(the reference donates them).
+
+Sharding: on a mesh each 'model' shard runs these functions on its own
+q heads (``wq``/``wo`` cut over heads), and on its own kv heads when they
+divide over the axis; otherwise it holds every kv head (its cache too)
+and attends with the ones its q heads group onto (`local_kv_heads`).
+`KVCache.shardit` places a whole cache by the same policy.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 
 NEG_INF = -1e30
 
@@ -32,6 +37,41 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor        # [B, S_max, KVH, Dh] (stacked: [L, B, ...])
     v: torch.Tensor
+
+    def shardit(self) -> "KVCache":
+        """The cache placed on the current mesh (`sharding.Placed` K and V;
+        itself without a mesh): kv heads over 'model' when they divide,
+        the batch over the data axes when it divides.  Where the reference
+        falls back to the sequence axis (kv heads that do not divide: over
+        'model'; a batch that does not: over the data axes) the port
+        replicates instead: a placement, not a different result."""
+        mesh = sharding.current_mesh()
+        if mesh is None:
+            return self
+        spec = kv_placement(mesh, self.k.shape)
+        return KVCache(k=sharding.place(self.k, spec, mesh),
+                       v=sharding.place(self.v, spec, mesh))
+
+
+def kv_placement(mesh, shape) -> sharding.Placement:
+    """`KVCache.shardit`'s placement of a cache [L?, B, S, KVH, Dh]."""
+    off = len(shape) - 4
+    return (None,) * off + sharding.placement(
+        shape[off:], "batch", None, "model", None, mesh=mesh)
+
+
+def local_kv_heads(heads: int, kv_heads: int, shard: int,
+                   shards: int) -> slice:
+    """The kv heads that model shard `shard` of `shards` attends with when
+    it holds its block of the q heads and every kv head."""
+    hl = heads // shards
+    q0, g = shard * hl, heads // kv_heads
+    if hl % g == 0:
+        return slice(q0 // g, (q0 + hl) // g)
+    if g % hl == 0:
+        return slice(q0 // g, q0 // g + 1)
+    raise ValueError(f"{hl} q heads a shard do not group onto kv heads "
+                     f"({heads} over {kv_heads})")
 
 
 # ---------------------------------------------------------------------------
@@ -176,12 +216,19 @@ def cache_update(cache: KVCache, k_new, v_new, pos) -> KVCache:
 # block-level entry point
 # ---------------------------------------------------------------------------
 
+def _heads(t, sel: Optional[slice]):
+    return t if sel is None else t[:, :, sel]
+
+
 def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
                    positions=None, mrope_pos=None, cache: KVCache = None,
                    pos=None, window: int = 0, chunk: int = 1024,
-                   causal: bool = True):
+                   causal: bool = True, kv_heads: Optional[slice] = None):
     """mode: 'train' | 'prefill' | 'decode'.  `mrope_pos` [B,S,3] (with
     ``cfg.mrope_sections``) rotates by M-RoPE in place of `positions`.
+    `kv_heads`: the kv heads to attend with, of those `p` projects (a
+    model shard that holds every kv head; `local_kv_heads`); the cache
+    keeps them all.
 
     prefill returns (out, KVCache of the whole prompt); decode writes the
     new token into `cache` at per-row `pos` and returns (out, cache).
@@ -189,14 +236,17 @@ def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
     softcap = cfg.attn_logit_softcap
     q, k, v = _project_qkv(p, x, cfg, positions, mrope_pos)
     if mode in ("train", "prefill"):
-        o = flash_attention(q, k, v, causal=causal, window=window,
-                            softcap=softcap, chunk=chunk)
+        o = flash_attention(q, _heads(k, kv_heads), _heads(v, kv_heads),
+                            causal=causal, window=window, softcap=softcap,
+                            chunk=chunk)
         return _out_proj(p, o), (KVCache(k=k, v=v) if mode == "prefill"
                                  else None)
     if mode != "decode" or cache is None or pos is None:
         raise ValueError(f"mode {mode!r} needs a cache and pos to decode")
     cache = cache_update(cache, k, v, pos)
-    o = decode_attention(q, cache, pos, window=window, softcap=softcap)
+    o = decode_attention(q, KVCache(_heads(cache.k, kv_heads),
+                                    _heads(cache.v, kv_heads)), pos,
+                         window=window, softcap=softcap)
     return _out_proj(p, o), cache
 
 

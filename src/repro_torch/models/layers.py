@@ -11,7 +11,7 @@ the activations' dtype.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -131,10 +131,17 @@ class MLP(nn.Module):
                                                   device=device)))
 
     def forward(self, x, act: str):
-        h = x @ self.wi.to(x.dtype)
-        u = x @ self.wu.to(x.dtype)
-        h = (gelu(h) if act == "gelu" else silu(h)) * u
-        return h @ self.wo.to(x.dtype)
+        return mlp_apply(self, x, act)
+
+
+def mlp_apply(p, x, act: str):
+    """The gated MLP of any holder of wi/wu/wo.  With the hidden cut over
+    'model' (wi/wu by columns, wo by rows: Megatron's column- and
+    row-parallel pair) it gives the shard's partial sum of the output."""
+    h = x @ p.wi.to(x.dtype)
+    u = x @ p.wu.to(x.dtype)
+    h = (gelu(h) if act == "gelu" else silu(h)) * u
+    return h @ p.wo.to(x.dtype)
 
 
 def mlp_specs():
@@ -168,9 +175,28 @@ class Head(nn.Module):
 
 
 def embed_apply(p: Embed, tokens, cfg: ModelConfig):
+    return embed_finish(embed_rows(p.table, tokens), cfg)
+
+
+def embed_rows(table, tokens, v0: Optional[int] = None):
+    """The table's rows for `tokens`.  With `v0`, `table` is a vocab shard
+    (rows v0.. of the whole table): tokens outside it give zeros, which the
+    sum over the shards fills in exactly."""
+    if v0 is None:
+        return table.index_select(0, tokens.reshape(-1)).view(
+            *tokens.shape, -1)
+    local = tokens.long() - v0
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = table.index_select(0, local.clamp(0, table.shape[0] - 1)
+                              .reshape(-1)).view(*tokens.shape, -1)
+    return torch.where(inside[..., None], rows, 0)
+
+
+def embed_finish(x, cfg: ModelConfig):
+    """Looked-up rows in the activations' dtype, scaled by sqrt(d_model)
+    where the arch does."""
     dt = _dtype(cfg)
-    x = p.table.index_select(0, tokens.reshape(-1)).view(
-        *tokens.shape, -1).to(dt)
+    x = x.to(dt)
     if cfg.emb_scale:
         # sqrt(d_model) in f32, then in the activations' dtype
         s = torch.tensor(math.sqrt(float(cfg.d_model)), dtype=torch.float32)

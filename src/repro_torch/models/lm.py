@@ -24,19 +24,32 @@ master=True)`` holds the matrices in f32 for the trainer.
 Head padding: when num_heads doesn't divide the model axis (qwen2-vl: 28),
 q-heads are padded up to the next multiple of 16, so parameter shapes
 match the reference's leaf for leaf.
+
+Over a mesh: `prefill` and `decode_step` take a model placed by
+`specs.place_params` (`specs.ShardedLM`) for the dense and MoE families.
+One process drives every shard, one after another (on several cards their
+launches overlap).  The batch splits over the data axes where it divides;
+each shard gathers a layer's FSDP pieces over 'data' once a call, then
+runs Megatron-style tensor parallelism over 'model': the embedding by
+vocab rows, column-parallel q/k/v and gate/up, row-parallel out/down, one
+`sharding.all_sum` over 'model' a sub-block, the MoE experts over 'model'
+(`moe.moe_apply_sharded`), logits by vocab columns.  The logits come back
+as a `sharding.Placed` ([B, Vp], vocab over 'model'), the caches as
+placed K/V (`attention.KVCache.shardit`'s policy), the positions whole.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import ShardMesh
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, mamba2, moe, rwkv6
+from repro_torch.models import layers, mamba2, moe, rwkv6, sharding, specs
 from repro_torch.models.attention import KVCache
 
 TP = 16  # model-axis width the head padding targets
@@ -495,6 +508,230 @@ def _decode_stack(params: LM, cfg: ModelConfig, x, enc_out, *, mode: str,
 
 
 # ===========================================================================
+# over a mesh (the dense and MoE families)
+# ===========================================================================
+
+_MESH_FAMILIES = ("dense", "moe")
+
+
+def mesh_of(params, cfg: ModelConfig) -> Optional[ShardMesh]:
+    """The mesh a call runs on: a placed model's own (the active mesh, if
+    any, must be it), else None.  A model on one device is refused under a
+    mesh: `specs.place_params` places it."""
+    mesh = sharding.current_mesh()
+    if not isinstance(params, specs.ShardedLM):
+        if mesh is not None:
+            raise ValueError("a mesh is active and the model is on one "
+                             "device; place it with "
+                             "repro_torch.models.specs.place_params")
+        return None
+    if mesh is not None and mesh != params.mesh:
+        raise ValueError("the model is placed on another mesh than the "
+                         "active one")
+    if cfg.family not in _MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run on a mesh "
+            "yet (the dense and MoE families do; the VLM, SSM, hybrid and "
+            "enc-dec families come with a later slice of the mesh)")
+    return params.mesh
+
+
+class MeshCall(NamedTuple):
+    """One call's layout on the mesh."""
+    mesh: ShardMesh
+    batch: int              # the whole batch
+    batch_entry: object     # the batch dim's placement (None: replicated)
+    batch_split: bool       # the batch divides over the data axes
+    attn_tp: bool           # q heads (and wo) cut over 'model'
+    kv_heads: tuple         # per shard: the kv heads it attends with
+    kv_local: int           # kv heads a shard holds
+    mlp_tp: bool            # the dense MLP's hidden cut over 'model'
+    ep: bool                # the MoE experts run expert-parallel
+    shared_tp: bool         # deepseek's shared experts cut over 'model'
+    emb: list               # per shard: the embedding table, gathered
+
+
+def _mesh_call(sp: specs.ShardedLM, cfg: ModelConfig, b: int) -> MeshCall:
+    mesh = sp.mesh
+    sizes = sharding.axis_sizes(mesh)
+    m = sizes.get("model", 1)
+    dp = math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
+    entry = sharding.placement((b,), "batch", mesh=mesh)[0]
+    attn_tp = sp.tp_split("blocks.attn.wq", 1)
+    kv_split = sp.tp_split("blocks.attn.wk", 1)
+    kv_heads = [None] * mesh.size
+    if attn_tp and not kv_split:
+        kv_heads = [attn.local_kv_heads(heads_padded(cfg), cfg.num_kv_heads,
+                                        sharding.coords(mesh, i)["model"], m)
+                    for i in range(mesh.size)]
+    moe_fam = cfg.family == "moe"
+    # the reference's shard_map branch: model > 1, b % dp == 0, E % model
+    ep = moe_fam and m > 1 and b % dp == 0 and sp.tp_split(
+        "blocks.mlp.wi", 0)
+    shared = moe_fam and cfg.num_shared_experts > 0
+    return MeshCall(
+        mesh=mesh, batch=b, batch_entry=entry, batch_split=b % dp == 0,
+        attn_tp=attn_tp, kv_heads=tuple(kv_heads),
+        kv_local=cfg.num_kv_heads // (m if kv_split else 1),
+        mlp_tp=not moe_fam and sp.tp_split("blocks.mlp.wi", 1),
+        ep=ep, shared_tp=ep and shared and sp.tp_split(
+            "blocks.mlp.shared.wi", 1),
+        emb=sp.gathered("embed."))
+
+
+def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens):
+    """The tokens [B, S] embedded on the mesh: (per shard its data block's
+    embeddings [B_l, S, D], the call's layout).  A vocab-cut table looks up
+    its own rows and the sum over 'model' fills in the rest exactly."""
+    call = _mesh_call(sp, cfg, tokens.shape[0])
+    mesh = sp.mesh
+    parts = sharding.place(tokens, (call.batch_entry, None), mesh).parts
+    split = sp.tp_split("embed.table", 0)
+    rows = []
+    for i, (e, t) in enumerate(zip(call.emb, parts)):
+        v0 = (sharding.local_slices(sp.shapes["embed.table"],
+                                    sp.tp["embed.table"], mesh, i)[0].start
+              if split else None)
+        rows.append(layers.embed_rows(e.table, t, v0))
+    if split:
+        rows = sharding.all_sum(rows, mesh, "model")
+    return [layers.embed_finish(r, cfg) for r in rows], call
+
+
+def _block_mesh(bl, xs, cfg: ModelConfig, call: MeshCall, *, mode: str,
+                window: int, positions, kvs, layer: int, pos):
+    """One dense/MoE layer on every shard: `bl` per shard the layer's
+    leaves (FSDP gathered), `xs` per shard its data block's activations.
+    Prefill writes each shard's K/V into `kvs`; decode writes the token's
+    rows there in place.  Returns (xs, aux)."""
+    mesh = call.mesh
+
+    def norm(t, w):
+        return layers.rms_norm(t, w, cfg.norm_eps, gemma_style=True)
+
+    def tp_sum(parts, cut: bool):
+        return sharding.all_sum(parts, mesh, "model") if cut else parts
+
+    hs = [norm(x, b.ln_attn) for x, b in zip(xs, bl)]
+    outs = []
+    for i, (b, h) in enumerate(zip(bl, hs)):
+        cache = (KVCache(kvs[i].k[layer], kvs[i].v[layer])
+                 if mode == "decode" else None)
+        o, kv = attn.self_attention(
+            b.attn, h, _acfg(cfg), mode=mode, positions=positions[i],
+            cache=cache, pos=None if pos is None else pos[i], window=window,
+            kv_heads=call.kv_heads[i])
+        if mode == "prefill":
+            kvs[i].k[layer, :, :h.shape[1]] = kv.k
+            kvs[i].v[layer, :, :h.shape[1]] = kv.v
+        outs.append(o)
+    outs = tp_sum(outs, call.attn_tp)
+    if cfg.post_norm:
+        outs = [norm(o, b.ln_attn_post) for o, b in zip(outs, bl)]
+    if cfg.parallel_block:
+        ms = tp_sum([layers.mlp_apply(b.mlp, h, cfg.act)
+                     for b, h in zip(bl, hs)], call.mlp_tp)
+        return [x + a + m for x, a, m in zip(xs, outs, ms)], None
+    pairs = [_add_norm(x, a, b.ln_mlp, cfg, gemma_style=True)
+             for x, a, b in zip(xs, outs, bl)]
+    xs, h2s = [p[0] for p in pairs], [p[1] for p in pairs]
+    aux = None
+    if cfg.family == "moe":
+        ms, aux = moe.moe_apply_sharded(
+            [b.mlp for b in bl], h2s, cfg, mesh, ep=call.ep,
+            batch_split=call.batch_split, shared_tp=call.shared_tp)
+    else:
+        ms = tp_sum([layers.mlp_apply(b.mlp, h, cfg.act)
+                     for b, h in zip(bl, h2s)], call.mlp_tp)
+    if cfg.post_norm:
+        ms = [norm(m, b.ln_mlp_post) for m, b in zip(ms, bl)]
+    return [x + m for x, m in zip(xs, ms)], aux
+
+
+def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
+                    call: MeshCall, *, mode: str, kvs=None, pos=None,
+                    s_max: int = 0):
+    """The layers in order on every shard (prefill: the shards' caches
+    ``[L, B_l, max(S, s_max), KVH_l, Dh]`` made here; decode: `kvs` and
+    `pos` per shard).  Returns (xs, kvs, aux)."""
+    s = xs[0].shape[1]
+    if mode == "prefill":
+        positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
+                     for x in xs]
+        dt = layers.torch_dtype(cfg.dtype)
+        kvs = [KVCache(*(torch.zeros(
+            (cfg.num_layers, x.shape[0], max(s, s_max), call.kv_local,
+             cfg.head_dim), dtype=dt, device=x.device) for _ in range(2)))
+            for x in xs]
+    else:
+        positions = [p[:, None] for p in pos]
+    whole = "mlp." if cfg.family == "moe" and not call.ep else None
+    windows = _layer_windows(cfg, cfg.num_layers)
+    aux = torch.zeros((), device=xs[0].device)
+    for l in range(cfg.num_layers):
+        bl = sp.gathered("blocks.", layer=l, whole=whole)
+        xs, a = _block_mesh(bl, xs, cfg, call, mode=mode, window=windows[l],
+                            positions=positions, kvs=kvs, layer=l, pos=pos)
+        if a is not None:
+            aux = aux + a
+        del bl
+    return xs, kvs, aux
+
+
+def _logits_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
+                 call: MeshCall) -> sharding.Placed:
+    """The last position's logits: a `sharding.Placed` [B, Vp], the batch
+    as the call placed it, the vocab over 'model' where the head (or the
+    tied table) is cut so."""
+    fn = sp.leaf("final_norm")
+    heads = sp.gathered("head.")
+    parts = tuple(
+        layers.unembed_apply(e, h, layers.rms_norm(
+            x[:, -1:], f, cfg.norm_eps, gemma_style=True), cfg)[:, 0]
+        for x, f, e, h in zip(xs, fn, call.emb, heads))
+    cut = (sp.tp_split("embed.table", 0) if cfg.tie_embeddings
+           else sp.tp_split("head.w", 1))
+    return sharding.Placed(parts, (call.batch_entry, "model" if cut
+                                   else None), call.mesh,
+                           (call.batch, cfg.vocab_padded))
+
+
+def prefill_embedded_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
+                          call: MeshCall, s_max: int):
+    """Prefill on the mesh from embeddings `xs` (`embed_mesh`'s, or the
+    RAG prefill's with the memory prefix): (logits, caches, last_pos)."""
+    xs, kvs, _ = _run_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                 s_max=s_max)
+    s = xs[0].shape[1]
+    shape = (cfg.num_layers, call.batch, max(s, s_max), cfg.num_kv_heads,
+             cfg.head_dim)
+    spec = attn.kv_placement(call.mesh, shape)
+    if sharding.local_shape(shape, spec, call.mesh) != tuple(kvs[0].k.shape):
+        raise AssertionError(f"cache pieces {tuple(kvs[0].k.shape)} do not "
+                             f"match the placement {spec}")
+    caches = KVCache(*(sharding.Placed(tuple(getattr(c, f) for c in kvs),
+                                       spec, call.mesh, shape)
+                       for f in ("k", "v")))
+    last_pos = torch.full((call.batch,), s - 1, dtype=torch.int32,
+                          device=call.mesh.devices[0])
+    return _logits_mesh(sp, cfg, xs, call), caches, last_pos
+
+
+def _decode_mesh(sp: specs.ShardedLM, cfg: ModelConfig, token, caches,
+                 pos):
+    xs, call = embed_mesh(sp, cfg, token)
+    for t in caches:
+        if not isinstance(t, sharding.Placed) or t.mesh != sp.mesh:
+            raise ValueError("decode on a mesh takes the placed caches "
+                             "its prefill returned")
+    kvs = [KVCache(k, v) for k, v in zip(caches.k.parts, caches.v.parts)]
+    pos = sharding.place(pos, (call.batch_entry,), sp.mesh).parts
+    xs, _, _ = _run_stack_mesh(sp, xs, cfg, call, mode="decode", kvs=kvs,
+                               pos=pos)
+    return _logits_mesh(sp, cfg, xs, call), caches
+
+
+# ===========================================================================
 # public API
 # ===========================================================================
 
@@ -503,6 +740,9 @@ def forward_train(params: LM, cfg: ModelConfig, batch):
     takes ``src_emb`` beside its target ``tokens``; its aux is 0).  Callers
     that only read it and hold parameters that require grad run it under
     ``torch.no_grad()``."""
+    if mesh_of(params, cfg) is not None:
+        raise NotImplementedError("forward_train over a mesh comes with the "
+                                  "training slice of the mesh")
     x = _embed_inputs(params, cfg, batch)
     if cfg.family == "encdec":
         x, _ = _decode_stack(params, cfg, x,
@@ -526,7 +766,12 @@ def _prefill_caches(cfg: ModelConfig, caches, s_max: int):
 
 @torch.no_grad()
 def prefill(params: LM, cfg: ModelConfig, batch, s_max: int):
-    """Run the prompt; returns (last_logits [B,Vp], caches, last_pos [B])."""
+    """Run the prompt; returns (last_logits [B,Vp], caches, last_pos [B]).
+    Over a mesh (a placed model): the logits and caches are placed
+    (`sharding.Placed`), last_pos is whole on shard 0's device."""
+    if mesh_of(params, cfg) is not None:
+        xs, call = embed_mesh(params, cfg, batch["tokens"])
+        return prefill_embedded_mesh(params, cfg, xs, call, s_max)
     x = _embed_inputs(params, cfg, batch)
     if cfg.family == "encdec":
         x, caches = _decode_stack(params, cfg, x,
@@ -566,7 +811,10 @@ def decode_step(params: LM, cfg: ModelConfig, token, caches, pos):
     token's K/V rows and the SSM states are written into `caches` in place
     (the enc-dec family's cross K/V are read only).
 
-    Returns (logits [B,Vp], caches)."""
+    Returns (logits [B,Vp], caches); over a mesh the logits are placed and
+    `caches` are the placed ones prefill returned, written in place."""
+    if mesh_of(params, cfg) is not None:
+        return _decode_mesh(params, cfg, token, caches, pos)
     x = _embed_inputs(params, cfg, {"tokens": token})
     if cfg.family == "encdec":
         x, caches = _decode_stack(params, cfg, x, None, mode="decode",

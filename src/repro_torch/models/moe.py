@@ -1,12 +1,11 @@
 """Mixture-of-Experts layer (olmoe / deepseek-moe).
 
-Port of ``src/repro/models/moe.py``, its no-mesh path (``_expert_ffn``'s
-``shard_map`` branch has no counterpart on one card).  Dispatch is
-gather-based and per sequence: for each (batch row, expert) the top-C
-tokens that routed to that expert (C = capacity_factor * S * top_k / E,
-rounded up to 8, at most S) are gathered into a dense [E, B, C, D] buffer,
-the expert FFNs run as three batched products over E, and the weighted
-results are combined back.  Tokens beyond capacity are dropped.
+Port of ``src/repro/models/moe.py``.  Dispatch is gather-based and per
+sequence: for each (batch row, expert) the top-C tokens that routed to
+that expert (C = capacity_factor * S * top_k / E, rounded up to 8, at most
+S) are gathered into a dense [E, B, C, D] buffer, the expert FFNs run as
+three batched products over E, and the weighted results are combined
+back.  Tokens beyond capacity are dropped.
 
 Two choices keep the reference's answer on the card:
 
@@ -20,6 +19,14 @@ Two choices keep the reference's answer on the card:
 
 deepseek-moe: ``num_shared_experts`` always-on experts run as a plain gated
 MLP of width shared * d_ff_expert beside the routed ones.
+
+On a mesh, `moe_apply_sharded` is the reference's ``_expert_ffn``:
+routing and capacity are computed once per data block; where the
+reference takes its ``shard_map`` branch (``model > 1``, the batch
+dividing over the data axes, E dividing over 'model') each 'model' shard
+runs `_ffn_body` on its E/M experts and one sum over 'model' combines
+them (expert parallelism), else every shard runs all experts, gathered
+(the reference's plain GSPMD path).
 """
 from __future__ import annotations
 
@@ -29,7 +36,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 
 
 class MoE(nn.Module):
@@ -69,11 +76,22 @@ def _capacity(cfg: ModelConfig, seq: int) -> int:
 def moe_apply(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
                                                     torch.Tensor]:
     """x [B,S,D] -> (y [B,S,D], aux_loss f32 scalar)."""
+    cidx, cgate, frac_tokens, frac_probs = _route(p.router, x, cfg)
+    aux = cfg.num_experts * (frac_tokens * frac_probs).sum()
+    y = _ffn_body(x, cidx, cgate, p.wi, p.wu, p.wo, act=cfg.act)
+    if cfg.num_shared_experts:
+        y = y + p.shared(x, cfg.act)
+    return y, aux
+
+
+def _route(router, x, cfg: ModelConfig):
+    """The router over x [B,S,D]: (cidx, cgate [B,E,C], and the per-expert
+    token and probability fractions of the load-balancing loss [E])."""
     dt = x.dtype
-    e, k = cfg.num_experts, cfg.moe_top_k
+    k = cfg.moe_top_k
     cap = _capacity(cfg, x.shape[1])
 
-    logits = (x @ p.router.to(dt)).float()
+    logits = (x @ router.to(dt)).float()
     probs = torch.softmax(logits, dim=-1)                    # [B,S,E]
 
     # top-k mask per token, by threshold: every tie with the k-th is kept
@@ -85,7 +103,6 @@ def moe_apply(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     # load-balancing auxiliary loss (Switch-style)
     frac_tokens = sel.float().mean((0, 1))                   # [E]
     frac_probs = probs.mean((0, 1))
-    aux = e * (frac_tokens * frac_probs).sum()
 
     # per-(row, expert) top-C token selection, ties to the lower index
     esc = torch.where(sel, probs, -1.0).transpose(1, 2)      # [B,E,S]
@@ -93,11 +110,47 @@ def moe_apply(p: MoE, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
     cval, cidx = cval[..., :cap], cidx[..., :cap]            # [B,E,C]
     cgate = torch.gather(gate.transpose(1, 2), -1, cidx)
     cgate = torch.where(cval > 0.0, cgate, 0.0)
+    return cidx, cgate, frac_tokens, frac_probs
 
-    y = _ffn_body(x, cidx, cgate, p.wi, p.wu, p.wo, act=cfg.act)
+
+def moe_apply_sharded(ps, xs, cfg: ModelConfig, mesh, *, ep: bool,
+                      batch_split: bool, shared_tp: bool = False):
+    """The MoE layer on a mesh.  `ps`: per shard the layer's leaves,
+    gathered over 'data' (with `ep` False: gathered whole); `xs`: per
+    shard its data block's activations [B_l, S, D], equal on the 'model'
+    shards of a block.  With `ep`, model shard j of M runs experts
+    [j*E/M, (j+1)*E/M) and the partial outputs are summed over 'model' in
+    shard order; `shared_tp`: deepseek's shared experts cut over 'model'
+    (a partial sum too); `batch_split`: the data blocks hold different
+    rows (else each holds the whole batch).  Returns (y per shard, the
+    batch's aux loss)."""
+    e = cfg.num_experts
+    ys = [None] * mesh.size
+    fracs = []
+    for g in sharding.groups(mesh, ("model",)):        # one data block
+        # routing and capacity once per block, on its first shard
+        cidx, cgate, ft, fp = _route(ps[g[0]].router, xs[g[0]], cfg)
+        fracs.append((ft, fp))
+        el = e // len(g) if ep else e
+        for j, i in enumerate(g):
+            dev = xs[i].device
+            sl = slice(j * el, (j + 1) * el) if ep else slice(None)
+            ys[i] = _ffn_body(xs[i], cidx[:, sl].to(dev), cgate[:, sl].to(dev),
+                              ps[i].wi, ps[i].wu, ps[i].wo, act=cfg.act)
+    if ep:
+        ys = sharding.all_sum(ys, mesh, "model")
     if cfg.num_shared_experts:
-        y = y + p.shared(x, cfg.act)
-    return y, aux
+        sh = [layers.mlp_apply(p.shared, x, cfg.act) for p, x in zip(ps, xs)]
+        if shared_tp:
+            sh = sharding.all_sum(sh, mesh, "model")
+        ys = [y + s for y, s in zip(ys, sh)]
+    # the fractions of the whole batch: the mean over equal data blocks
+    dev = xs[0].device
+    if batch_split and len(fracs) > 1:
+        fracs = [tuple(torch.stack([f[k].to(dev) for f in fracs]).mean(0)
+                       for k in (0, 1))]
+    frac_tokens, frac_probs = (f.to(dev) for f in fracs[0])
+    return ys, e * (frac_tokens * frac_probs).sum()
 
 
 def _ffn_body(x, cidx, cgate, wi, wu, wo, *, act: str):

@@ -1,14 +1,16 @@
-"""Parameter and cache placements on the reference's meshes: path-based
-rules + divisibility sanitization.
+"""Parameter and cache placements on a mesh: path-based rules +
+divisibility sanitization, and a model placed by them.
 
-Port of ``src/repro/models/specs.py``.  The port runs on one card and
-shards nothing; the dry run reads these placements only to report the
-per-device argument bytes the reference's ``pod1`` (16 x 16) and ``pod2``
-(2 x 16 x 16) meshes would hold.  A mesh is a mapping of axis sizes
-(``{"data": 16, "model": 16}``, or ``{"pod": 2, "data": 16, "model":
-16}``) in place of a ``jax.sharding.Mesh``, and a placement is a tuple with
-one entry per dimension: None, an axis name, or a tuple of axis names (a
-``PartitionSpec``'s entries).
+Port of ``src/repro/models/specs.py``.  A mesh is a live `ShardMesh`
+(`repro_torch.launch.mesh`) or, where only the placements are wanted, a
+mapping of axis sizes (``{"data": 16, "model": 16}``, or ``{"pod": 2,
+"data": 16, "model": 16}``): the dry run reads them that way to report the
+per-device argument bytes of the reference's ``pod1`` (16 x 16) and
+``pod2`` (2 x 16 x 16) meshes.  A placement is a tuple with one entry per
+dimension: None, an axis name, or a tuple of axis names (a
+``PartitionSpec``'s entries).  `place_params` cuts a model by them onto a
+live mesh (`ShardedLM`: each shard holds its local piece of every leaf);
+`gather_params` puts it back together.
 
 Logical plan: TP over 'model' on heads / ffn-hidden / vocab / experts;
 FSDP (ZeRO-3) over 'data' on the other big dim.  Any mapping whose dim
@@ -20,9 +22,14 @@ axis.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Tuple
+import types
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.distributed import ShardMesh
+from repro_torch.models import sharding
 
 Placement = Tuple[object, ...]
 
@@ -107,11 +114,19 @@ def _reference_leaf(name: str, shape, cfg: ModelConfig):
     return "/".join(parts), tuple(shape)
 
 
-def param_specs(cfg: ModelConfig, sizes: Mapping[str, int],
+Mesh = Union[ShardMesh, Mapping[str, int]]
+
+
+def _sizes(mesh: Mesh) -> Mapping[str, int]:
+    return sharding.axis_sizes(mesh) if isinstance(mesh, ShardMesh) else mesh
+
+
+def param_specs(cfg: ModelConfig, sizes: Mesh,
                 params=None) -> Dict[str, Placement]:
     """{parameter name: placement} for every parameter of the port's model
     of `cfg` (built on the meta device unless `params`, an `lm.LM` or a
-    {name: tensor} mapping, is given)."""
+    {name: tensor} mapping, is given) on a mesh or its axis sizes."""
+    sizes = _sizes(sizes)
     if params is None:
         from repro_torch.models import lm
         params = lm.LM(cfg, device="meta")
@@ -144,15 +159,18 @@ def cache_leaves(tree, prefix: str = ""):
         yield from cache_leaves(value, f"{prefix}{key}.")
 
 
-def cache_specs(cfg: ModelConfig, sizes: Mapping[str, int],
+def cache_specs(cfg: ModelConfig, sizes: Mesh,
                 caches) -> Dict[str, Placement]:
     """{cache leaf path: placement} with divisibility-guarded placement.
 
     Policy: batch over the data axes (DP); kv-heads / SSM heads / hidden
     over 'model' (TP).  When the batch is too small to shard (long_500k:
     B=1), the cache SEQUENCE axis takes the data axes instead.  Any mapping
-    that does not divide is dropped.
+    that does not divide is dropped.  (The port's own caches on a live mesh
+    follow `attention.KVCache.shardit`, which replicates where this falls
+    back to the sequence axis.)
     """
+    sizes = _sizes(sizes)
     m = sizes.get("model", 1)
     batch_axes = tuple(a for a in ("pod", "data") if a in sizes)
     dp = 1
@@ -258,3 +276,277 @@ def mesh_sizes(multi_pod: bool) -> Dict[str, int]:
 def mesh_tag(multi_pod: bool) -> str:
     return "pod2" if multi_pod else "pod1"
 
+
+
+# ---------------------------------------------------------------------------
+# a model placed on a live mesh
+# ---------------------------------------------------------------------------
+
+def _tree_key(name: str) -> str:
+    """The '.'-joined path of a parameter in the reference's tree, where a
+    block group's leaves are stacked: ``blocks.3.attn.wq`` ->
+    ``blocks.attn.wq``."""
+    parts = name.split(".")
+    return ".".join([parts[0]] + parts[2:]) if parts[0] in STACKS \
+        else name
+
+
+def _leaves(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                 torch.dtype]]:
+    """{tree key: (shape, dtype)} of every leaf of the reference's params
+    tree, block leaves stacked ``[L, ...]``, in the dtypes the port holds
+    them."""
+    from repro_torch.models import lm
+    out = {}
+    for name, p in lm.LM(cfg, device="meta").named_parameters():
+        parts = name.split(".")
+        if parts[0] in STACKS and parts[1] != "0":
+            continue
+        out[_tree_key(name)] = (_reference_leaf(name, p.shape, cfg)[1],
+                                p.dtype)
+    return out
+
+
+def _placement(key: str, shape, sizes: Mapping[str, int]) -> Placement:
+    logical = _match(key.replace(".", "/"), len(shape))
+    return () if logical is None else _sanitize(logical, shape, sizes)
+
+
+def _tp_spec(key: str, shape, sizes: Mapping[str, int]) -> Placement:
+    """How the model code cuts a (per-layer) leaf of `shape` over 'model':
+    the rule's placement at the leaf's own rank with only its 'model'
+    entry kept (Megatron's column / row / vocab / expert cut)."""
+    return tuple(e if e == "model" else None
+                 for e in _placement(key, shape, sizes))
+
+
+def param_shardings(cfg: ModelConfig, mesh: ShardMesh) -> dict:
+    """`NamedSharding`s on `mesh` in the reference's params tree (nested
+    dicts, block leaves stacked ``[L, ...]``, ``head`` empty when tied):
+    the reference's `param_shardings`, in the layout of
+    `repro_torch.convert.lm_params_to_numpy` and of checkpoints."""
+    sizes = _sizes(mesh)
+    tree: dict = {"head": {}}
+    for key, (shape, _) in _leaves(cfg).items():
+        node = tree
+        *outer, leaf = key.split(".")
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = sharding.NamedSharding(mesh,
+                                            _placement(key, shape, sizes))
+    return tree
+
+
+def _namespace(flat: Dict[str, torch.Tensor]) -> types.SimpleNamespace:
+    """{"attn.wq": t, ...} as attributes (``ns.attn.wq``), the shape of
+    the modules the layer functions read."""
+    root: dict = {}
+    for key, t in flat.items():
+        node = root
+        *outer, leaf = key.split(".")
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = t
+
+    def conv(d):
+        return types.SimpleNamespace(**{
+            k: conv(v) if isinstance(v, dict) else v for k, v in d.items()})
+    return conv(root)
+
+
+class ShardedLM:
+    """A model placed on a mesh by the reference's placements.
+
+    ``shards[i]`` maps each leaf of the reference's params tree (a
+    '.'-joined key: ``embed.table``, ``blocks.attn.wq`` stacked ``[L, d,
+    h, dh]``, ...) to shard i's local piece of it, on ``mesh.devices[i]``,
+    cut from the whole leaf of ``shapes[key]`` by ``specs[key]`` (the
+    reference's `param_shardings`: TP over 'model' on heads / ffn hidden /
+    vocab / experts, FSDP over 'data' on the other large dim, replicated
+    where a dim does not divide; where a stacked dense MLP's layer count
+    divides over 'model', the reference's rank-3 rule cuts its layer axis
+    over 'model' instead, and so does the port).  Every shard holds its
+    own copy of its pieces.
+
+    `gathered` hands the model code one layer's leaves per shard as the
+    layer runs them: the FSDP cuts gathered over 'data' (ZeRO-3's
+    all-gather before use), a layer-axis cut fetched from the shard that
+    holds the layer, and each leaf cut over 'model' as `_tp_spec` says."""
+
+    def __init__(self, cfg: ModelConfig, mesh: ShardMesh,
+                 specs: Mapping[str, Placement],
+                 shapes: Mapping[str, Tuple[int, ...]],
+                 shards: Sequence[Dict[str, torch.Tensor]]):
+        self.cfg, self.mesh = cfg, mesh
+        self.specs = {k: tuple(v) for k, v in specs.items()}
+        self.shapes = {k: tuple(v) for k, v in shapes.items()}
+        self.shards = tuple(shards)
+        sizes = _sizes(mesh)
+        self.tp = {k: _tp_spec(k, self._layer_shape(k), sizes)
+                   for k in self.specs}
+
+    def _stacked(self, key: str) -> bool:
+        return key.split(".", 1)[0] in STACKS
+
+    def _layer_shape(self, key: str) -> Tuple[int, ...]:
+        return self.shapes[key][1:] if self._stacked(key) \
+            else self.shapes[key]
+
+    def placed(self, key: str) -> sharding.Placed:
+        return sharding.Placed(tuple(s[key] for s in self.shards),
+                               self.specs[key], self.mesh, self.shapes[key])
+
+    def nbytes(self, i: int) -> int:
+        """The parameter bytes shard i holds."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.shards[i].values())
+
+    def tp_split(self, key: str, dim: int) -> bool:
+        """Whether the model code cuts dim `dim` of (a layer of) leaf `key`
+        over 'model'."""
+        spec = self.tp.get(key, ())
+        return dim < len(spec) and spec[dim] == "model"
+
+    def _layer_parts(self, key: str, layer: Optional[int]):
+        """Leaf `key` (layer `layer` of a stacked one) per shard, and the
+        placement of those pieces."""
+        spec = self.specs[key] + (None,) * (len(self.shapes[key])
+                                            - len(self.specs[key]))
+        if not self._stacked(key):
+            return [s[key] for s in self.shards], spec
+        if spec[0] is None:
+            return [s[key][layer] for s in self.shards], spec[1:]
+        # the layer axis cut over one axis: layer `layer` lives on the
+        # shards at coordinate layer // (L / n) of it
+        axis = spec[0]
+        per = self.shapes[key][0] // sharding.axis_sizes(self.mesh)[axis]
+        parts: List[Optional[torch.Tensor]] = [None] * self.mesh.size
+        for g in sharding.groups(self.mesh, (axis,)):
+            src = self.shards[g[layer // per]][key][layer % per]
+            for i in g:
+                parts[i] = src.to(self.mesh.devices[i])
+        return parts, spec[1:]
+
+    def leaf(self, key: str, layer: Optional[int] = None,
+             whole: bool = False) -> List[torch.Tensor]:
+        """Leaf `key` (layer `layer` of a stacked one) per shard as the
+        model code runs it: cut over 'model' as `tp` says (whole with
+        `whole`), every other cut gathered."""
+        parts, have = self._layer_parts(key, layer)
+        want = (None,) * len(have) if whole else self.tp[key] + (None,) * (
+            len(have) - len(self.tp[key]))
+        for dim, (h, w) in enumerate(zip(have, want)):
+            for a in reversed(sharding.entry_axes(h)):
+                if a != w:
+                    parts = sharding.all_gather(parts, self.mesh, a, dim)
+        for dim, (h, w) in enumerate(zip(have, want)):
+            if w is not None and w not in sharding.entry_axes(h):
+                parts = [p.narrow(dim, *_block(self.mesh, i, w, p.shape[dim]))
+                         for i, p in enumerate(parts)]
+        return parts
+
+    def gathered(self, prefix: str, layer: Optional[int] = None,
+                 whole: Optional[str] = None) -> List[types.SimpleNamespace]:
+        """Per shard, the leaves under `prefix` (``"blocks."`` with
+        `layer`, ``"embed."``) as attributes (``ns.attn.wq``), by `leaf`;
+        those under ``prefix + whole`` whole."""
+        flat: List[Dict[str, torch.Tensor]] = [{} for _ in self.shards]
+        for key in self.specs:
+            if not key.startswith(prefix):
+                continue
+            sub = key[len(prefix):]
+            parts = self.leaf(key, layer, whole=bool(whole) and
+                              sub.startswith(whole))
+            for d, t in zip(flat, parts):
+                d[sub] = t
+        return [_namespace(d) for d in flat]
+
+
+def _block(mesh: ShardMesh, i: int, axis: str, dim: int) -> Tuple[int, int]:
+    """(start, length) of shard i's block of a dim of `dim` over `axis`."""
+    n = sharding.axis_sizes(mesh)[axis]
+    return sharding.coords(mesh, i)[axis] * (dim // n), dim // n
+
+
+def place_tree(cfg: ModelConfig, leaves: Mapping[str, torch.Tensor],
+               mesh: ShardMesh) -> ShardedLM:
+    """Whole leaves {tree key: tensor} (`_tree_key`'s keys, block leaves
+    stacked) cut onto `mesh` by the reference's placements, each piece
+    copied to its shard's device in the dtype the port holds the leaf."""
+    want = _leaves(cfg)
+    if set(leaves) != set(want):
+        raise KeyError(f"leaves missing {sorted(set(want) - set(leaves))}, "
+                       f"unknown {sorted(set(leaves) - set(want))}")
+    sizes = _sizes(mesh)
+    specs, shards = {}, [{} for _ in mesh.devices]
+    for key, t in leaves.items():
+        shape, dtype = want[key]
+        t = torch.as_tensor(t).detach()
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != {shape}")
+        specs[key] = _placement(key, shape, sizes)
+        placed = sharding.place(t.to(dtype), specs[key], mesh, copy=True)
+        for d, part in zip(shards, placed.parts):
+            d[key] = part
+    return ShardedLM(cfg, mesh, specs, {k: v[0] for k, v in want.items()},
+                     shards)
+
+
+def place_params(params, cfg: ModelConfig, mesh: ShardMesh) -> ShardedLM:
+    """A model (`lm.LM`) cut onto `mesh` by the reference's placements
+    (`ShardedLM`); each block group's leaves are stacked on the way, one
+    leaf at a time."""
+    named = dict(params.named_parameters())
+    groups: Dict[str, List[str]] = {}
+    for name in named:
+        groups.setdefault(_tree_key(name), []).append(name)
+    leaves = {}
+    for key, names in groups.items():
+        if len(names) == 1 and names[0] == key:
+            leaves[key] = named[key]
+        else:
+            leaves[key] = torch.stack([named[n] for n in names])
+    return place_tree(cfg, leaves, mesh)
+
+
+def gather_params(sp: ShardedLM, device=None):
+    """The whole model (`lm.LM`) of a placed one, on `device` (default:
+    shard 0's)."""
+    from repro_torch.models import layers, lm
+    model = lm.LM(sp.cfg, device="meta")
+    full = {key: sp.placed(key).full(device) for key in sp.specs}
+    for name, _ in list(model.named_parameters()):
+        key = _tree_key(name)
+        t = full[key][int(name.split(".")[1])] if key != name else full[key]
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner) if owner else model, leaf,
+                layers.param(t))
+    return model
+
+
+def from_placed_tree(cfg: ModelConfig, mesh: ShardMesh,
+                     tree: dict) -> ShardedLM:
+    """The placed model of a tree of `sharding.Placed` leaves in the
+    reference's layout (a restore with `param_shardings`)."""
+    flat: Dict[str, sharding.Placed] = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + [key])
+            else:
+                flat[".".join(path + [key])] = value
+
+    walk(tree, [])
+    want = _leaves(cfg)
+    if set(flat) != set(want):
+        raise KeyError(f"leaves missing {sorted(set(want) - set(flat))}, "
+                       f"unknown {sorted(set(flat) - set(want))}")
+    shards = [{} for _ in mesh.devices]
+    for key, value in flat.items():
+        if value.mesh != mesh or value.shape != want[key][0]:
+            raise ValueError(f"{key} is not a leaf placed on this mesh")
+        for d, part in zip(shards, value.parts):
+            d[key] = part
+    return ShardedLM(cfg, mesh, {k: v.spec for k, v in flat.items()},
+                     {k: v.shape for k, v in flat.items()}, shards)

@@ -25,7 +25,7 @@ from torch import nn
 from repro_torch.configs.base import EngineConfig, ModelConfig
 from repro_torch.core import index as ivf
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import layers, lm
+from repro_torch.models import layers, lm, sharding, specs
 
 
 def memory_state(mem) -> ivf.IVFState:
@@ -40,11 +40,25 @@ def memory_state(mem) -> ivf.IVFState:
 
 @torch.no_grad()
 def embed_query(params: lm.LM, cfg: ModelConfig, tokens) -> torch.Tensor:
-    """Stub embedder: mean-pooled token embeddings, L2-normalized f32[B, D]."""
-    x = layers.embed_apply(params.embed, tokens, cfg).float()
-    q = x.mean(1)
+    """Stub embedder: mean-pooled token embeddings, L2-normalized f32[B, D]
+    (over a mesh: each data block's, on shard 0's device)."""
+    if isinstance(params, specs.ShardedLM):
+        xs, call = lm.embed_mesh(params, cfg, tokens)
+        return _mesh_query(xs, call)
+    return _pooled(layers.embed_apply(params.embed, tokens, cfg))
+
+
+def _pooled(x) -> torch.Tensor:
+    q = x.float().mean(1)
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
                            min=1e-6)
+
+
+def _mesh_query(xs, call, device=None) -> torch.Tensor:
+    """The data blocks' pooled queries, whole, on `device`."""
+    return sharding.Placed(tuple(_pooled(x) for x in xs),
+                           (call.batch_entry, None), call.mesh,
+                           (call.batch, xs[0].shape[-1])).full(device)
 
 
 def retrieve(state: ivf.IVFState, q, ecfg: EngineConfig, k: int):
@@ -79,24 +93,48 @@ class RagPrefill(nn.Module):
     def query(self, params: lm.LM, tokens) -> torch.Tensor:
         """The memory-space query f32[B, dim] the step retrieves with."""
         q = embed_query(params, self.cfg, tokens)
-        return q if self.proj is None else q @ self.proj
+        return q if self.proj is None else q.to(self.proj.device) @ self.proj
+
+    def _prefix(self, scores, rows) -> torch.Tensor:
+        """The retrieved memories as one soft-prefix embedding [B, 1, D],
+        softmax-weighted by retrieval score."""
+        w = torch.softmax(scores, dim=-1).float()
+        mem_vec = torch.einsum("bk,bkd->bd", w, rows.float())
+        if self.unproj is not None:
+            mem_vec = mem_vec @ self.unproj
+        return mem_vec[:, None, :].to(layers.torch_dtype(self.cfg.dtype))
 
     @torch.no_grad()
     def forward(self, params: lm.LM, mem_state, batch):
         cfg = self.cfg
         tokens = batch["tokens"]
+        if lm.mesh_of(params, cfg) is not None:
+            return self._forward_mesh(params, mem_state, tokens)
         ids, scores, rows = retrieve(mem_state, self.query(params, tokens),
                                      self.ecfg, self.k)
-        # retrieved memories enter the prompt as soft-prefix embeddings,
-        # softmax-weighted by retrieval score
-        w = torch.softmax(scores, dim=-1).float()
-        mem_vec = torch.einsum("bk,bkd->bd", w, rows.float())
-        if self.unproj is not None:
-            mem_vec = mem_vec @ self.unproj
-        x_mem = mem_vec[:, None, :].to(layers.torch_dtype(cfg.dtype))
+        # retrieved memories enter the prompt as soft-prefix embeddings
+        x_mem = self._prefix(scores, rows)
         emb = layers.embed_apply(params.embed, tokens, cfg)
         emb = torch.cat([x_mem, emb[:, :-1]], dim=1)
         out, caches, pos = _prefill_with_embeddings(params, cfg, emb, batch,
+                                                    self.s_max)
+        return out, caches, pos, ids
+
+    def _forward_mesh(self, sp: specs.ShardedLM, mem_state, tokens):
+        """The step over a mesh: the data blocks' queries to the memory's
+        device, one retrieval for the batch, each block's prefix back to
+        its shards, then the mesh prefill."""
+        state = memory_state(mem_state)
+        xs, call = lm.embed_mesh(sp, self.cfg, tokens)
+        q = _mesh_query(xs, call, state.centroids.device)
+        if self.proj is not None:
+            q = q @ self.proj.to(q.device)
+        ids, scores, rows = retrieve(state, q, self.ecfg, self.k)
+        prefix = sharding.place(self._prefix(scores, rows),
+                                (call.batch_entry, None, None),
+                                call.mesh).parts
+        xs = [torch.cat([m, x[:, :-1]], dim=1) for m, x in zip(prefix, xs)]
+        out, caches, pos = lm.prefill_embedded_mesh(sp, self.cfg, xs, call,
                                                     self.s_max)
         return out, caches, pos, ids
 

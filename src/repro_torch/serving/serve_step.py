@@ -4,19 +4,25 @@ Port of ``src/repro/serving/serve_step.py``.  The reference jits the steps
 and donates the caches to decode; here decode writes the new token's K/V
 rows (and, for rwkv6 and zamba2, the new recurrent states and shift or
 conv windows) into the stacked cache tensors in place, with no copy per
-step.
+step.  Over a mesh the steps take a placed model (`specs.ShardedLM`), the
+logits come placed with the vocab over 'model', and `greedy` takes the
+argmax across the vocab shards (`sharding.argmax`) without gathering
+them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import lm, sharding
 
 
 def greedy(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """argmax over the real vocabulary (padded ids masked), ties to the
-    first index as in ``jnp.argmax``; int32."""
+    first index as in ``jnp.argmax``; int32.  Placed logits give the whole
+    batch's tokens on shard 0's device."""
+    if isinstance(logits, sharding.Placed):
+        return sharding.argmax(logits, vocab_size).to(torch.int32)
     mask = torch.arange(logits.shape[-1], device=logits.device) < vocab_size
     return torch.where(mask, logits, float("-inf")).argmax(-1).to(torch.int32)
 

@@ -51,7 +51,7 @@ def test_port_files_found():
             "pipeline.py", "collectives.py", "elastic.py", "train.py",
             "train_micro.py", "dryrun.py", "op_analysis.py", "roofline.py",
             "profile.py", "specs.py", "loops.py", "granite_3_2b.py",
-            "seamless_m4t_large_v2.py"} <= names
+            "seamless_m4t_large_v2.py", "mesh.py", "sharding.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"src/repro_torch/distributed/fault.py",
             "src/repro_torch/api/replication.py",
@@ -60,7 +60,9 @@ def test_port_files_found():
             "src/repro_torch/launch/train.py",
             "src/repro_torch/distributed/collectives.py",
             "src/repro_torch/distributed/elastic.py",
-            "src/repro_torch/data/pipeline.py"} <= rel
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/models/sharding.py"} <= rel
 
 
 def test_import_leaves_jax_unloaded():
@@ -79,6 +81,7 @@ def test_import_leaves_jax_unloaded():
             "repro_torch.train_micro, repro_torch.launch.dryrun, "
             "repro_torch.launch.op_analysis, repro_torch.launch.roofline, "
             "repro_torch.launch.profile, repro_torch.models.specs, "
+            "repro_torch.launch.mesh, repro_torch.models.sharding, "
             "repro_torch.configs.granite_3_2b, "
             "repro_torch.configs.zamba2_2_7b; "
             "assert 'jax' not in sys.modules, 'jax loaded'; "
@@ -136,6 +139,17 @@ def test_model_config_has_the_reference_fields():
     assert fields(base.ShapeConfig) == fields(jbase.ShapeConfig)
     assert {k: dataclasses.asdict(v) for k, v in base.SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+
+
+def test_mesh_config_has_the_reference_fields():
+    """MeshConfig has the reference's fields and defaults, in order."""
+    from repro.configs import base as jbase
+    from repro_torch.configs import base
+
+    def fields(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert fields(base.MeshConfig) == fields(jbase.MeshConfig)
 
 
 def test_train_config_has_the_reference_fields():

@@ -11,9 +11,11 @@
 
     python3 tools/profile_port.py --host-copy [--out FILE]
 
-    python3 tools/profile_port.py --serving [--arch ARCH] [--out FILE]
+    python3 tools/profile_port.py --serving [--arch ARCH] [--mesh DxM] [--out FILE]
 
     python3 tools/profile_port.py --train [--out FILE]
+
+    python3 tools/profile_port.py --ab-decode TREE [TREE ...] [--out FILE]
 
 For each store policy (f32, then int8), builds the PAPER_1M collection that
 ``chip_smoke.py`` builds (same synthetic corpus, same seed), warms every op
@@ -64,7 +66,10 @@ granite-3-2b) at full width (bf16, from ``--seed``) beside the
 first, then one each under the profiler: the retrieval alone (the full
 scan at B = 8), the RAG prefill of 8 x 512 tokens, 8 decode steps, and
 one 32-row insert; with the same breakdown plus the number of kernels
-each op launched (and, for the decode, a step's).
+each op launched (and, for the decode, a step's).  ``--mesh 1x4`` places
+the model on a (data, model) mesh of that shape on the one card first
+(``chip_smoke.py`` phase 16b's layout for granite-3-2b, 16c's for
+olmoe-1b-7b).
 
 ``--train`` profiles ``chip_smoke.py`` phase 14a's train step (granite-3-2b
 at full width on f32 master weights, remat, 8 x 512 tokens, lr 3e-3 with
@@ -73,6 +78,15 @@ then the optimizer's update alone on the same state (random grads); then
 one warm decode step of phase 13a's seamless-m4t-large-v2 (8 requests of
 256 source frames and 256 tokens, prefilled first).  Same breakdown, with
 the peak device memory of the train step.
+
+``--ab-decode`` times the one-device decode path of several checkouts in
+turn (each TREE the root of one, e.g. the parent commit unpacked with
+``git archive`` into a gitignored directory, and ``.``; each in its own
+process, in the order given, so ``parent . . parent`` compares two
+versions on one card): granite-3-2b at full width (bf16, no memory), a
+prefill of 8 x 512 tokens and 32 greedy decode steps, four rounds, the
+first left out; the prefill ms of each round and the decode step's p50
+and p95 ms.
 """
 from __future__ import annotations
 
@@ -80,6 +94,7 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -335,14 +350,16 @@ def host_copy(seed: int) -> dict:
     return out
 
 
-def serving(seed: int, arch: str) -> dict:
-    """Profiled ops of phase 11a's serving path with `arch`'s model (see
-    the module doc)."""
+def serving(seed: int, arch: str, mesh_shape=None) -> dict:
+    """Profiled ops of phase 11a's serving path with `arch`'s model, on a
+    (data, model) mesh of `mesh_shape` on the card if given (see the
+    module doc)."""
     from repro_torch.api import MemoryOp
     from repro_torch.configs import registry
     from repro_torch.configs.ame_paper import PAPER_1M
     from repro_torch.launch import serve as srv
-    from repro_torch.models import api, lm
+    from repro_torch.launch.mesh import model_mesh
+    from repro_torch.models import api, lm, specs
     from repro_torch.serving import rag, serve_step
 
     dev = torch.device("cuda")
@@ -350,6 +367,10 @@ def serving(seed: int, arch: str) -> dict:
     ecfg = dataclasses.replace(PAPER_1M, dim=cfg.d_model,
                                k=chip_smoke.SERVE_MEM_K)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+    if mesh_shape is not None:
+        params = specs.place_params(params, cfg, model_mesh(
+            mesh_shape, ("data", "model"), "cuda"))
+        chip_smoke.release()
     g = torch.Generator(device=dev).manual_seed(seed + 11)
     x = chip_smoke.make_corpus(chip_smoke.N_ROWS, ecfg.dim, g)
     svc, coll, _ = srv.build_memory(ecfg, x, device=dev)
@@ -393,7 +414,7 @@ def serving(seed: int, arch: str) -> dict:
     out["decode 8 steps"]["kernels_per_step"] = \
         out["decode 8 steps"]["device_kernels"] / 8
     out["model"] = {"arch": cfg.name, "params": cfg.param_count(),
-                    "requests": b, "prompt": s}
+                    "requests": b, "prompt": s, "mesh": mesh_shape}
     return out
 
 
@@ -460,6 +481,50 @@ def train(seed: int) -> dict:
     return out
 
 
+AB_DECODE = r"""
+import json, time, numpy as np, torch
+from repro_torch.configs import registry
+from repro_torch.models import lm
+from repro_torch.serving import serve_step
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = registry.get_arch("granite-3-2b")
+params = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+g = torch.Generator(device="cuda").manual_seed(1)
+toks = torch.randint(0, cfg.vocab_size, (8, 512), generator=g, device="cuda",
+                     dtype=torch.int32)
+pre, dec = [], []
+for r in range(4):
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    logits, caches, pos = lm.prefill(params, cfg, {"tokens": toks}, 512 + 33)
+    tok = serve_step.greedy(logits, cfg.vocab_size)[:, None]
+    torch.cuda.synchronize(); pre.append(1e3 * (time.perf_counter() - t0))
+    for _ in range(32):
+        pos = pos + 1
+        t0 = time.perf_counter()
+        logits, caches = lm.decode_step(params, cfg, tok, caches, pos)
+        tok = serve_step.greedy(logits, cfg.vocab_size)[:, None]
+        torch.cuda.synchronize(); dec.append(1e3 * (time.perf_counter() - t0))
+print(json.dumps({"prefill_ms": pre[1:],
+                  "decode_p50_ms": float(np.median(dec[32:])),
+                  "decode_p95_ms": float(np.percentile(dec[32:], 95))}))
+"""
+
+
+def ab_decode(trees) -> list:
+    """`AB_DECODE` from each checkout in turn (see the module doc)."""
+    out = []
+    for tree in trees:
+        root = os.path.realpath(tree)
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root, os.path.join(root, "src")]))
+        run = subprocess.run([sys.executable, "-c", AB_DECODE], cwd=root,
+                             env=env, capture_output=True, text=True,
+                             check=True)
+        out.append({"tree": tree, **json.loads(run.stdout.splitlines()[-1])})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -473,10 +538,18 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default=chip_smoke.SERVE_ARCH,
                     help="--serving: the model served (default "
                     f"{chip_smoke.SERVE_ARCH})")
+    ap.add_argument("--ab-decode", nargs="+", metavar="TREE", default=None)
+    ap.add_argument("--mesh", default=None,
+                    help="--serving: DxM, the model on a (data, model) "
+                    "mesh of that shape on the card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
         return 1
+    if args.ab_decode:
+        return _emit({"card": chip_smoke.nvidia_smi(),
+                      "torch": torch.__version__,
+                      "ab_decode": ab_decode(args.ab_decode)}, args.out)
     if args.scan_sweep:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),
@@ -495,7 +568,11 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
-                      "serving": serving(args.seed, args.arch)}, args.out)
+                      "serving": serving(args.seed, args.arch, None if
+                                         args.mesh is None else tuple(
+                                             int(n) for n in
+                                             args.mesh.split("x")))},
+                     args.out)
     if args.train:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

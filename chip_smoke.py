@@ -127,7 +127,15 @@ Phases (any failure raises and the script exits non-zero):
    checks beside the 1,000,000-row memory; olmoe-1b-7b expert-parallel on
    (1, 4) (16 of 64 experts a shard), in float32 at 4 layers against the
    unsharded model, then in bf16 at full depth for one turn over
-   PAPER_100K.
+   PAPER_100K; the VLM, SSM, hybrid and enc-dec families the same way
+   against the unsharded model: qwen2-vl-7b in float32 on (1, 4) at 4
+   layers (vision embeddings, non-default M-RoPE positions), rwkv6-1.6b in
+   float64 and zamba2-2.7b in float32 on (2, 4) at full depth,
+   seamless-m4t-large-v2 in float32 on (1, 4) at full depth (source
+   frames, the cross K/V), every cache leaf too; then each in bf16 at full
+   width and depth on (1, 4): qwen2-vl-7b (non-default M-RoPE
+   positions), rwkv6-1.6b and zamba2-2.7b one turn of phase 12b's
+   workload over PAPER_100K, seamless-m4t-large-v2 phase 13a's.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -4217,6 +4225,18 @@ MESH_PROMPT = 128
 MESH_DECODE = 8         # 16a, 16c: decode steps against the unsharded run
 MOE_F32_LAYERS = 4      # 16c: olmoe in f32 cut to 4 of 16 layers (27.7 GB a
 #                         copy at full depth; the unsharded model is beside)
+# 16e-16h: the other families against the unsharded port, (tag, arch,
+# dtype, mesh, layers kept; 0 = all).  qwen2-vl in f32 cut to 4 of 28
+# layers (30.9 GB a copy at full depth); rwkv6 in float64 (its f32
+# GroupNorm is ill-conditioned, as in 12c)
+MESH_FAMILIES = (("16e", "qwen2-vl-7b", "float32", MESH_TP, 4),
+                 ("16f", "rwkv6-1.6b", "float64", MESH_TP_FSDP, 0),
+                 ("16g", "zamba2-2.7b", "float32", MESH_TP_FSDP, 0),
+                 ("16h", "seamless-m4t-large-v2", "float32", MESH_TP, 0))
+MESH_SERVED = ("qwen2-vl-7b", "rwkv6-1.6b", "zamba2-2.7b")  # 16e-16g in
+#                         bf16 on MESH_TP: phase 12b's workload, one turn
+MESH_VIS_GRID = 8       # qwen2-vl's patch grid width (MESH_PROMPT / 4 and
+#                         the served prompt's 128 vision embeddings)
 
 
 def device_ops(fn):
@@ -4238,15 +4258,45 @@ def sync_cards() -> None:
         torch.cuda.synchronize(i)
 
 
-def mesh_decode(cfg, params, tokens, forced=None):
-    """Prefill `tokens` [B, S] (S_max S + MESH_DECODE), then MESH_DECODE
-    decode steps on `forced` tokens [B, MESH_DECODE] (default: the greedy
-    ones): (the logits of each step, whole, the tokens fed, ms a decode
-    step, the device ops of one decode step, the caches)."""
+def mrope_grid(b: int, s: int, nv: int, width: int, device):
+    """qwen2-vl's M-RoPE positions [b, s, 3] int32 for `nv` patch
+    embeddings on a grid `width` wide, then text: a patch at (0, row,
+    col), each text token one past the largest coordinate before it on all
+    three streams (not the positions broadcast, the default)."""
+    pos = torch.zeros((s, 3), dtype=torch.int32)
+    for i in range(nv):
+        pos[i] = torch.tensor((0, i // width, i % width))
+    start = max((nv - 1) // width, width - 1) + 1
+    pos[nv:] = (start + torch.arange(s - nv, dtype=torch.int32))[:, None]
+    return pos.expand(b, s, 3).contiguous().to(device)
+
+
+def family_inputs(cfg, b: int, s: int, g) -> dict:
+    """A family's other prefill inputs beside `b` x `s` tokens:
+    qwen2-vl's s/4 vision embeddings on a MESH_VIS_GRID-wide grid and
+    their `mrope_grid` positions, seamless's s source frames."""
+    if cfg.family == "vlm":
+        nv = s // 4
+        return {"vis_embeds": torch.randn(b, nv, cfg.d_model, generator=g,
+                                          device=g.device),
+                "mrope_pos": mrope_grid(b, s, nv, MESH_VIS_GRID, g.device)}
+    if cfg.family == "encdec":
+        return {"src_emb": torch.randn(b, s, cfg.d_model, generator=g,
+                                       device=g.device)}
+    return {}
+
+
+def mesh_decode(cfg, params, tokens, forced=None, extra=None):
+    """Prefill `tokens` [B, S] (and `extra`, `family_inputs`'; S_max S +
+    MESH_DECODE), then MESH_DECODE decode steps on `forced` tokens [B,
+    MESH_DECODE] (default: the greedy ones): (the logits of each step,
+    whole, the tokens fed, ms a decode step, the device ops of one decode
+    step, the caches)."""
     from repro_torch.models import lm
     from repro_torch.serving import serve_step
     b, s = tokens.shape
-    logits, caches, pos = lm.prefill(params, cfg, {"tokens": tokens},
+    logits, caches, pos = lm.prefill(params, cfg,
+                                     {"tokens": tokens, **(extra or {})},
                                      s + MESH_DECODE)
     out, fed, ms = [], [], []
 
@@ -4275,15 +4325,19 @@ def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
     `shape` (data, model) mesh (`devices` as `launch.mesh` takes them: by
     default every shard on the card): prefill + MESH_DECODE steps
     fed the unsharded run's greedy tokens, every step's logits within
-    SERVE_TOL; the 'model' replicas of each data block bit-identical
-    after the stack; each shard's parameter bytes exactly the
-    placements' prediction.  Returns (record, the placed model)."""
+    SERVE_TOL, and so every leaf of the caches after them (gathered); the
+    'model' replicas of each data block bit-identical after the stack
+    (seamless's encoder output too); each shard's parameter bytes exactly
+    the placements' prediction.  Returns (record, the placed model)."""
     from repro_torch.launch import mesh as lmesh
     from repro_torch.models import lm, sharding, specs
     params, r = made_model(tag, cfg, seed)
     tokens = torch.randint(0, cfg.vocab_size, (MESH_BATCH, MESH_PROMPT),
                            generator=g, device="cuda", dtype=torch.int32)
-    want, fed, ms1, ops1, _ = mesh_decode(cfg, params, tokens)
+    extra = family_inputs(cfg, MESH_BATCH, MESH_PROMPT, g)
+    want, fed, ms1, ops1, caches1 = mesh_decode(cfg, params, tokens,
+                                                extra=extra)
+    caches1 = dict(specs.cache_leaves(caches1))
     if cfg.family == "moe":
         with torch.no_grad():
             _, aux1 = lm.forward_train(params, cfg, {"tokens": tokens})
@@ -4295,7 +4349,19 @@ def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
     r["place_s"] = time.perf_counter() - t0
     del params
     release()
-    got, _, ms, ops, _ = mesh_decode(cfg, sp, tokens, fed)
+    got, _, ms, ops, caches = mesh_decode(cfg, sp, tokens, fed, extra)
+    caches = dict(specs.cache_leaves(sharding.full_tree(caches)))
+    if caches.keys() != caches1.keys():
+        raise AssertionError(f"{tag}: cache leaves {sorted(caches)} != "
+                             f"{sorted(caches1)}")
+    r["cache_max_abs_err"] = max(float((caches[k].double()
+                                        - caches1[k].double()).abs().max())
+                                 for k in caches)
+    for k in caches:
+        torch.testing.assert_close(caches[k], caches1[k], rtol=SERVE_TOL,
+                                   atol=SERVE_TOL, msg=lambda m, k=k:
+                                   f"{tag} cache {k}: {m}")
+    del caches, caches1
     r.update(arch=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
              mesh=lmesh.describe(mesh), shards=mesh.size, tol=SERVE_TOL,
              steps=len(got), logit_scale=float(want[0].abs().max()),
@@ -4307,13 +4373,28 @@ def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=SERVE_TOL, atol=SERVE_TOL)
     # the replicas, and the aux loss of the placed MoE layers
-    xs, call = lm.embed_mesh(sp, cfg, tokens)
-    xs, _, aux = lm._run_stack_mesh(sp, xs, cfg, call, mode="prefill")
-    for grp in sharding.groups(mesh, ("model",)):
-        for i in grp[1:]:
-            if not torch.equal(xs[i].to(xs[grp[0]].device), xs[grp[0]]):
-                raise AssertionError(f"{tag}: shard {i}'s activations differ "
-                                     f"from shard {grp[0]}'s")
+    xs, call = lm.embed_mesh(sp, cfg, tokens, extra.get("vis_embeds"))
+
+    def replicas(parts, what):
+        for grp in sharding.groups(mesh, ("model",)):
+            for i in grp[1:]:
+                if not torch.equal(parts[i].to(parts[grp[0]].device),
+                                   parts[grp[0]]):
+                    raise AssertionError(f"{tag}: shard {i}'s {what} differ "
+                                         f"from shard {grp[0]}'s")
+
+    if cfg.family == "encdec":
+        enc = lm._encode_mesh(sp, cfg, call, extra["src_emb"])
+        replicas(enc, "encoder outputs")
+        xs, _ = lm._decode_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                      enc_outs=enc)
+        del enc
+    else:
+        mrope = extra.get("mrope_pos")
+        xs, _, aux = lm._run_stack_mesh(
+            sp, xs, cfg, call, mode="prefill",
+            mrope_pos=None if mrope is None else lm._per_block(mrope, call))
+    replicas(xs, "activations")
     r["replicas_equal"] = True
     r["expert_parallel"] = call.ep
     if cfg.family == "moe":
@@ -4341,7 +4422,8 @@ def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
           f"expert-parallel {call.ep}): {len(got)} steps' logits within "
           f"{r['max_abs_err']:.3g} of the unsharded run's (tol {SERVE_TOL}; "
           f"logits up to {r['logit_scale']:.1f}); 'model' replicas "
-          f"bit-identical; {r['shard_bytes'][0] / 1e9:.3f} GB a shard, as "
+          f"bit-identical; caches within {r['cache_max_abs_err']:.3g}; "
+          f"{r['shard_bytes'][0] / 1e9:.3f} GB a shard, as "
           f"the placements predict; decode {r['decode_ms_mesh']:.2f} ms a "
           f"step ({r['decode_device_ops_mesh']} device ops) vs "
           f"{r['decode_ms_one_device']:.2f} ms "
@@ -4349,7 +4431,8 @@ def mesh_against_one(tag, cfg, seed, g, shape, card, devices="cuda"):
     return r, sp
 
 
-def phase_mesh(seed: int, card: str, served_11a=None) -> dict:
+def phase_mesh(seed: int, card: str, served_11a=None, served_12b=None,
+               served_13a=None) -> dict:
     """The model side over a (data, model) mesh of the one card
     (`repro_torch.launch.mesh`, the reference's placements, Megatron
     tensor parallelism, olmoe's experts in parallel).  16a: granite-3-2b
@@ -4362,7 +4445,18 @@ def phase_mesh(seed: int, card: str, served_11a=None) -> dict:
     4): float32 at 4 layers against the unsharded port, then bf16 at full
     depth, one turn over a PAPER_100K memory.  16d: 16a's placed model
     saved, restored onto (4, 2) and onto `remesh()` over the live cards,
-    every leaf equal."""
+    every leaf equal.  16e-16h: the VLM, SSM, hybrid and enc-dec families
+    as 16a (`MESH_FAMILIES`: qwen2-vl-7b f32 on (1, 4) at 4 layers with
+    vision embeddings and non-default M-RoPE positions, rwkv6-1.6b
+    float64 and zamba2-2.7b f32 on (2, 4) at full depth,
+    seamless-m4t-large-v2 f32 on (1, 4) with source frames), every cache
+    leaf within SERVE_TOL as well; then each in bf16 at full width and
+    depth on (1, 4): qwen2-vl-7b (non-default M-RoPE positions),
+    rwkv6-1.6b and zamba2-2.7b one turn of 12b's workload over one
+    PAPER_100K memory while rows go in (ids equal the plain version's,
+    every insert live, tokens inside the vocabulary), seamless 13a's
+    requests; decode ms beside the unsharded runs of 12b and 13a
+    (`served_12b`, `served_13a`)."""
     from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs import registry
     from repro_torch.configs.ame_paper import PAPER_100K
@@ -4504,11 +4598,178 @@ def phase_mesh(seed: int, card: str, served_11a=None) -> dict:
                  f"{olmoe.num_experts} experts a shard) over PAPER_100K (dim "
                  f"{ecfg.dim}, projected)")
 
+    mesh_families(out, seed, card, g, kernels, excluded, mesh_tp,
+                  served_12b, served_13a)
+
     out.update(path_launches(kernels, excluded))
     for k in ("scan_scores", "kmeans_assign", "segsum_gemm"):
         if out["launches"][k] <= 0:
             raise AssertionError(f"phase 16 never launched {k}")
     return out
+
+
+def mesh_families(out, seed, card, g, kernels, excluded, mesh_tp,
+                  served_12b=None, served_13a=None) -> None:
+    """Phase 16's VLM, SSM, hybrid and enc-dec cases (16e-16h, see
+    `phase_mesh`), written into `out`."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.ame_paper import PAPER_100K
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import serve as srv
+    from repro_torch.models import api, specs
+    from repro_torch.serving import rag, serve_step
+
+    dev = torch.device("cuda")
+    # -- 16e-16h: the other families against the unsharded port ---------
+    for tag, arch, dtype, shape, depth in MESH_FAMILIES:
+        cfg = registry.get_arch(arch).replace(dtype=dtype)
+        if depth:
+            cfg = cfg.replace(num_layers=depth)
+        torch.cuda.reset_peak_memory_stats()
+        r, sp = mesh_against_one(tag, cfg, seed, g, shape, card)
+        r["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del sp
+        release()
+        out[tag] = r
+
+    # -- 16e-16g in bf16: one turn of 12b's workload each on (1, 4) -------
+    ecfg = dataclasses.replace(PAPER_100K, k=SERVE_MEM_K)
+    x = make_corpus(PROJ_ROWS, ecfg.dim, g)
+    svc, coll, stats = srv.build_memory(ecfg, x, device=dev, name="fams")
+    del x
+    n_live = PROJ_ROWS
+    try:
+        for i, (tag, arch) in enumerate(zip(("16e", "16f", "16g"),
+                                            MESH_SERVED)):
+            cfg = registry.get_arch(arch)
+            torch.cuda.reset_peak_memory_stats()
+            params, r = made_model(tag, cfg, seed)
+            sp = specs.place_params(params, cfg, mesh_tp)
+            del params
+            release()
+            step = rag.make_rag_prefill(cfg, ecfg, SERVE_PROMPT + 10,
+                                        k=SERVE_MEM_K, device=dev)
+            margins = []
+
+            def on_turn(turn, snap, batch, ids, step=step, sp=sp, tag=tag,
+                        r=r, cfg=cfg):
+                if cfg.family == "vlm":
+                    m = batch["mrope_pos"]
+                    if torch.equal(m[..., 0], m[..., 1]):
+                        raise AssertionError(f"{tag}: default M-RoPE "
+                                             "positions served")
+                r["score_err"] = check_retrieval(
+                    f"{tag} bf16", snap, step.query(sp, batch["tokens"]),
+                    ids, ecfg, margins, kernels, excluded)
+
+            with vision_positions(api, cfg):
+                served = srv.serve(
+                    cfg, ecfg, sp, svc, coll, requests=SERVE_REQUESTS,
+                    prompt_len=SERVE_PROMPT, decode_steps=SERVE_DECODE,
+                    turns=1, inserts=torch.nn.functional.normalize(
+                        torch.randn(FAMILY_INSERTS, ecfg.dim, generator=g,
+                                    device=dev), dim=1),
+                    seed=seed + 2 + i, on_turn=on_turn)
+            n_live += FAMILY_INSERTS
+            if not torch.equal(live_ids(coll), torch.arange(
+                    n_live, dtype=torch.int32, device=dev)):
+                raise AssertionError(f"{tag} bf16: acknowledged inserts are "
+                                     "not all live")
+            check_tokens(f"{tag} bf16", served, cfg)
+            if "score_err" not in r:
+                raise AssertionError(f"{tag} bf16: no retrieval checked")
+            r.update(served_numbers(served), min_topk_margin=min(margins),
+                     mesh=lmesh.describe(mesh_tp),
+                     peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+            del sp, step, on_turn
+            release()
+            one = (served_12b or {}).get(arch)
+            if one is not None:
+                r["decode_p50_ms_one_device"] = one["decode_p50_ms"]
+            print_served(f"{tag} bf16", card, cfg, r, f"on {r['mesh']} over "
+                         f"PAPER_100K (dim {ecfg.dim}, projected)"
+                         + (f"; unsharded (12b) decode p50 "
+                            f"{one['decode_p50_ms']:.3f} ms/token"
+                            if one is not None else ""))
+            out[tag]["bf16_full_depth"] = r
+    finally:
+        srv.close(svc)
+    del svc, coll
+    release()
+
+    # -- 16h in bf16: 13a's requests on (1, 4) ----------------------------
+    cfg = registry.get_arch(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params, h = made_model("16h", cfg, seed)
+    sp = specs.place_params(params, cfg, mesh_tp)
+    del params
+    release()
+    batch = api.synth_batch(g, cfg, "prefill", ENCDEC_REQUESTS, ENCDEC_SEQ)
+    s_max = batch["tokens"].shape[1] + ENCDEC_DECODE
+    prefill = serve_step.make_prefill(cfg, s_max)
+    decode = serve_step.make_decode(cfg)
+    (tok, caches, pos), h["prefill_ms"] = synced_ms(lambda: prefill(sp,
+                                                                   batch))
+    toks, dec_ms = [tok], []
+    for _ in range(ENCDEC_DECODE - 1):
+        pos = pos + 1
+        (tok, caches), ms = synced_ms(lambda: decode(sp, tok, caches, pos))
+        toks.append(tok)
+        dec_ms.append(ms)
+    toks = torch.cat(toks, dim=1)
+    if tuple(toks.shape) != (ENCDEC_REQUESTS, ENCDEC_DECODE) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"16h bf16: tokens {tuple(toks.shape)} outside "
+                             "the vocabulary or the requests")
+    if not all(t.mesh == mesh_tp for _, t in specs.cache_leaves(caches)):
+        raise AssertionError("16h bf16: caches not placed on the mesh")
+    h.update(src_frames=batch["src_emb"].shape[1],
+             prompt_tokens=batch["tokens"].shape[1],
+             decode_p50_ms=float(np.percentile(dec_ms, 50)),
+             decode_p95_ms=float(np.percentile(dec_ms, 95)),
+             mesh=lmesh.describe(mesh_tp),
+             peak_GiB=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if served_13a is not None:
+        h["decode_p50_ms_one_device"] = served_13a["decode_p50_ms"]
+    del sp, caches, prefill, decode, batch
+    release()
+    out["16h"]["bf16_full_depth"] = h
+    print(f"  16h bf16 [{card}]: {cfg.name} ({h['weight_GB']:.2f} GB "
+          f"{cfg.dtype}) on {h['mesh']}, {ENCDEC_REQUESTS} requests x "
+          f"({h['src_frames']} frames + {h['prompt_tokens']} tokens): "
+          f"prefill {h['prefill_ms']:.3f} ms, decode p50/p95 "
+          f"{h['decode_p50_ms']:.3f}/{h['decode_p95_ms']:.3f} ms/token"
+          + (f" (unsharded, 13a: {served_13a['decode_p50_ms']:.3f})"
+             if served_13a is not None else "")
+          + f", peak {h['peak_GiB']:.1f} GiB", flush=True)
+
+
+class vision_positions:
+    """While open, qwen2-vl's served batches (`api.synth_batch`, which the
+    serve entry point draws its requests from) carry `mrope_grid` positions:
+    the vision embeddings' patch grid MESH_VIS_GRID wide, then text."""
+
+    def __init__(self, api, cfg):
+        self.api, self.cfg = api, cfg
+
+    def __enter__(self):
+        self.real = real = self.api.synth_batch
+
+        def synth(gen, cfg, kind, batch, seq):
+            out = real(gen, cfg, kind, batch, seq)
+            if "mrope_pos" in out:
+                out["mrope_pos"] = mrope_grid(
+                    batch, seq, out["vis_embeds"].shape[1], MESH_VIS_GRID,
+                    gen.device)
+            return out
+
+        if self.cfg.family == "vlm":
+            self.api.synth_batch = synth
+        return self
+
+    def __exit__(self, *exc):
+        self.api.synth_batch = self.real
+        return False
 
 
 def main(argv=None) -> int:
@@ -4636,7 +4897,8 @@ def main(argv=None) -> int:
     # 16. the (data, model) mesh on the serving path (after phase 15's
     # memory is freed), the counts set to 0 just before
     t0 = time.perf_counter()
-    paths["mesh"] = msh = phase_mesh(args.seed, card, sv["11a"])
+    paths["mesh"] = msh = phase_mesh(args.seed, card, sv["11a"],
+                                     fam["12b"], ed["13a"])
     print(f"phase 16: mesh in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(msh), flush=True)
     release()

@@ -15,14 +15,15 @@ reference's 16 x 16 (data, model) mesh (`repro_torch.launch.mesh`): 256
 cards, or with ``--device`` all 256 shards on that one device; the memory
 stays one collection on its own device.
 
-Every decoder-only family serves (dense, MoE, VLM, SSM, hybrid); the
-enc-dec arch is refused, as the reference refuses it
-(``repro_torch.serving.serve_step.generate`` serves it without the memory).  `build_memory` and
-`serve` are the body of `main`, callable at any width (``chip_smoke.py``
-phases 11 and 12 serve granite-3-2b, olmoe-1b-7b, deepseek-moe-16b,
-qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b at full width through them, and
-phase 16 granite-3-2b and olmoe-1b-7b placed on a (data, model) mesh of
-the one card).
+Every decoder-only family serves (dense, MoE, VLM, SSM, hybrid), on one
+device or placed on the mesh; the enc-dec arch is refused, as the
+reference refuses it (``repro_torch.serving.serve_step.generate`` serves
+it without the memory, placed or not).  `build_memory` and `serve` are
+the body of `main`, callable at any width (``chip_smoke.py`` phases 11
+and 12 serve granite-3-2b, olmoe-1b-7b, deepseek-moe-16b, qwen2-vl-7b,
+rwkv6-1.6b and zamba2-2.7b at full width through them, and phase 16
+granite-3-2b, olmoe-1b-7b, qwen2-vl-7b, rwkv6-1.6b and zamba2-2.7b placed
+on a (data, model) mesh of the one card).
 """
 from __future__ import annotations
 

@@ -251,10 +251,14 @@ def self_attention(p: Attention, x, cfg: ModelConfig, *, mode: str,
 
 
 def cross_attention(p: Attention, x, enc_kv: KVCache, cfg: ModelConfig,
-                    enc_len=None):
+                    enc_len=None, kv_heads: Optional[slice] = None):
     """Decoder cross-attention over the encoder's K/V [B, Sk, KVH, Dh] (no
     RoPE, no q/k norm, as in the reference); `enc_len` int[B] masks the
-    keys at and past each row's length.  Scores and softmax in f32."""
+    keys at and past each row's length.  Scores and softmax in f32.
+    `kv_heads`: the kv heads of `enc_kv` to attend with (a model shard
+    that holds every kv head; `local_kv_heads`), as in `self_attention`."""
+    if kv_heads is not None:
+        enc_kv = KVCache(enc_kv.k[:, :, kv_heads], enc_kv.v[:, :, kv_heads])
     q = _proj(x, p.wq)
     b, sq, h, dh = q.shape
     kvh = enc_kv.k.shape[2]

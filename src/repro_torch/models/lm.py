@@ -26,16 +26,27 @@ q-heads are padded up to the next multiple of 16, so parameter shapes
 match the reference's leaf for leaf.
 
 Over a mesh: `prefill` and `decode_step` take a model placed by
-`specs.place_params` (`specs.ShardedLM`) for the dense and MoE families.
-One process drives every shard, one after another (on several cards their
-launches overlap).  The batch splits over the data axes where it divides;
-each shard gathers a layer's FSDP pieces over 'data' once a call, then
-runs Megatron-style tensor parallelism over 'model': the embedding by
-vocab rows, column-parallel q/k/v and gate/up, row-parallel out/down, one
+`specs.place_params` (`specs.ShardedLM`), every family.  One process
+drives every shard, one after another (on several cards their launches
+overlap).  The batch splits over the data axes where it divides; each
+shard gathers a layer's FSDP pieces over 'data' once a call, then runs
+Megatron-style tensor parallelism over 'model': the embedding by vocab
+rows, column-parallel q/k/v and gate/up, row-parallel out/down, one
 `sharding.all_sum` over 'model' a sub-block, the MoE experts over 'model'
-(`moe.moe_apply_sharded`), logits by vocab columns.  The logits come back
-as a `sharding.Placed` ([B, Vp], vocab over 'model'), the caches as
-placed K/V (`attention.KVCache.shardit`'s policy), the positions whole.
+(`moe.moe_apply_sharded`), logits by vocab columns.  qwen2-vl splices each
+data block's vision embeddings and rotates by its M-RoPE positions.
+rwkv6's time mix runs on each shard's whole heads (the WKV and its
+GroupNorm head-local, wo by rows), its channel mix sums a row-parallel
+value and gathers the receptance's product.  zamba2's mamba2 layers run
+on each shard's heads with B/C whole, the gated RMSNorm's sum of squares
+summed over 'model' first, out_proj by rows; its shared block is planned
+on its own unstacked leaves.  seamless's encoder, decoder and
+cross-attention each take their own plan.  Where a family's heads do not
+divide over 'model' those matrices run whole on every shard.  The logits
+come back as a `sharding.Placed` ([B, Vp], vocab over 'model'), the
+caches as placed leaves (K/V by `attention.kv_placement`, the recurrent
+states by heads, rwkv6's shifts whole, mamba2's conv window a
+`sharding.Joined`), the positions whole.
 """
 from __future__ import annotations
 
@@ -321,12 +332,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, *,
 def _embed_inputs(params: LM, cfg: ModelConfig, batch: Dict):
     x = layers.embed_apply(params.embed, batch["tokens"], cfg)
     if cfg.family == "vlm" and "vis_embeds" in batch:
-        # the stub vision tower's patch embeddings take the first positions
-        v = batch["vis_embeds"].to(x.dtype)
-        if v.shape[1] > x.shape[1]:
-            raise ValueError(f"{v.shape[1]} vision embeddings for "
-                             f"{x.shape[1]} positions")
-        x = torch.cat([v, x[:, v.shape[1]:]], dim=1)
+        x = _splice_vision(x, batch["vis_embeds"])
     return x
 
 
@@ -430,8 +436,9 @@ def init_caches(cfg: ModelConfig, batch: int, s_max: int, device=None):
 
 
 def _kv_caches(cfg: ModelConfig, n: int, batch: int, s_max: int,
-               device) -> KVCache:
-    shape = (n, batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+               device, kv_heads: int = 0) -> KVCache:
+    """Zero K/V [n, B, s_max, KVH, Dh] (`kv_heads`: a model shard's KVH)."""
+    shape = (n, batch, s_max, kv_heads or cfg.num_kv_heads, cfg.head_dim)
     dt = layers.torch_dtype(cfg.dtype)
     return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
                    v=torch.zeros(shape, dtype=dt, device=device))
@@ -508,11 +515,8 @@ def _decode_stack(params: LM, cfg: ModelConfig, x, enc_out, *, mode: str,
 
 
 # ===========================================================================
-# over a mesh (the dense and MoE families)
+# over a mesh
 # ===========================================================================
-
-_MESH_FAMILIES = ("dense", "moe")
-
 
 def mesh_of(params, cfg: ModelConfig) -> Optional[ShardMesh]:
     """The mesh a call runs on: a placed model's own (the active mesh, if
@@ -528,16 +532,14 @@ def mesh_of(params, cfg: ModelConfig) -> Optional[ShardMesh]:
     if mesh is not None and mesh != params.mesh:
         raise ValueError("the model is placed on another mesh than the "
                          "active one")
-    if cfg.family not in _MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run on a mesh "
-            "yet (the dense and MoE families do; the VLM, SSM, hybrid and "
-            "enc-dec families come with a later slice of the mesh)")
+    _check(cfg)
     return params.mesh
 
 
 class MeshCall(NamedTuple):
-    """One call's layout on the mesh."""
+    """One call's layout on the mesh, with the plan of one group of
+    attention blocks (`_mesh_call`'s keys: the decoder-only stack's by
+    default)."""
     mesh: ShardMesh
     batch: int              # the whole batch
     batch_entry: object     # the batch dim's placement (None: replicated)
@@ -551,38 +553,70 @@ class MeshCall(NamedTuple):
     emb: list               # per shard: the embedding table, gathered
 
 
-def _mesh_call(sp: specs.ShardedLM, cfg: ModelConfig, b: int) -> MeshCall:
+def _mesh_call(sp: specs.ShardedLM, cfg: ModelConfig, b: int,
+               attn_key: str = "blocks.attn.", mlp_key: str = "blocks.mlp.",
+               emb: Optional[list] = None) -> MeshCall:
+    """The layout of a call of batch `b`, planned for the attention leaves
+    under `attn_key` and the MLP under `mlp_key` (zamba2's shared block,
+    seamless's encoder, decoder and cross-attention have their own);
+    `emb`: the gathered embedding, where an earlier plan has it."""
     mesh = sp.mesh
     sizes = sharding.axis_sizes(mesh)
     m = sizes.get("model", 1)
     dp = math.prod(sizes[a] for a in ("pod", "data") if a in sizes)
     entry = sharding.placement((b,), "batch", mesh=mesh)[0]
-    attn_tp = sp.tp_split("blocks.attn.wq", 1)
-    kv_split = sp.tp_split("blocks.attn.wk", 1)
+    attn_tp = sp.tp_split(attn_key + "wq", 1)
+    kv_split = sp.tp_split(attn_key + "wk", 1)
     kv_heads = [None] * mesh.size
     if attn_tp and not kv_split:
         kv_heads = [attn.local_kv_heads(heads_padded(cfg), cfg.num_kv_heads,
-                                        sharding.coords(mesh, i)["model"], m)
+                                        _model_coord(mesh, i), m)
                     for i in range(mesh.size)]
     moe_fam = cfg.family == "moe"
     # the reference's shard_map branch: model > 1, b % dp == 0, E % model
     ep = moe_fam and m > 1 and b % dp == 0 and sp.tp_split(
-        "blocks.mlp.wi", 0)
+        f"{mlp_key}wi", 0)
     shared = moe_fam and cfg.num_shared_experts > 0
     return MeshCall(
         mesh=mesh, batch=b, batch_entry=entry, batch_split=b % dp == 0,
         attn_tp=attn_tp, kv_heads=tuple(kv_heads),
         kv_local=cfg.num_kv_heads // (m if kv_split else 1),
-        mlp_tp=not moe_fam and sp.tp_split("blocks.mlp.wi", 1),
+        mlp_tp=not moe_fam and sp.tp_split(f"{mlp_key}wi", 1),
         ep=ep, shared_tp=ep and shared and sp.tp_split(
-            "blocks.mlp.shared.wi", 1),
-        emb=sp.gathered("embed."))
+            f"{mlp_key}shared.wi", 1),
+        emb=sp.gathered("embed.") if emb is None else emb)
 
 
-def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens):
+def _model_width(mesh: ShardMesh) -> int:
+    return sharding.axis_sizes(mesh).get("model", 1)
+
+
+def _model_coord(mesh: ShardMesh, i: int) -> int:
+    return sharding.coords(mesh, i).get("model", 0)
+
+
+def _splice_vision(x, v):
+    """The stub vision tower's patch embeddings `v` [B, Nv, D] in the
+    first positions of `x` [B, S, D]."""
+    v = v.to(x.dtype)
+    if v.shape[1] > x.shape[1]:
+        raise ValueError(f"{v.shape[1]} vision embeddings for "
+                         f"{x.shape[1]} positions")
+    return torch.cat([v, x[:, v.shape[1]:]], dim=1)
+
+
+def _per_block(t, call: MeshCall) -> list:
+    """A whole batch tensor [B, ...] as each shard's data block."""
+    return list(sharding.place(t, (call.batch_entry,) + (None,) * (
+        t.dim() - 1), call.mesh).parts)
+
+
+def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens,
+               vis_embeds=None):
     """The tokens [B, S] embedded on the mesh: (per shard its data block's
     embeddings [B_l, S, D], the call's layout).  A vocab-cut table looks up
-    its own rows and the sum over 'model' fills in the rest exactly."""
+    its own rows and the sum over 'model' fills in the rest exactly.
+    qwen2-vl's `vis_embeds` [B, Nv, D] take each block's first positions."""
     call = _mesh_call(sp, cfg, tokens.shape[0])
     mesh = sp.mesh
     parts = sharding.place(tokens, (call.batch_entry, None), mesh).parts
@@ -595,15 +629,45 @@ def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens):
         rows.append(layers.embed_rows(e.table, t, v0))
     if split:
         rows = sharding.all_sum(rows, mesh, "model")
-    return [layers.embed_finish(r, cfg) for r in rows], call
+    xs = [layers.embed_finish(r, cfg) for r in rows]
+    if cfg.family == "vlm" and vis_embeds is not None:
+        xs = [_splice_vision(x, v)
+              for x, v in zip(xs, _per_block(vis_embeds, call))]
+    return xs, call
+
+
+def _attn_mesh(ps, hs, cfg: ModelConfig, call: MeshCall, *, mode: str,
+               window: int, positions, kvs, layer: int, pos, mrope_pos=None,
+               causal: bool = True):
+    """Self-attention on every shard (`ps` per shard the attention leaves,
+    `hs` its normed activations), summed over 'model' where the heads are
+    cut.  Prefill writes each shard's K/V into `kvs` (per shard a stacked
+    KVCache) at `layer`; decode writes the token's rows there in place."""
+    outs = []
+    for i, (p, h) in enumerate(zip(ps, hs)):
+        cache = (KVCache(kvs[i].k[layer], kvs[i].v[layer])
+                 if mode == "decode" else None)
+        o, kv = attn.self_attention(
+            p, h, _acfg(cfg), mode=mode, positions=positions[i],
+            mrope_pos=None if mrope_pos is None else mrope_pos[i],
+            cache=cache, pos=None if pos is None else pos[i], window=window,
+            causal=causal, kv_heads=call.kv_heads[i])
+        if mode == "prefill":
+            kvs[i].k[layer, :, :h.shape[1]] = kv.k
+            kvs[i].v[layer, :, :h.shape[1]] = kv.v
+        outs.append(o)
+    return sharding.all_sum(outs, call.mesh, "model") if call.attn_tp \
+        else outs
 
 
 def _block_mesh(bl, xs, cfg: ModelConfig, call: MeshCall, *, mode: str,
-                window: int, positions, kvs, layer: int, pos):
-    """One dense/MoE layer on every shard: `bl` per shard the layer's
-    leaves (FSDP gathered), `xs` per shard its data block's activations.
-    Prefill writes each shard's K/V into `kvs`; decode writes the token's
-    rows there in place.  Returns (xs, aux)."""
+                window: int, positions, kvs, layer: int, pos, mrope_pos=None,
+                causal: bool = True):
+    """One dense/MoE/VLM layer on every shard (also zamba2's shared block
+    and seamless's encoder layers, non-causal in train mode): `bl` per
+    shard the layer's leaves (FSDP gathered), `xs` per shard its data
+    block's activations.  Prefill writes each shard's K/V into `kvs`;
+    decode writes the token's rows there in place.  Returns (xs, aux)."""
     mesh = call.mesh
 
     def norm(t, w):
@@ -613,19 +677,10 @@ def _block_mesh(bl, xs, cfg: ModelConfig, call: MeshCall, *, mode: str,
         return sharding.all_sum(parts, mesh, "model") if cut else parts
 
     hs = [norm(x, b.ln_attn) for x, b in zip(xs, bl)]
-    outs = []
-    for i, (b, h) in enumerate(zip(bl, hs)):
-        cache = (KVCache(kvs[i].k[layer], kvs[i].v[layer])
-                 if mode == "decode" else None)
-        o, kv = attn.self_attention(
-            b.attn, h, _acfg(cfg), mode=mode, positions=positions[i],
-            cache=cache, pos=None if pos is None else pos[i], window=window,
-            kv_heads=call.kv_heads[i])
-        if mode == "prefill":
-            kvs[i].k[layer, :, :h.shape[1]] = kv.k
-            kvs[i].v[layer, :, :h.shape[1]] = kv.v
-        outs.append(o)
-    outs = tp_sum(outs, call.attn_tp)
+    outs = _attn_mesh([b.attn for b in bl], hs, cfg, call, mode=mode,
+                      window=window, positions=positions, kvs=kvs,
+                      layer=layer, pos=pos, mrope_pos=mrope_pos,
+                      causal=causal)
     if cfg.post_norm:
         outs = [norm(o, b.ln_attn_post) for o, b in zip(outs, bl)]
     if cfg.parallel_block:
@@ -650,32 +705,325 @@ def _block_mesh(bl, xs, cfg: ModelConfig, call: MeshCall, *, mode: str,
 
 def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
                     call: MeshCall, *, mode: str, kvs=None, pos=None,
-                    s_max: int = 0):
-    """The layers in order on every shard (prefill: the shards' caches
-    ``[L, B_l, max(S, s_max), KVH_l, Dh]`` made here; decode: `kvs` and
-    `pos` per shard).  Returns (xs, kvs, aux)."""
+                    s_max: int = 0, mrope_pos=None):
+    """The layers in order on every shard, for every decoder-only family
+    (prefill: the shards' caches made here, the attention caches
+    ``[L, B_l, max(S, s_max), KVH_l, Dh]``; decode: `kvs`, per shard its
+    cache tree, written in place, and `pos` per shard; `mrope_pos` per
+    shard, qwen2-vl's, else the positions broadcast to 3).  Returns (xs,
+    per shard its caches, aux)."""
+    _require_decoder(cfg)
     s = xs[0].shape[1]
     if mode == "prefill":
         positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
                      for x in xs]
-        dt = layers.torch_dtype(cfg.dtype)
-        kvs = [KVCache(*(torch.zeros(
-            (cfg.num_layers, x.shape[0], max(s, s_max), call.kv_local,
-             cfg.head_dim), dtype=dt, device=x.device) for _ in range(2)))
-            for x in xs]
     else:
         positions = [p[:, None] for p in pos]
+    aux = torch.zeros((), device=xs[0].device)
+    if cfg.family == "ssm":
+        xs, kvs = _rwkv_stack_mesh(sp, xs, cfg, call, mode=mode, caches=kvs)
+        return xs, kvs, aux
+    if cfg.family == "hybrid":
+        xs, kvs = _zamba_stack_mesh(sp, xs, cfg, call, mode=mode, caches=kvs,
+                                    positions=positions, pos=pos, s_max=s_max)
+        return xs, kvs, aux
+    if mrope_pos is None and cfg.family == "vlm":
+        mrope_pos = [p[..., None].expand(*p.shape, 3) for p in positions]
+    if mode == "prefill":
+        kvs = [_kv_caches(cfg, cfg.num_layers, x.shape[0], max(s, s_max),
+                          x.device, call.kv_local) for x in xs]
     whole = "mlp." if cfg.family == "moe" and not call.ep else None
     windows = _layer_windows(cfg, cfg.num_layers)
-    aux = torch.zeros((), device=xs[0].device)
     for l in range(cfg.num_layers):
         bl = sp.gathered("blocks.", layer=l, whole=whole)
         xs, a = _block_mesh(bl, xs, cfg, call, mode=mode, window=windows[l],
-                            positions=positions, kvs=kvs, layer=l, pos=pos)
+                            positions=positions, kvs=kvs, layer=l, pos=pos,
+                            mrope_pos=mrope_pos)
         if a is not None:
             aux = aux + a
         del bl
     return xs, kvs, aux
+
+
+# rwkv6's time-mix matrices: cut over 'model' together (whole heads), or
+# all used whole where the heads do not divide
+_TIME_MIX = ("wr", "wk", "wv", "wg", "ww", "wo")
+
+
+def _rwkv_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
+                     call: MeshCall, *, mode: str, caches):
+    """rwkv6's layers on every shard.  The time mix runs on each shard's
+    H/m whole heads (wr..ww by columns, the WKV and its GroupNorm
+    head-local, wo by rows: one sum over 'model'); the channel mix's
+    cwk/cwv give a partial value (one sum) and cwr each shard's slice of
+    the receptance, whose product with the value is gathered over
+    'model'.  The shifts see the whole hidden.  Prefill starts from zero
+    states.  Returns (xs, per shard its `RWKVCache` [L, ...]: state over
+    its heads, shifts whole)."""
+    mesh = call.mesh
+    m = _model_width(mesh)
+    heads = cfg.d_model // cfg.ssm_head_dim
+    time_tp = sp.tp_split("blocks.wr", 1) and heads % m == 0
+    r_tp = sp.tp_split("blocks.cwr", 1)
+    k_tp = sp.tp_split("blocks.cwk", 1)
+    if caches is None:
+        caches = [rwkv6.RWKVCache.init(
+            x.shape[0], cfg, x.dtype, x.device, (cfg.num_layers,),
+            heads=heads // m if time_tp else heads) for x in xs]
+    for l in range(cfg.num_layers):
+        bl = sp.gathered("blocks.", layer=l,
+                         whole=None if time_tp else _TIME_MIX)
+        if time_tp:
+            for i, b in enumerate(bl):
+                _rwkv_heads(b, cfg, _model_coord(mesh, i), m)
+        ys = []
+        for b, x, c in zip(bl, xs, caches):
+            h = layers.rms_norm(x, b.ln1, cfg.norm_eps)
+            y, c.state[l], c.x_att[l] = rwkv6.time_mix(b, h, cfg, c.state[l],
+                                                       c.x_att[l])
+            ys.append(y)
+        if time_tp:
+            ys = sharding.all_sum(ys, mesh, "model")
+        pairs = [_add_norm(x, y, b.ln2, cfg) for x, y, b in zip(xs, ys, bl)]
+        xs = [p[0] for p in pairs]
+        rs, vs = [], []
+        for b, (_, h2), c in zip(bl, pairs, caches):
+            r, v, c.x_ffn[l] = rwkv6.channel_parts(b, h2, c.x_ffn[l])
+            rs.append(r)
+            vs.append(v)
+        if k_tp:
+            vs = sharding.all_sum(vs, mesh, "model")
+        if r_tp:
+            n = rs[0].shape[-1]
+            ys = sharding.all_gather(
+                [r * v.narrow(-1, _model_coord(mesh, i) * n, n)
+                 for i, (r, v) in enumerate(zip(rs, vs))], mesh, "model", -1)
+        else:
+            ys = [r * v for r, v in zip(rs, vs)]
+        xs = [x + y for x, y in zip(xs, ys)]
+        del bl
+    return xs, caches
+
+
+def _rwkv_heads(b, cfg: ModelConfig, c: int, m: int) -> None:
+    """A model shard's time mix: its w_bias, ln_x (channels) and u (heads)
+    of the replicated whole leaves, in the namespace `b`."""
+    n = cfg.d_model // m
+    cols = slice(c * n, (c + 1) * n)
+    heads = slice(c * n // cfg.ssm_head_dim, (c + 1) * n // cfg.ssm_head_dim)
+    b.w_bias, b.ln_x, b.u = b.w_bias[cols], b.ln_x[cols], b.u[heads]
+
+
+# mamba2's head-parallel matrices (w_x, w_z, w_dt by columns, out_proj by
+# rows), or all used whole where the heads do not divide
+_SSM_CUT = ("w_x", "w_z", "w_dt", "out_proj")
+
+
+def _zamba_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
+                      call: MeshCall, *, mode: str, caches, positions, pos,
+                      s_max: int):
+    """zamba2's groups on every shard: each mamba2 layer on the shard's
+    H/m whole heads (w_bc whole, so every shard computes all of B/C), its
+    gated RMSNorm over the whole of d_inner (each shard's sum of squares
+    summed over 'model' first), out_proj by rows (one sum); then the
+    shared attention block (`_block_mesh`, planned on its own leaves: its
+    MLP is unstacked, so column/row-parallel) with each group's KV cache.
+    Returns (xs, per shard its `ZambaCaches`: mamba state over its heads,
+    conv window [L, B_l, W-1, di_l + 2N] (its x channels, then every B/C
+    channel), the shared block's K/V)."""
+    mesh = call.mesh
+    m = _model_width(mesh)
+    ssm_tp = sp.tp_split("blocks.w_dt", 1) and sp.tp_split("blocks.w_x", 1)
+    period = cfg.shared_block_period
+    n_groups = cfg.num_layers // period
+    shared = _mesh_call(sp, cfg, call.batch, "shared_attn.attn.",
+                        "shared_attn.mlp.", emb=call.emb)
+    if mode == "prefill":
+        s = xs[0].shape[1]
+        caches = [ZambaCaches(
+            mamba=mamba2.MambaCache.init(
+                x.shape[0], cfg, x.dtype, x.device, (cfg.num_layers,),
+                heads=cfg.ssm_heads // m if ssm_tp else cfg.ssm_heads),
+            attn=_kv_caches(cfg, n_groups, x.shape[0], max(s, s_max),
+                            x.device, shared.kv_local)) for x in xs]
+    sbl = sp.gathered("shared_attn.")
+    for g in range(n_groups):
+        for l in range(g * period, (g + 1) * period):
+            bl = sp.gathered("blocks.", layer=l,
+                             whole=None if ssm_tp else _SSM_CUT)
+            if ssm_tp:
+                for i, b in enumerate(bl):
+                    _mamba_heads(b, cfg, _model_coord(mesh, i), m)
+            ygs = []
+            for b, x, c in zip(bl, xs, caches):
+                mc = (mamba2.MambaCache(c.mamba.state[l], c.mamba.conv[l])
+                      if mode == "decode" else None)
+                yg, new = mamba2.mamba_gated(
+                    b, layers.rms_norm(x, b.ln, cfg.norm_eps), cfg,
+                    mode=mode, cache=mc, chunk=128)
+                c.mamba.state[l], c.mamba.conv[l] = new
+                ygs.append(yg)
+            var = [None] * len(ygs)
+            if ssm_tp:
+                var = [q / cfg.ssm_d_inner for q in sharding.all_sum(
+                    [(y * y).sum(-1, keepdim=True) for y in ygs], mesh,
+                    "model")]
+            outs = [mamba2.mamba_out(b, y, cfg, x.dtype, v)
+                    for b, y, x, v in zip(bl, ygs, xs, var)]
+            if ssm_tp:
+                outs = sharding.all_sum(outs, mesh, "model")
+            xs = [x + o for x, o in zip(xs, outs)]
+            del bl
+        xs, _ = _block_mesh(sbl, xs, cfg, shared, mode=mode, window=0,
+                            positions=positions,
+                            kvs=[c.attn for c in caches], layer=g, pos=pos)
+    return xs, caches
+
+
+def _mamba_heads(b, cfg: ModelConfig, c: int, m: int) -> None:
+    """A model shard's mixer: its conv_x and norm (channels) and A_log, D,
+    dt_bias (heads) of the replicated whole leaves, in the namespace `b`."""
+    n, h = cfg.ssm_d_inner // m, cfg.ssm_heads // m
+    cols, heads = slice(c * n, (c + 1) * n), slice(c * h, (c + 1) * h)
+    b.conv_x, b.norm = b.conv_x[:, cols], b.norm[cols]
+    b.A_log, b.D, b.dt_bias = b.A_log[heads], b.D[heads], b.dt_bias[heads]
+
+
+def _encode_mesh(sp: specs.ShardedLM, cfg: ModelConfig, call: MeshCall,
+                 src_emb):
+    """The encoder on every shard over its data block of the source
+    frames [B, Se, D] (`_block_mesh` non-causal, planned on the encoder's
+    leaves), then ``enc_final_norm``."""
+    enc = _mesh_call(sp, cfg, call.batch, "enc_blocks.attn.",
+                     "enc_blocks.mlp.", emb=call.emb)
+    xs = _per_block(src_emb.to(layers.torch_dtype(cfg.dtype)), call)
+    s = xs[0].shape[1]
+    positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
+                 for x in xs]
+    for l in range(cfg.num_enc_layers):
+        bl = sp.gathered("enc_blocks.", layer=l)
+        xs, _ = _block_mesh(bl, xs, cfg, enc, mode="train", window=0,
+                            positions=positions, kvs=None, layer=l, pos=None,
+                            causal=False)
+        del bl
+    return [layers.rms_norm(x, f, cfg.norm_eps, gemma_style=True)
+            for x, f in zip(xs, sp.leaf("enc_final_norm"))]
+
+
+def _decode_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
+                       call: MeshCall, *, mode: str, caches=None,
+                       enc_outs=None, pos=None, s_max: int = 0):
+    """seamless's decoder layers on every shard: self-attention, then
+    cross-attention (its own plan: q heads and wo cut like the self
+    attention's, the kv heads cut or attended by `local_kv_heads`) over the
+    encoder's K/V, then the MLP.  Prefill makes each shard's ``{"self":
+    KV [L_dec, B_l, max(S, s_max), KVH_l, Dh], "cross": KV [L_dec, B_l,
+    Se, KVH_l, Dh]}`` from `enc_outs`; decode writes the token's rows
+    into ``caches[i]["self"]``.  Returns (xs, per shard its caches)."""
+    dec = _mesh_call(sp, cfg, call.batch, "dec_blocks.attn.",
+                     "dec_blocks.mlp.", emb=call.emb)
+    cross = _mesh_call(sp, cfg, call.batch, "dec_blocks.cross.",
+                       "dec_blocks.mlp.", emb=call.emb)
+    mesh, acfg = call.mesh, _acfg(cfg)
+    s = xs[0].shape[1]
+    if mode == "prefill":
+        positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
+                     for x in xs]
+        caches = [{"self": _kv_caches(cfg, cfg.num_dec_layers, x.shape[0],
+                                      max(s, s_max), x.device, dec.kv_local),
+                   "cross": _kv_caches(cfg, cfg.num_dec_layers, x.shape[0],
+                                       e.shape[1], x.device, cross.kv_local)}
+                  for x, e in zip(xs, enc_outs)]
+    else:
+        positions = [p[:, None] for p in pos]
+
+    def tp_sum(parts, cut: bool):
+        return sharding.all_sum(parts, mesh, "model") if cut else parts
+
+    for l in range(cfg.num_dec_layers):
+        bl = sp.gathered("dec_blocks.", layer=l)
+        hs = [layers.rms_norm(x, b.ln_attn, cfg.norm_eps, gemma_style=True)
+              for x, b in zip(xs, bl)]
+        outs = _attn_mesh([b.attn for b in bl], hs, cfg, dec, mode=mode,
+                          window=0, positions=positions,
+                          kvs=[c["self"] for c in caches], layer=l, pos=pos)
+        pairs = [_add_norm(x, a, b.ln_cross, cfg, gemma_style=True)
+                 for x, a, b in zip(xs, outs, bl)]
+        xs = [p[0] for p in pairs]
+        cos = []
+        for i, (b, (_, hc), c) in enumerate(zip(bl, pairs, caches)):
+            cc = c["cross"]
+            if mode == "prefill":
+                kv = attn.cross_kv(b.cross, enc_outs[i], acfg)
+                cc.k[l], cc.v[l] = kv.k, kv.v
+            cos.append(attn.cross_attention(
+                b.cross, hc, KVCache(cc.k[l], cc.v[l]), acfg,
+                kv_heads=cross.kv_heads[i]))
+        pairs = [_add_norm(x, co, b.ln_mlp, cfg, gemma_style=True)
+                 for x, co, b in zip(xs, tp_sum(cos, cross.attn_tp), bl)]
+        ms = tp_sum([layers.mlp_apply(b.mlp, h2, cfg.act)
+                     for b, (_, h2) in zip(bl, pairs)], dec.mlp_tp)
+        xs = [x + mo for (x, _), mo in zip(pairs, ms)]
+        del bl
+    return xs, caches
+
+
+def _placed(parts, spec, call: MeshCall, shape) -> sharding.Placed:
+    """The shards' pieces as a `Placed` of `shape`, checked against it."""
+    if sharding.local_shape(shape, spec, call.mesh) != tuple(parts[0].shape):
+        raise AssertionError(f"cache pieces {tuple(parts[0].shape)} do not "
+                             f"match the placement {spec} of {shape}")
+    return sharding.Placed(tuple(parts), tuple(spec), call.mesh, shape)
+
+
+def _placed_caches(cfg: ModelConfig, call: MeshCall, local, s_kv: int):
+    """Per shard cache trees (`local`) as one tree of placed leaves: the
+    K/V by `attention.kv_placement`, the recurrent states over 'model'
+    where the shards hold their own heads, the batch over the data axes
+    where it divides (rwkv6's shifts, every B/C column of mamba2's conv
+    window and the states of uncut heads replicated over 'model')."""
+    b, be = call.batch, call.batch_entry
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+
+    def kvp(parts, n, s):
+        shape = (n, b, s) + kv
+        return KVCache(*(_placed([getattr(c, f) for c in parts],
+                                 attn.kv_placement(call.mesh, shape), call,
+                                 shape) for f in ("k", "v")))
+
+    def heads_cut(local_heads: int, heads: int):
+        return "model" if local_heads != heads else None
+
+    if cfg.family in _ATTN:
+        return kvp(local, cfg.num_layers, s_kv)
+    if cfg.family == "encdec":
+        se = local[0]["cross"].k.shape[2]
+        return {"self": kvp([c["self"] for c in local], cfg.num_dec_layers,
+                            s_kv),
+                "cross": kvp([c["cross"] for c in local], cfg.num_dec_layers,
+                             se)}
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        h, hd = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+        st = [c.state for c in local]
+        return rwkv6.RWKVCache(
+            state=_placed(st, (None, be, heads_cut(st[0].shape[2], h)), call,
+                          (n, b, h, hd, hd)),
+            **{f: _placed([getattr(c, f) for c in local], (None, be), call,
+                          (n, b, cfg.d_model)) for f in ("x_att", "x_ffn")})
+    h, di, n2 = cfg.ssm_heads, cfg.ssm_d_inner, 2 * cfg.ssm_state
+    st = [c.mamba.state for c in local]
+    cut = heads_cut(st[0].shape[2], h)
+    conv = sharding.join(
+        [c.mamba.conv for c in local], [(None, be, None, cut), (None, be)],
+        (di, n2), call.mesh, (n, b, cfg.ssm_conv_width - 1, di + n2), dim=3)
+    return ZambaCaches(
+        mamba=mamba2.MambaCache(
+            state=_placed(st, (None, be, cut), call,
+                          (n, b, h, cfg.ssm_head_dim, cfg.ssm_state)),
+            conv=conv),
+        attn=kvp([c.attn for c in local], n // cfg.shared_block_period,
+                 s_kv))
 
 
 def _logits_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
@@ -696,38 +1044,59 @@ def _logits_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
                            (call.batch, cfg.vocab_padded))
 
 
+def _last_pos(call: MeshCall, s: int) -> torch.Tensor:
+    return torch.full((call.batch,), s - 1, dtype=torch.int32,
+                      device=call.mesh.devices[0])
+
+
 def prefill_embedded_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
-                          call: MeshCall, s_max: int):
+                          call: MeshCall, s_max: int, mrope_pos=None):
     """Prefill on the mesh from embeddings `xs` (`embed_mesh`'s, or the
-    RAG prefill's with the memory prefix): (logits, caches, last_pos)."""
-    xs, kvs, _ = _run_stack_mesh(sp, xs, cfg, call, mode="prefill",
-                                 s_max=s_max)
+    RAG prefill's with the memory prefix), for every decoder-only family;
+    `mrope_pos` [B, S, 3] whole (qwen2-vl's, else the positions): (logits,
+    placed caches, last_pos)."""
+    if mrope_pos is not None:
+        mrope_pos = _per_block(mrope_pos, call)
+    xs, local, _ = _run_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                   s_max=s_max, mrope_pos=mrope_pos)
     s = xs[0].shape[1]
-    shape = (cfg.num_layers, call.batch, max(s, s_max), cfg.num_kv_heads,
-             cfg.head_dim)
-    spec = attn.kv_placement(call.mesh, shape)
-    if sharding.local_shape(shape, spec, call.mesh) != tuple(kvs[0].k.shape):
-        raise AssertionError(f"cache pieces {tuple(kvs[0].k.shape)} do not "
-                             f"match the placement {spec}")
-    caches = KVCache(*(sharding.Placed(tuple(getattr(c, f) for c in kvs),
-                                       spec, call.mesh, shape)
-                       for f in ("k", "v")))
-    last_pos = torch.full((call.batch,), s - 1, dtype=torch.int32,
-                          device=call.mesh.devices[0])
-    return _logits_mesh(sp, cfg, xs, call), caches, last_pos
+    return (_logits_mesh(sp, cfg, xs, call),
+            _placed_caches(cfg, call, local, max(s, s_max)),
+            _last_pos(call, s))
+
+
+def _prefill_mesh(sp: specs.ShardedLM, cfg: ModelConfig, batch,
+                  s_max: int):
+    xs, call = embed_mesh(sp, cfg, batch["tokens"], batch.get("vis_embeds"))
+    if cfg.family != "encdec":
+        return prefill_embedded_mesh(sp, cfg, xs, call, s_max,
+                                     batch.get("mrope_pos"))
+    enc = _encode_mesh(sp, cfg, call, batch["src_emb"])
+    xs, local = _decode_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                   enc_outs=enc, s_max=s_max)
+    del enc
+    s = xs[0].shape[1]
+    return (_logits_mesh(sp, cfg, xs, call),
+            _placed_caches(cfg, call, local, max(s, s_max)),
+            _last_pos(call, s))
 
 
 def _decode_mesh(sp: specs.ShardedLM, cfg: ModelConfig, token, caches,
                  pos):
     xs, call = embed_mesh(sp, cfg, token)
-    for t in caches:
-        if not isinstance(t, sharding.Placed) or t.mesh != sp.mesh:
+    for _, t in specs.cache_leaves(caches):
+        if not isinstance(t, (sharding.Placed, sharding.Joined)) or \
+                t.mesh != sp.mesh:
             raise ValueError("decode on a mesh takes the placed caches "
                              "its prefill returned")
-    kvs = [KVCache(k, v) for k, v in zip(caches.k.parts, caches.v.parts)]
-    pos = sharding.place(pos, (call.batch_entry,), sp.mesh).parts
-    xs, _, _ = _run_stack_mesh(sp, xs, cfg, call, mode="decode", kvs=kvs,
-                               pos=pos)
+    local = [sharding.local_tree(caches, i) for i in range(sp.mesh.size)]
+    pos = _per_block(pos, call)
+    if cfg.family == "encdec":
+        xs, _ = _decode_stack_mesh(sp, xs, cfg, call, mode="decode",
+                                   caches=local, pos=pos)
+    else:
+        xs, _, _ = _run_stack_mesh(sp, xs, cfg, call, mode="decode",
+                                   kvs=local, pos=pos)
     return _logits_mesh(sp, cfg, xs, call), caches
 
 
@@ -768,10 +1137,10 @@ def _prefill_caches(cfg: ModelConfig, caches, s_max: int):
 def prefill(params: LM, cfg: ModelConfig, batch, s_max: int):
     """Run the prompt; returns (last_logits [B,Vp], caches, last_pos [B]).
     Over a mesh (a placed model): the logits and caches are placed
-    (`sharding.Placed`), last_pos is whole on shard 0's device."""
+    (`sharding.Placed`, mamba2's conv window a `sharding.Joined`),
+    last_pos is whole on shard 0's device."""
     if mesh_of(params, cfg) is not None:
-        xs, call = embed_mesh(params, cfg, batch["tokens"])
-        return prefill_embedded_mesh(params, cfg, xs, call, s_max)
+        return _prefill_mesh(params, cfg, batch, s_max)
     x = _embed_inputs(params, cfg, batch)
     if cfg.family == "encdec":
         x, caches = _decode_stack(params, cfg, x,

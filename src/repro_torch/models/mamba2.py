@@ -30,10 +30,12 @@ class MambaCache(NamedTuple):
 
     @staticmethod
     def init(batch: int, cfg: ModelConfig, dtype, device=None,
-             layers_: tuple = ()) -> "MambaCache":
-        """Zeros; `layers_` = (L,) stacks them per layer."""
-        h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-        d_conv = cfg.ssm_d_inner + 2 * cfg.ssm_state
+             layers_: tuple = (), heads: int = 0) -> "MambaCache":
+        """Zeros; `layers_` = (L,) stacks them per layer; `heads`: the
+        heads (and their x channels) held (default all; a model shard's
+        own on a mesh, beside every B/C channel)."""
+        h, p, n = heads or cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        d_conv = h * p + 2 * n
         lead = tuple(layers_)
         return MambaCache(
             state=torch.zeros((*lead, batch, h, p, n), device=device),
@@ -154,9 +156,22 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, mode: str,
     """x [B,S,D] -> (y [B,S,D], cache').  train/prefill share a path
     (prefill returns the final state and conv window, train None); decode
     takes one token against `cache`."""
+    yg, new_cache = mamba_gated(p, x, cfg, mode=mode, cache=cache,
+                                chunk=chunk)
+    return mamba_out(p, yg, cfg, x.dtype), new_cache
+
+
+def mamba_gated(p: Mamba, x, cfg: ModelConfig, *, mode: str,
+                cache: Optional[MambaCache] = None, chunk: int = 256):
+    """The mixer up to its gated RMSNorm: (the SSD output times the silu
+    gate, f32 [B,S,di], cache').  On a mesh `p` is a model shard's: w_x,
+    w_z and w_dt by columns over its whole heads, conv_x/norm and
+    A_log/D/dt_bias sliced to its channels and heads, w_bc and conv_bc
+    whole (every shard computes all of B/C); the output is its slice of
+    the channels and the cache its heads, its x channels and all B/C."""
     dt_ = x.dtype
-    di, n, h, hd = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
-                    cfg.ssm_head_dim)
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di, h = p.w_x.shape[-1], p.w_dt.shape[-1]
     xs, bc, z, dt = _split_proj(p, x)
     dt = F.softplus(dt.float() + p.dt_bias)
 
@@ -191,5 +206,17 @@ def mamba_apply(p: Mamba, x, cfg: ModelConfig, *, mode: str,
     y = y.reshape(*x.shape[:-1], di).to(dt_)
     # the gated product enters the norm unrounded (XLA fuses the two)
     g = F.silu(z.float()).to(dt_).float()
-    y = layers.rms_norm(y.float() * g, p.norm, cfg.norm_eps, dtype=dt_)
-    return y @ p.out_proj.to(dt_), new_cache
+    return y.float() * g, new_cache
+
+
+def mamba_out(p: Mamba, yg, cfg: ModelConfig, dtype, var=None):
+    """The gated RMSNorm over `mamba_gated`'s output, then out_proj, in
+    `dtype`.  `var`: the mean square over all of d_inner, where `yg` is a
+    model shard's slice of the channels (the sum over 'model' of each
+    slice's sum of squares, over d_inner); the result is then the shard's
+    partial sum through its out_proj rows."""
+    if var is None:
+        y = layers.rms_norm(yg, p.norm, cfg.norm_eps, dtype=dtype)
+    else:
+        y = (yg * torch.rsqrt(var + cfg.norm_eps) * p.norm.float()).to(dtype)
+    return y @ p.out_proj.to(dtype)

@@ -46,9 +46,10 @@ class RWKVCache(NamedTuple):
 
     @staticmethod
     def init(batch: int, cfg: ModelConfig, dtype, device=None,
-             layers_: tuple = ()) -> "RWKVCache":
-        """Zeros; `layers_` = (L,) stacks them per layer."""
-        h = cfg.d_model // cfg.ssm_head_dim
+             layers_: tuple = (), heads: int = 0) -> "RWKVCache":
+        """Zeros; `layers_` = (L,) stacks them per layer; `heads`: the
+        state's heads (default all; a model shard's own on a mesh)."""
+        h = heads or cfg.d_model // cfg.ssm_head_dim
         hd = cfg.ssm_head_dim
         lead = tuple(layers_)
         sdt = torch.float64 if dtype == torch.float64 else torch.float32
@@ -170,10 +171,15 @@ def _wkv_chunk_gemm(state, r, k, v, w, u):
 
 
 def time_mix(p: RWKV, x, cfg: ModelConfig, state, x_prev):
-    """x [B,S,D]; state [B,H,K,V]; x_prev [B,D] -> (y, state', x_last)."""
+    """x [B,S,D]; state [B,H,K,V]; x_prev [B,D] -> (y, state', x_last).
+
+    On a mesh `p` is a model shard's: wr/wk/wv/wg/ww by columns and wo by
+    rows over its H_l whole heads, w_bias/ln_x/u sliced to them, state
+    [B,H_l,K,V]; y is then its partial sum of the output (the WKV and the
+    GroupNorm are head-local)."""
     dt_ = x.dtype
-    d, hd = cfg.d_model, cfg.ssm_head_dim
-    h = d // hd
+    hd = cfg.ssm_head_dim
+    h = p.wr.shape[-1] // hd
     b, s, _ = x.shape
     xs = _shift(x, x_prev)
 
@@ -212,11 +218,15 @@ def time_mix(p: RWKV, x, cfg: ModelConfig, state, x_prev):
     y = ym * torch.rsqrt(var + cfg.norm_eps) * ln
     gh = F.silu(layers.upcast(g)).reshape(b, s, h, hd)
     y = (y * gh).to(dt_)
-    out = y.reshape(b, s, d) @ p.wo.to(dt_)
+    out = y.reshape(b, s, h * hd) @ p.wo.to(dt_)
     return out, state, x[:, -1, :]
 
 
-def channel_mix(p: RWKV, x, cfg: ModelConfig, x_prev):
+def channel_parts(p: RWKV, x, x_prev):
+    """The channel mix's receptance r and value v before their product,
+    and the shift's last token.  On a mesh a model shard's cwk/cwv cut
+    over the hidden give its partial sum of v, and a cwr cut by columns
+    its slice of r."""
     dt_ = x.dtype
     xs = _shift(x, x_prev)
     mr, mk = p.cmix_r.to(dt_), p.cmix_k.to(dt_)
@@ -224,8 +234,12 @@ def channel_mix(p: RWKV, x, cfg: ModelConfig, x_prev):
     xk = x * mk + xs * (1 - mk)
     r = layers.sigmoid(xr @ p.cwr.to(dt_))
     k = torch.square(torch.relu(xk @ p.cwk.to(dt_)))
-    v = k @ p.cwv.to(dt_)
-    return r * v, x[:, -1, :]
+    return r, k @ p.cwv.to(dt_), x[:, -1, :]
+
+
+def channel_mix(p: RWKV, x, cfg: ModelConfig, x_prev):
+    r, v, last = channel_parts(p, x, x_prev)
+    return r * v, last
 
 
 def rwkv_block_apply(p: RWKV, x, cfg: ModelConfig, *, mode: str,

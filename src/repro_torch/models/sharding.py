@@ -231,6 +231,75 @@ def shard(x, *logical: Optional[str]):
     return place(x, placement(x.shape, *logical, mesh=mesh), mesh)
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Joined:
+    """A tensor of `shape` whose pieces side by side along `dim` are placed
+    differently (mamba2's conv window: the model-cut x channels, then the
+    replicated B/C channels): per shard one buffer, ``parts[i]``, holding
+    its local piece of each in that order; ``pieces`` are the `Placed`
+    views of those pieces, so a write into a buffer shows in them."""
+    parts: Tuple[torch.Tensor, ...]
+    pieces: Tuple[Placed, ...]
+    dim: int
+
+    @property
+    def mesh(self) -> ShardMesh:
+        return self.pieces[0].mesh
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        shape = list(self.pieces[0].shape)
+        shape[self.dim] = sum(p.shape[self.dim] for p in self.pieces)
+        return tuple(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def full(self, device=None) -> torch.Tensor:
+        return torch.cat([p.full(device) for p in self.pieces], self.dim)
+
+
+def join(parts: Sequence[torch.Tensor], specs: Sequence[Placement],
+         widths: Sequence[int], mesh: ShardMesh, shape, dim: int) -> Joined:
+    """Per-shard buffers `parts` read as pieces of whole widths `widths`
+    along `dim`, piece j placed by ``specs[j]`` (`shape`: the whole
+    tensor's, `dim` holding the widths' sum)."""
+    pieces, start = [], [0] * len(parts)
+    for spec_, width in zip(specs, widths):
+        whole = tuple(shape[:dim]) + (width,) + tuple(shape[dim + 1:])
+        n = local_shape(whole, spec_, mesh)[dim]
+        views = tuple(p.narrow(dim, s, n) for p, s in zip(parts, start))
+        start = [s + n for s in start]
+        pieces.append(Placed(views, tuple(spec_), mesh, whole))
+    if start[0] != parts[0].shape[dim]:
+        raise ValueError(f"pieces of {start[0]} of {parts[0].shape[dim]} "
+                         "local columns")
+    return Joined(tuple(parts), tuple(pieces), dim)
+
+
+def tree_map(fn, tree):
+    """`fn` on every leaf of a cache tree (NamedTuples, dicts; None and
+    `Placed`/`Joined` are leaves)."""
+    if tree is None:
+        return None
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def local_tree(tree, i: int):
+    """Shard i's pieces of a tree of placed leaves, in the same tree."""
+    return tree_map(lambda t: t.parts[i], tree)
+
+
+def full_tree(tree, device=None):
+    """A tree of placed leaves with each leaf whole (`Placed.full`)."""
+    return tree_map(lambda t: t.full(device), tree)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """A placement bound to a mesh (``jax.sharding.NamedSharding``)."""

@@ -109,7 +109,7 @@ class RagPrefill(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         if lm.mesh_of(params, cfg) is not None:
-            return self._forward_mesh(params, mem_state, tokens)
+            return self._forward_mesh(params, mem_state, batch)
         ids, scores, rows = retrieve(mem_state, self.query(params, tokens),
                                      self.ecfg, self.k)
         # retrieved memories enter the prompt as soft-prefix embeddings
@@ -120,12 +120,13 @@ class RagPrefill(nn.Module):
                                                     self.s_max)
         return out, caches, pos, ids
 
-    def _forward_mesh(self, sp: specs.ShardedLM, mem_state, tokens):
+    def _forward_mesh(self, sp: specs.ShardedLM, mem_state, batch):
         """The step over a mesh: the data blocks' queries to the memory's
         device, one retrieval for the batch, each block's prefix back to
-        its shards, then the mesh prefill."""
+        its shards, then the mesh prefill (`batch`'s ``mrope_pos`` for
+        qwen2-vl; the caches at s_max for every family)."""
         state = memory_state(mem_state)
-        xs, call = lm.embed_mesh(sp, self.cfg, tokens)
+        xs, call = lm.embed_mesh(sp, self.cfg, batch["tokens"])
         q = _mesh_query(xs, call, state.centroids.device)
         if self.proj is not None:
             q = q @ self.proj.to(q.device)
@@ -134,8 +135,8 @@ class RagPrefill(nn.Module):
                                 (call.batch_entry, None, None),
                                 call.mesh).parts
         xs = [torch.cat([m, x[:, :-1]], dim=1) for m, x in zip(prefix, xs)]
-        out, caches, pos = lm.prefill_embedded_mesh(sp, self.cfg, xs, call,
-                                                    self.s_max)
+        out, caches, pos = lm.prefill_embedded_mesh(
+            sp, self.cfg, xs, call, self.s_max, batch.get("mrope_pos"))
         return out, caches, pos, ids
 
 

@@ -1,14 +1,18 @@
 """The serving path over the port's (data, model) mesh on the CPU, held
 against the JAX package: reduced granite-3-2b (dense, tied embeddings;
-here) and olmoe-1b-7b (4 experts, top-2; `test_torch_mesh_moe.py`, which
-takes this file's checks) placed by the reference's placements on port
+here) and, by this file's checks, olmoe-1b-7b (4 experts, top-2;
+`test_torch_mesh_moe.py`), qwen2-vl-7b (vision embeddings, non-default
+M-RoPE positions; `_vlm.py`), rwkv6-1.6b (`_ssm.py`), zamba2-2.7b
+(`_hybrid.py`) and seamless-m4t-large-v2 (source frames, the cross K/V;
+`_encdec.py`) placed by the reference's placements on port
 meshes (1, 2), (2, 1), (2, 2) and (1, 4) of "cpu", against the
 reference unsharded and on its own (1, 2) / (2, 1) mesh of the two CPU
 devices `tests/conftest.py` forces (``jax.sharding.Mesh``, Auto axes):
-prefill logits, the placed KV caches and 3 decode steps; each placed
-leaf's local shape against the reference's `param_shardings`; the 'model'
-replicas bit-identical; the RAG prefill's retrieved ids; olmoe's
-expert-parallel branch against the reference's ``shard_map`` branch.
+prefill logits, every leaf of the placed caches and 3 decode steps;
+each placed leaf's local shape against the reference's `param_shardings`;
+the 'model' replicas bit-identical; the caches' placements; the RAG
+prefill's retrieved ids; olmoe's expert-parallel branch against the
+reference's ``shard_map`` branch.
 
 Tolerances: float32 to rtol = atol = 1e-4 against every reference run.
 bfloat16 logits within 1e-2 of their largest magnitude, greedy tokens
@@ -18,7 +22,9 @@ each shard's partial product to bfloat16 before the sum over 'model', in
 the reference as in the port, so a bfloat16 run across a 'model' axis
 differs from the unsharded one by more than the products' own rounding
 (the reference's own (1, 2) olmoe run is 1.7e-2 of the scale from its
-unsharded run; `test_bf16_tp_gap_is_the_reference_own`).  Width 1 is
+unsharded run; `test_bf16_tp_gap_is_the_reference_own`).  zamba2's bound
+is 2e-2 of the scale, its unsharded bound in `test_torch_models.py`
+(GEMM accumulation order through its deep recurrent stack).  Width 1 is
 held to the unsharded run as well, and width 4 (which needs four devices)
 to the reference's own (1, 4) run in `test_torch_mesh_wide.py`.
 """
@@ -39,11 +45,14 @@ from repro.models import sharding as jsharding
 from repro.models import specs as jspecs
 from repro.serving import rag as jrag
 from repro_torch import convert
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import registry
 from repro_torch.configs.base import EngineConfig
+from repro_torch.distributed import elastic
 from repro_torch.launch import mesh as lmesh
 from repro_torch.launch import serve
 from repro_torch.models import lm, sharding, specs
+from repro_torch.models.attention import KVCache
 from repro_torch.serving import rag, serve_step
 
 jax.config.update("jax_platform_name", "cpu")
@@ -52,7 +61,21 @@ ARCH = "granite-3-2b"
 MESHES = [(1, 2), (2, 1), (2, 2), (1, 4)]
 REF_MESHES = [(1, 2), (2, 1)]
 PROMPT, S_MAX, STEPS, BATCH = 12, 32, 3, 2
+SRC = 8             # seamless's source frames
+VIS = 4             # qwen2-vl's vision embeddings (a 2 x 2 patch grid)
 F32_TOL, BF16_REL = 1e-4, 1e-2
+BF16_SCALE = {"zamba2-2.7b": 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The reduced models' small products run faster on one thread than on
+    the process's default pool (the files that import this fixture take
+    it too)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jmesh(shape):
@@ -67,18 +90,57 @@ def _j(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
+def mrope_grid(b: int, s: int, nv: int, width: int) -> np.ndarray:
+    """qwen2-vl's M-RoPE positions [b, s, 3] int32 for `nv` patch
+    embeddings on a grid `width` wide, then text: a patch at (0, row,
+    col), each text token one past the largest coordinate before it on
+    all three streams (not the positions broadcast, which is the
+    default)."""
+    pos = np.zeros((s, 3), np.int32)
+    for i in range(nv):
+        pos[i] = (0, i // width, i % width)
+    start = max((nv - 1) // width, width - 1) + 1
+    pos[nv:] = (start + np.arange(s - nv))[:, None]
+    return np.broadcast_to(pos, (b, s, 3)).copy()
+
+
+def _extras(cfg) -> dict:
+    """A family's other prefill inputs (host arrays, the same for every
+    run): qwen2-vl's VIS vision embeddings and `mrope_grid` positions,
+    seamless's SRC source frames."""
+    rng = np.random.default_rng(7)
+    if cfg.family == "vlm":
+        return {"vis_embeds": rng.normal(size=(BATCH, VIS, cfg.d_model))
+                .astype(np.float32),
+                "mrope_pos": mrope_grid(BATCH, PROMPT, VIS, 2)}
+    if cfg.family == "encdec":
+        return {"src_emb": rng.normal(size=(BATCH, SRC, cfg.d_model))
+                .astype(np.float32)}
+    return {}
+
+
+def _j_leaves(tree) -> dict:
+    """{dotted path: f32 host array} of a reference cache tree, the
+    paths `specs.cache_leaves` gives the port's."""
+    return {".".join(str(getattr(k, "name", getattr(k, "key", k)))
+                     for k in path): _j(t)
+            for path, t in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
 def _reference_run(jp, jcfg, toks, shape):
-    """Prefill of PROMPT tokens, then STEPS decode steps on teacher
-    tokens: (logits per step, the prefill's caches)."""
+    """Prefill of PROMPT tokens (and `_extras`), then STEPS decode steps
+    on teacher tokens: (logits per step, the prefill's cache leaves)."""
     mesh = None if shape is None else _jmesh(shape)
     with jsharding.use_mesh(mesh):
         p = jp if mesh is None else jax.device_put(
             jp, jspecs.param_shardings(jcfg, mesh))
         prefill = jax.jit(lambda p, b: jlm.prefill(p, jcfg, b, S_MAX))
         decode = jax.jit(lambda p, t, c, q: jlm.decode_step(p, jcfg, t, c, q))
-        l, c, pos = prefill(p, {"tokens": jnp.asarray(toks[:, :PROMPT])})
+        l, c, pos = prefill(p, {"tokens": jnp.asarray(toks[:, :PROMPT]),
+                                **{k: jnp.asarray(v) for k, v in
+                                   _extras(jcfg).items()}})
         out = [_j(l)]
-        caches = (_j(c.k), _j(c.v))
+        caches = _j_leaves(c)
         assert np.asarray(pos).tolist() == [PROMPT - 1] * BATCH
         for t in range(PROMPT, PROMPT + STEPS):
             l, c = decode(p, jnp.asarray(toks[:, t: t + 1]), c,
@@ -108,10 +170,12 @@ def oracle():
 
 def _port_run(cfg, jp, toks, shape):
     sp = convert.lm_params_to_mesh(cfg, jp, _mesh(shape))
-    l, c, pos = lm.prefill(sp, cfg, {"tokens": torch.from_numpy(
-        toks[:, :PROMPT])}, S_MAX)
+    l, c, pos = lm.prefill(sp, cfg, {
+        "tokens": torch.from_numpy(toks[:, :PROMPT]),
+        **{k: torch.from_numpy(v) for k, v in _extras(cfg).items()}}, S_MAX)
     assert pos.tolist() == [PROMPT - 1] * BATCH
-    prefill_caches = (c.k.full().float().numpy(), c.v.full().float().numpy())
+    prefill_caches = {k: t.float().numpy() for k, t in specs.cache_leaves(
+        sharding.full_tree(c))}
     out = [l]
     for t in range(PROMPT, PROMPT + STEPS):
         l, c = lm.decode_step(sp, cfg, torch.from_numpy(toks[:, t: t + 1]), c,
@@ -120,8 +184,8 @@ def _port_run(cfg, jp, toks, shape):
     return sp, out, prefill_caches, c
 
 
-def _check_bf16(got, want, what) -> int:
-    tol = BF16_REL * np.abs(want).max()
+def _check_bf16(got, want, what, rel: float = BF16_REL) -> int:
+    tol = rel * np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=0, atol=tol, err_msg=what)
     two = np.sort(want, axis=-1)[..., -2:]
     sure = (two[..., 1] - two[..., 0]) > tol
@@ -159,25 +223,68 @@ def check_prefill_and_decode(oracle, arch, dtype, shape):
                 np.testing.assert_allclose(g, w, rtol=F32_TOL, atol=F32_TOL,
                                            err_msg=what)
             else:
-                compared += _check_bf16(g, w, what)
+                compared += _check_bf16(g, w, what,
+                                        BF16_SCALE.get(arch, BF16_REL))
         ctol = F32_TOL if dtype == "float32" else 0.05
-        for a, b in zip(caches, want_caches):
-            np.testing.assert_allclose(a, b, rtol=ctol, atol=ctol)
+        assert caches.keys() == want_caches.keys()
+        for key, a in caches.items():
+            np.testing.assert_allclose(a, want_caches[key], rtol=ctol,
+                                       atol=ctol, err_msg=key)
     assert refs and (compared or dtype == "float32")
     # greedy across the vocab shards == greedy of the gathered logits
     for t in out:
         assert torch.equal(serve_step.greedy(t, cfg.vocab_size),
                            serve_step.greedy(t.full(), cfg.vocab_size))
-    # the caches are placed by KVCache.shardit's policy, written in place
-    mesh = sp.mesh
-    for t in last:
-        assert isinstance(t, sharding.Placed) and t.mesh == mesh
+    check_cache_layout(cfg, last, sp.mesh)
+
+
+def cache_layout(cfg, name: str, shape, mesh):
+    """The placement the port gives cache leaf `name` of `shape` (a
+    `Joined`'s: its pieces' placements and widths): the K/V as
+    `KVCache.shardit` places them; the recurrent states' heads over
+    'model' where they divide; rwkv6's shifts whole over 'model', and
+    mamba2's conv window as its model-cut x channels beside its
+    replicated B/C channels (`specs.cache_specs`, the reference's policy,
+    cuts both over 'model' by their last dim, straight across that
+    boundary for the window)."""
+    m = sharding.axis_sizes(mesh).get("model", 1)
+    be = sharding.placement((shape[1],), "batch", mesh=mesh)[0]
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("k", "v"):
+        return lm.attn.kv_placement(mesh, shape)
+    if leaf == "state":
+        return (None, be, "model" if m > 1 and shape[2] % m == 0 else None)
+    if leaf in ("x_att", "x_ffn"):
+        return (None, be)
+    assert leaf == "conv", name
+    di = cfg.ssm_d_inner
+    cut = "model" if m > 1 and cfg.ssm_heads % m == 0 else None
+    return ((None, be, None, cut), (None, be)), (di, shape[3] - di)
+
+
+def check_cache_layout(cfg, caches, mesh):
+    """Every leaf of placed caches is placed as `cache_layout` says, each
+    shard's piece the slice of the whole that its placement names."""
+    for name, t in specs.cache_leaves(caches):
+        assert t.mesh == mesh, name
         full = t.full()
-        assert t.spec == lm.attn.kv_placement(mesh, full.shape)
-        with sharding.use_mesh(mesh):
-            again = lm.KVCache(full, full).shardit().k
-        for a, b in zip(t.parts, again.parts):
-            assert torch.equal(a, b)
+        want = cache_layout(cfg, name, tuple(full.shape), mesh)
+        if isinstance(t, sharding.Joined):
+            assert tuple(p.spec for p in t.pieces) == want[0], name
+            assert tuple(p.shape[3] for p in t.pieces) == want[1], name
+            pieces = t.pieces
+        else:
+            assert isinstance(t, sharding.Placed) and t.spec == want, name
+            pieces = (t,)
+        for piece in pieces:
+            again = sharding.place(piece.full(), piece.spec, mesh)
+            for a, b in zip(piece.parts, again.parts):
+                assert torch.equal(a, b), name
+        if name.rsplit(".", 1)[-1] in ("k", "v"):
+            with sharding.use_mesh(mesh):
+                again = KVCache(full, full).shardit().k
+            assert all(torch.equal(a, b) for a, b in zip(t.parts,
+                                                         again.parts))
 
 
 def check_placed_leaves(arch, shape):
@@ -224,25 +331,85 @@ def check_placed_leaves(arch, shape):
 
 def check_replicas(arch, shape):
     """The 'model' shards of a data block hold the same activations after
-    every block, bit for bit (each sum over 'model' runs in one order),
-    and so the same caches where the kv heads are replicated."""
+    every block, bit for bit (each sum over 'model' runs in one order;
+    seamless's encoder output too), and so the same pieces of every cache
+    leaf placed whole over 'model' (K/V of kv heads that do not divide,
+    rwkv6's shifts, mamba2's B/C window)."""
     cfg = registry.reduced_arch(arch)
     params = lm.init_params(torch.Generator().manual_seed(3), cfg)
     sp = specs.place_params(params, cfg, _mesh(shape))
     toks = torch.randint(0, cfg.vocab_size, (2, 10),
                          generator=torch.Generator().manual_seed(4),
                          dtype=torch.int32)
-    xs, call = lm.embed_mesh(sp, cfg, toks)
-    xs, kvs, _ = lm._run_stack_mesh(sp, xs, cfg, call, mode="prefill",
-                                    s_max=16)
-    for g in sharding.groups(sp.mesh, ("model",)):
-        for i in g[1:]:
-            assert torch.equal(xs[i], xs[g[0]])
-            if call.kv_local == cfg.num_kv_heads:
-                assert torch.equal(kvs[i].k, kvs[g[0]].k)
-    assert call.kv_local == (cfg.num_kv_heads // shape[1]
-                             if cfg.num_kv_heads % shape[1] == 0
-                             else cfg.num_kv_heads)
+    extra = {k: torch.from_numpy(v[:, :10] if k == "mrope_pos" else v)
+             for k, v in _extras(cfg).items()}
+    xs, call = lm.embed_mesh(sp, cfg, toks, extra.get("vis_embeds"))
+    groups = sharding.groups(sp.mesh, ("model",))
+
+    def same(parts, what):
+        for g in groups:
+            for i in g[1:]:
+                assert torch.equal(parts[i], parts[g[0]]), what
+
+    if cfg.family == "encdec":
+        enc = lm._encode_mesh(sp, cfg, call, extra["src_emb"])
+        same(enc, "encoder output")
+        xs, local = lm._decode_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                          enc_outs=enc, s_max=16)
+    else:
+        xs, local, _ = lm._run_stack_mesh(sp, xs, cfg, call, mode="prefill",
+                                          s_max=16)
+    same(xs, "activations")
+    placed = lm._placed_caches(cfg, call, local, 16)
+    for name, t in specs.cache_leaves(placed):
+        for piece in getattr(t, "pieces", (t,)):
+            if not any("model" in sharding.entry_axes(e)
+                       for e in piece.spec):
+                same(piece.parts, name)
+    if cfg.family in ("dense", "moe", "vlm"):
+        assert call.kv_local == (cfg.num_kv_heads // shape[1]
+                                 if cfg.num_kv_heads % shape[1] == 0
+                                 else cfg.num_kv_heads)
+
+
+def check_reshard_restore(arch, tmp_path):
+    """A model placed on (2, 2) saved leaf by leaf as it is placed (the
+    reference's tree, `param_shardings`' layout), restored onto (1, 4) and
+    (4, 1): every leaf torch.equal to the saved one, each shard's piece
+    cut by the new mesh's placements, and the restored model's prefill
+    logits equal to the saved model's on a mesh of its own shape."""
+    cfg = registry.reduced_arch(arch).replace(dtype="float32")
+    sp = specs.place_params(
+        lm.init_params(torch.Generator().manual_seed(5), cfg), cfg,
+        _mesh((2, 2)))
+    placed = {k: sp.placed(k) for k in sp.specs}
+
+    def fill(node, path=()):
+        return {k: fill(v, path + (k,)) if isinstance(v, dict) else
+                placed[".".join(path + (k,))] for k, v in node.items()}
+
+    tree = fill(specs.param_shardings(cfg, sp.mesh))
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save(3, tree)
+    toks = torch.randint(0, cfg.vocab_size, (4, 8),
+                         generator=torch.Generator().manual_seed(6),
+                         dtype=torch.int32)
+    for shape in ((1, 4), (4, 1)):
+        mesh = _mesh(shape)
+        back = elastic.reshard_restore(ckpt, tree, mesh, cfg, step=3)
+        assert back.mesh == mesh and back.specs.keys() == sp.specs.keys()
+        want = dict(convert._flatten(specs.param_shardings(cfg, mesh)))
+        for key in sp.specs:
+            assert back.specs[key] == want[key].spec, key
+            assert torch.equal(back.placed(key).full(), placed[key].full()), \
+                key
+            local = sharding.local_shape(back.shapes[key], back.specs[key],
+                                         mesh)
+            assert all(tuple(d[key].shape) == local for d in back.shards)
+        again = specs.place_params(specs.gather_params(sp, "cpu"), cfg, mesh)
+        got, _, _ = lm.prefill(back, cfg, {"tokens": toks}, 8)
+        ref, _, _ = lm.prefill(again, cfg, {"tokens": toks}, 8)
+        assert torch.equal(got.full(), ref.full())
 
 
 # ---------------------------------------------------------------------------
@@ -252,10 +419,19 @@ def check_replicas(arch, shape):
 ROWS, K = 500, 4
 
 
+def _rag_extras(cfg, tokens) -> dict:
+    """qwen2-vl's RAG batch carries `mrope_grid` positions (the prefix
+    splice takes no vision embeddings, as the reference's)."""
+    if cfg.family != "vlm":
+        return {}
+    return {"mrope_pos": mrope_grid(*tokens.shape, VIS, 2)}
+
+
 @pytest.fixture(scope="module")
 def rag_oracle():
     """Per arch (float32): the reference's params, memory state, tokens
-    and its RAG prefill's (logits, caches, pos, ids) unsharded."""
+    and its RAG prefill's (logits, caches, pos, ids) unsharded (qwen2-vl
+    at `_rag_extras`' M-RoPE positions)."""
     kw = dict(dim=128, n_clusters=128, list_capacity=16, nprobe=8, k=K,
               kmeans_iters=2)
     jecfg, ecfg = JConfig(interpret=True, **kw), EngineConfig(**kw)
@@ -275,15 +451,18 @@ def rag_oracle():
             jp = jax.device_get(jlm.init_params(jax.random.PRNGKey(0), jcfg))
             step = jax.jit(jrag.make_rag_prefill(jcfg, jecfg, s_max=S_MAX,
                                                  k=K))
-            cache[arch] = jp, step(jp, jstate,
-                                   {"tokens": jnp.asarray(tokens)})
+            cache[arch] = jp, step(jp, jstate, {
+                "tokens": jnp.asarray(tokens),
+                **{k: jnp.asarray(v)
+                   for k, v in _rag_extras(jcfg, tokens).items()}})
         return (ecfg, jstate, tokens) + cache[arch]
     return get
 
 
 def check_rag_prefill(rag_oracle, arch, shape):
     """float32: the retrieved ids equal the reference's, the logits and
-    the prefix-spliced caches within 1e-4, then one decode step."""
+    every leaf of the prefix-spliced caches within 1e-4, then one decode
+    step."""
     ecfg, jstate, tokens, jp, (jl, jc, jpos, jids) = rag_oracle(arch)
     jcfg = jregistry.reduced_arch(arch).replace(dtype="float32")
     cfg = registry.reduced_arch(arch).replace(dtype="float32")
@@ -291,14 +470,20 @@ def check_rag_prefill(rag_oracle, arch, shape):
     sp = convert.lm_params_to_mesh(cfg, jp, _mesh(shape))
     prefill = rag.make_rag_prefill(cfg, ecfg, S_MAX, k=K, device="cpu")
     state = convert.ivf_state_from_numpy(jstate, "cpu")
-    tl, tc, tpos, tids = prefill(sp, state,
-                                 {"tokens": torch.from_numpy(tokens)})
+    tl, tc, tpos, tids = prefill(sp, state, {
+        "tokens": torch.from_numpy(tokens),
+        **{k: torch.from_numpy(v)
+           for k, v in _rag_extras(cfg, tokens).items()}})
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tpos.numpy(), np.asarray(jpos))
     np.testing.assert_allclose(tl.full().numpy(), np.asarray(jl),
                                rtol=F32_TOL, atol=F32_TOL)
-    np.testing.assert_allclose(tc.k.full().numpy(), np.asarray(jc.k),
-                               rtol=F32_TOL, atol=F32_TOL)
+    want = _j_leaves(jc)
+    got = dict(specs.cache_leaves(sharding.full_tree(tc)))
+    assert got.keys() == want.keys()
+    for key, t in got.items():
+        np.testing.assert_allclose(t.numpy(), want[key], rtol=F32_TOL,
+                                   atol=F32_TOL, err_msg=key)
     # the query embedding is the one-device model's
     one = convert.lm_params_from_numpy(cfg, jp, "cpu")
     assert torch.equal(rag.embed_query(sp, cfg, torch.from_numpy(tokens)),
@@ -383,13 +568,24 @@ def test_mesh_refusals():
     assert logits.mesh == mesh
     with pytest.raises(NotImplementedError, match="training"):
         lm.forward_train(sp, cfg, {"tokens": toks})
-    for arch in ("rwkv6-1.6b", "qwen2-vl-7b"):
+    # every family runs placed; forward_train stays refused for each
+    for arch in ("olmoe-1b-7b", "rwkv6-1.6b", "qwen2-vl-7b", "zamba2-2.7b",
+                 "seamless-m4t-large-v2"):
         other = registry.reduced_arch(arch)
         osp = specs.place_params(
             lm.init_params(torch.Generator().manual_seed(0), other), other,
             mesh)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            lm.prefill(osp, other, {"tokens": toks}, 8)
+        batch = {"tokens": toks}
+        if other.family == "encdec":
+            batch["src_emb"] = torch.zeros((2, 4, other.d_model))
+        logits, caches, _ = lm.prefill(osp, other, batch, 8)
+        assert logits.mesh == mesh
+        assert all(t.mesh == mesh for _, t in specs.cache_leaves(caches))
+        with pytest.raises(NotImplementedError, match="training"):
+            lm.forward_train(osp, other, batch)
+        with sharding.use_mesh(_mesh((2, 1))):
+            with pytest.raises(ValueError, match="another mesh"):
+                lm.prefill(osp, other, batch, 8)
 
 
 # ---------------------------------------------------------------------------

@@ -110,9 +110,10 @@ Phases (any failure raises and the script exits non-zero):
    one step of each other family at full width and 2 layers.
 15. dry run: ``repro_torch.launch.dryrun`` over the 40-cell grid at full
    width on the meta device (32 cells, 8 skipped) within 120 s of host
-   time, each cell's H100 roofline terms; then granite-3-2b in three cells
-   cut only in batch (train at S = 4096, prefill of 32,768 tokens, decode
-   over a 32,768-slot cache), each dry-run and run on the card: the same
+   time, each cell's H100 roofline terms; then granite-3-2b at full width
+   in three cells cut in batch and to 8 of its 40 layers (train at S =
+   4096, prefill of 32,768 tokens, decode over a 32,768-slot cache), each
+   dry-run and run on the card: the same
    dot FLOPs, the same argument bytes, the peak within 0.8-1.25 x the
    predicted, and the median step beside its roofline bound.
 16. mesh: the model placed on a (data, model) ``ShardMesh`` of the one
@@ -136,6 +137,20 @@ Phases (any failure raises and the script exits non-zero):
    width and depth on (1, 4): qwen2-vl-7b (non-default M-RoPE
    positions), rwkv6-1.6b and zamba2-2.7b one turn of phase 12b's
    workload over PAPER_100K, seamless-m4t-large-v2 phase 13a's.
+17. mesh training: ``repro_torch.train.Trainer(mesh=)`` on (data, model)
+   meshes of the one card (the params drawn as unsharded and placed by
+   the reference's placements, the moments placed alike, one autograd
+   graph over every shard, each piece's gradient summed with its
+   replicas', a vocab-parallel CE): granite-3-2b at full width, 4 layers,
+   float32 on (2, 4) against the unsharded Trainer (3 steps' loss and
+   grad norm, step 1's gradient leaf by leaf, replicas bit-equal, shard
+   bytes exact); granite-3-2b at full width and depth in bf16 compute on
+   (2, 4) with phase 14a's workload (s a step beside 14a's); olmoe-1b-7b
+   expert-parallel on (1, 4) at 4 of 16 layers, float32 against the
+   unsharded Trainer, then bf16; accumulation 2 == 1, bf16 and int8
+   compression, a checkpoint and a preemption restored onto (1, 4) and
+   onto one device, every leaf equal; one step of every other arch at 2
+   layers on a mesh against the unsharded step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -146,6 +161,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -3997,6 +4013,9 @@ def phase_train(seed: int, card: str) -> dict:
 
 DRY_BUDGET_S = 120      # 15a: host seconds for the 40-cell grid
 DRY_ARCH = "granite-3-2b"
+DRY_LAYERS = 8          # 15b: of granite's 40 (at full depth its six 32k
+#                         prefills took 230 of the script's 924 s on an
+#                         H100 80GB HBM3 at 700 W)
 DRY_SEQ = 4096          # 15b train: train_4k's sequence
 DRY_PREFILL = (1, 32_768)       # 15b prefill: (batch, prompt tokens)
 DRY_DECODE = (8, 32_768)        # 15b decode: (batch, cache slots)
@@ -4089,8 +4108,9 @@ def dry_grid(card: str):
 
 
 def dry_cells(seed: int, card: str) -> dict:
-    """15b: granite-3-2b at full width in three cells cut only in batch
-    (train at S = 4096 on f32 master weights with remat, at the largest
+    """15b: granite-3-2b at full width in three cells cut in batch and to
+    DRY_LAYERS layers (train at S = 4096 on f32 master weights with remat,
+    at the largest
     batch whose dry-run peak takes at most DRY_FIT of the card; prefill of
     32,768 tokens at B = 1; decode over a 32,768-slot cache at B = 8), each
     dry-run and then run with tensors from `seed`: the dot FLOPs
@@ -4108,7 +4128,7 @@ def dry_cells(seed: int, card: str) -> dict:
 
     dev = torch.device("cuda")
     out = {}
-    cfg = registry.get_arch(DRY_ARCH)
+    cfg = registry.get_arch(DRY_ARCH).replace(num_layers=DRY_LAYERS)
     capacity = torch.cuda.get_device_properties(0).total_memory
     for b in (8, 4, 2, 1):
         train = ShapeConfig(f"train_{DRY_SEQ}_b{b}", "train", DRY_SEQ, b)
@@ -4125,7 +4145,8 @@ def dry_cells(seed: int, card: str) -> dict:
             dryrun.trace_cell(cfg, shape)[0], cfg, shape)))
     full = {"train": "train_4k", "prefill": "prefill_32k",
             "decode": "decode_32k"}
-    print(f"  15b [{card}]: {cfg.name} at full width, cut only in batch: "
+    print(f"  15b [{card}]: {cfg.name} at full width, {DRY_LAYERS} of "
+          f"{registry.get_arch(DRY_ARCH).num_layers} layers, cut in batch: "
           + ", ".join(f"{full[sh.kind]} B={registry.get_shape(full[sh.kind]).global_batch}"
                       f" -> {sh.global_batch}" for sh, _ in cells),
           flush=True)
@@ -4772,6 +4793,435 @@ class vision_positions:
         return False
 
 
+# ---------------------------------------------------------------------------
+# phase 17: training over the (data, model) mesh of the one card
+# ---------------------------------------------------------------------------
+
+MT_MESH = (2, 4)        # 17a, 17b, 17d: granite-3-2b, TP x FSDP, 8 shards
+MT_EP = (1, 4)          # 17c: olmoe-1b-7b expert-parallel; 17d's restore
+MT_TOL = 1e-4           # 17a, 17c, 17e: loss / grad norm rtol; each leaf of
+#                         step 1's gradient within MT_TOL of its largest
+#                         magnitude
+MT_PARITY_LAYERS = 4    # 17a, 17c: the unsharded state sits beside the mesh's
+MT_PARITY_STEPS = 3     # 17a (17c: 2)
+MT_SEQ = 256            # 17a, 17c, 17e: tokens a row (TRAIN_BATCH rows; 17e 4)
+MT_FAMILIES = (("gemma2-9b", MT_EP), ("stablelm-12b", MT_EP),
+               ("deepseek-moe-16b", MT_EP), ("qwen2-vl-7b", MT_EP),
+               ("seamless-m4t-large-v2", MT_EP), ("rwkv6-1.6b", MT_MESH),
+               ("zamba2-2.7b", MT_MESH))      # 17e: one step each
+
+
+def mt_whole_grads(tr, batch):
+    """A Trainer's step-1 gradient (before its update): ({tree key: a
+    function giving the whole leaf}, loss, grad norm, aux); the whole
+    leaves are made one at a time, when compared."""
+    from repro_torch.models import sharding, specs
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import grads_of
+    with sharding.use_mesh(tr.mesh):
+        loss, parts, g = grads_of(tr.params, tr.cfg, tr.tc, tr._batch(batch))
+    if tr.mesh is None:
+        norm = optimizer.global_norm(g)
+        leaves = {k: (v.full if isinstance(v, specs.Stacked)
+                      else (lambda v=v: v))
+                  for k, v in specs.flat_tree(specs.stacked_tree(g)).items()}
+    else:
+        sp = tr.params
+        norm = optimizer.global_norm(g, sp.distinct_names())
+
+        def whole(key):
+            return sharding.Placed(tuple(
+                torch.stack([g[specs.piece_name(key, i, l)] for l in range(
+                    sp.shards[i][key].shape[0])]) if sp._stacked(key)
+                else g[specs.piece_name(key, i)]
+                for i in range(sp.mesh.size)), sp.specs[key], sp.mesh,
+                sp.shapes[key]).full()
+        leaves = {k: (lambda k=k: whole(k)) for k in sp.specs}
+    return leaves, float(loss), float(norm), float(parts["aux"].detach())
+
+
+def mt_grads_close(tag, got: dict, want: dict) -> float:
+    """Each leaf within MT_TOL of its largest magnitude, one leaf whole at
+    a time; returns the largest error in those units."""
+    if set(got) != set(want):
+        raise AssertionError(f"{tag}: leaves {sorted(set(got) ^ set(want))}")
+    worst = 0.0
+    for key in want:
+        w, x = want[key](), got[key]()
+        err = float((x - w).abs().max()) / max(float(w.abs().max()), 1e-12)
+        if err > MT_TOL:
+            raise AssertionError(f"{tag}: gradient {key} {err:.3g} of its "
+                                 f"scale > {MT_TOL}")
+        worst = max(worst, err)
+        del w, x
+    return worst
+
+
+def mt_replicas(tag, tr) -> None:
+    """Every piece of params, mu and nu `torch.equal` to each replica of
+    its slice."""
+    from repro_torch.models import sharding
+    for sp in (tr.params, tr.opt_state.mu, tr.opt_state.nu):
+        for key, spec in sp.specs.items():
+            first = {}
+            for i, s in enumerate(sp.shards):
+                sl = tuple((x.start, x.stop) for x in sharding.local_slices(
+                    sp.shapes[key], spec, sp.mesh, i))
+                if sl in first and not torch.equal(
+                        s[key], sp.shards[first[sl]][key]):
+                    raise AssertionError(f"{tag}: {key} shard {i} differs "
+                                         "from its replica")
+                first.setdefault(sl, i)
+
+
+def mt_shard_bytes(tag, tr) -> int:
+    """Params, mu and nu: each shard's bytes exactly `specs.shard_bytes`
+    over the placements; returns shard 0's params bytes."""
+    from repro_torch.models import sharding, specs
+    sizes = sharding.axis_sizes(tr.mesh)
+    for sp in (tr.params, tr.opt_state.mu, tr.opt_state.nu):
+        for i in range(tr.mesh.size):
+            want = sum(specs.shard_bytes(4 * math.prod(shape), sp.specs[k],
+                                         sizes)
+                       for k, shape in sp.shapes.items())
+            if sp.nbytes(i) != want:
+                raise AssertionError(f"{tag}: shard {i} holds "
+                                     f"{sp.nbytes(i)} B, not {want}")
+    return tr.params.nbytes(0)
+
+
+def mt_parity(tag, cfg, tc, shape, batch, steps,
+              held=("loss", "grad_norm", "aux")) -> dict:
+    """`cfg` (f32) through `Trainer(mesh=)` on `shape` against the
+    unsharded `Trainer`, same seed and batch: step 1's loss, grad norm, aux
+    and every gradient leaf, then `steps` steps' metrics of `held`, the
+    replicas after every step, the shard bytes."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.train.trainer import Trainer
+    one = Trainer(cfg, tc, device="cuda")
+    tr = Trainer(cfg, tc, mesh=lmesh.model_mesh(shape, ("data", "model"),
+                                                "cuda"))
+    nbytes = mt_shard_bytes(tag, tr)
+    want, l1, n1, a1 = mt_whole_grads(one, batch)
+    got, l2, n2, a2 = mt_whole_grads(tr, batch)
+    err = mt_grads_close(tag, got, want)
+    del want, got
+    release()
+    for what, x, y in (("loss", l1, l2), ("grad norm", n1, n2),
+                       ("aux", a1, a2)):
+        if abs(x - y) > MT_TOL * abs(x) + 1e-7:
+            raise AssertionError(f"{tag}: step 1 {what} {y} vs {x}")
+    h1 = one.train(itertools.repeat(batch), steps, log_every=1)
+    del one
+    release()
+    h2 = []
+    for _ in range(steps):
+        h2 += tr.train(itertools.repeat(batch), 1, log_every=1)
+        mt_replicas(tag, tr)
+    for a, b in zip(h1, h2):
+        for k in held:
+            if abs(a[k] - b[k]) > MT_TOL * abs(a[k]) + 1e-7:
+                raise AssertionError(f"{tag}: step {a['step']} {k} "
+                                     f"{b[k]} vs {a[k]}")
+    mt_shard_bytes(tag, tr)
+    out = {"layers": cfg.num_layers, "mesh": list(shape),
+           "shard_bytes": nbytes, "grad_max_rel": err,
+           "losses": [h["loss"] for h in h2],
+           "losses_unsharded": [h["loss"] for h in h1],
+           "grad_norms": [h["grad_norm"] for h in h2],
+           "grad_norms_unsharded": [h["grad_norm"] for h in h1],
+           "aux": [h["aux"] for h in h2],
+           "aux_unsharded": [h["aux"] for h in h1],
+           "step1_grad_norm_rel": abs(n2 - n1) / n1}
+    del tr
+    release()
+    return out
+
+
+def phase_mesh_train(seed: int, card: str, train_14a=None) -> dict:
+    """Training over a (data, model) mesh of the one card (`Trainer(mesh=)`:
+    the params drawn as unsharded, placed by the reference's placements,
+    the moments in the same placements; one autograd graph over every
+    shard, each piece's gradient summed with its replicas'; a
+    vocab-parallel CE).  17a: granite-3-2b at full width, 4 layers, f32,
+    on (2, 4) against the unsharded Trainer: 3 steps' loss and grad norm
+    within MT_TOL, step 1's gradient leaf by leaf, replicas `torch.equal`
+    after every step, params/mu/nu exactly `specs.shard_bytes` a shard.
+    17b: granite-3-2b at full width and depth in its own dtype (bf16
+    compute, f32 master weights, remat) on (2, 4) with 14a's workload:
+    losses and grad norms finite, the last loss below the first, peak <
+    80 GiB; s a step and tokens/s beside 14a's (`train_14a`).  17c:
+    olmoe-1b-7b expert-parallel on (1, 4) at full width, 4 of 16 layers:
+    in f32 2 steps as 17a (the aux loss too), then 5 steps in bf16 where
+    the loss falls.  17d: granite on (2, 4): accumulation 2 == 1 (f32, 2
+    layers), bf16 and int8 compression train (4 layers, 5 steps), a
+    checkpoint and a preemption (4 layers) restored into a Trainer on (1,
+    4) and an unsharded one, every param and moment leaf `torch.equal`
+    once gathered.  17e: one step of each other arch at full width and 2
+    layers (zamba2 one group of 6, seamless 2 + 2) in f32 on a mesh
+    against the unsharded step (loss, grad norm and aux within MT_TOL).
+    The kernels' launch
+    counts are set to 0 just before: none may launch."""
+    import shutil
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import api, specs
+    from repro_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda")
+    kernels = serving_kernels()
+    out = {"card": card}
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    base = registry.get_arch(TRAIN_ARCH)
+    mesh = lmesh.model_mesh(MT_MESH, ("data", "model"), "cuda")
+
+    # -- 17a: parity at full width, 4 layers, f32 ------------------------
+    t0 = time.perf_counter()
+    cfg_a = base.replace(num_layers=MT_PARITY_LAYERS, dtype="float32")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                     total_steps=TRAIN_STEPS, seed=seed)
+    a_batch = _host_batch(api.synth_batch(g, cfg_a, "train", TRAIN_BATCH,
+                                          MT_SEQ))
+    a = mt_parity("17a", cfg_a, tc, MT_MESH, a_batch, MT_PARITY_STEPS)
+    a["s"] = time.perf_counter() - t0
+    out["17a"] = a
+    print(f"  17a [{card}]: {cfg_a.name} f32 at full width, "
+          f"{MT_PARITY_LAYERS} layers, on {lmesh.describe(mesh)} "
+          f"(8 shards on the card) vs the unsharded Trainer, "
+          f"{TRAIN_BATCH} x {MT_SEQ} tokens: losses {a['losses']} vs "
+          f"{a['losses_unsharded']}, grad norms {a['grad_norms']} vs "
+          f"{a['grad_norms_unsharded']} (rtol {MT_TOL}); step 1's gradient "
+          f"within {a['grad_max_rel']:.3g} of each leaf's scale; replicas "
+          f"torch.equal after every step; params, mu and nu "
+          f"{a['shard_bytes']:,} B a shard, as the placements predict "
+          f"({a['s']:.1f} s)", flush=True)
+
+    # -- 17b: the full model on (2, 4), 14a's workload --------------------
+    torch.cuda.reset_peak_memory_stats()
+    tr, init_ms = synced_ms(lambda: Trainer(base, tc, mesh=mesh))
+    if not base.remat:
+        raise AssertionError(f"17b: {base.name} without remat")
+    batch = _host_batch(api.synth_batch(g, base, "train", TRAIN_BATCH,
+                                        TRAIN_SEQ))
+    hist = tr.train(itertools.repeat(batch), TRAIN_STEPS, log_every=1)
+    _finite("17b", hist)
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"17b: loss {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}")
+    step_s = [h["step_s"] for h in hist]
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    p50 = float(np.percentile(step_s[1:], 50))
+    b = {"arch": base.name, "mesh": list(MT_MESH), "layers": base.num_layers,
+         "init_ms": init_ms, "shard_bytes": mt_shard_bytes("17b", tr),
+         "losses": [h["loss"] for h in hist],
+         "grad_norms": [h["grad_norm"] for h in hist], "step_s": step_s,
+         "step_p50_s": p50, "tokens_per_s": n_tok / p50,
+         "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+    mt_replicas("17b", tr)
+    del tr, hist
+    release()
+    if b["peak_GiB"] >= 80:
+        raise AssertionError(f"17b: peak {b['peak_GiB']:.1f} GiB")
+    ref = train_14a or {}
+    if ref:
+        b["vs_14a_step"] = p50 / ref["step_p50_s"]
+    out["17b"] = b
+    print(f"  17b [{card}]: {base.name} at full width and depth "
+          f"({base.num_layers} layers, bf16 compute, f32 master weights, "
+          f"remat) on {lmesh.describe(mesh)}, {n_tok} tokens a step: loss "
+          f"{b['losses'][0]:.3f} -> {b['losses'][-1]:.3f}, step "
+          f"{step_s[0]:.3f} s first, p50 {p50:.3f} s after, "
+          f"{b['tokens_per_s']:.0f} tokens/s, peak {b['peak_GiB']:.1f} GiB, "
+          f"{b['shard_bytes']:,} B of params a shard"
+          + (f"; unsharded (14a): first {ref['step_s'][0]:.3f} s, p50 "
+             f"{ref['step_p50_s']:.3f} s, {ref['tokens_per_s']:.0f} "
+             f"tokens/s, peak {ref['peak_GiB']:.1f} GiB: "
+             f"{b['vs_14a_step']:.2f} x the step" if ref else ""),
+          flush=True)
+
+    # -- 17c: olmoe expert-parallel on (1, 4), 4 of 16 layers ------------
+    t0 = time.perf_counter()
+    moe = registry.get_arch(FAMILY_ARCH).replace(num_layers=MT_PARITY_LAYERS)
+    c_batch = _host_batch(api.synth_batch(g, moe, "train", TRAIN_BATCH,
+                                          MT_SEQ))
+    # loss and aux held at each step; the grad norm at step 1 (with the
+    # gradient): AdamW's first update moves an element whose gradient is
+    # at the rounding level by about lr either way, which moves the next
+    # step's grad norm by more than MT_TOL (1.3e-4-2.4e-4 at step 2 on an
+    # H100 80GB HBM3 at 700 W)
+    c = mt_parity("17c", moe.replace(dtype="float32"), tc, MT_EP, c_batch, 2,
+                  held=("loss", "aux"))
+    tr = Trainer(moe, tc, mesh=lmesh.model_mesh(MT_EP, ("data", "model"),
+                                                "cuda"))
+    hist = tr.train(itertools.repeat(c_batch), 5, log_every=1)
+    _finite("17c bf16", hist)
+    c["bf16_losses"] = [h["loss"] for h in hist]
+    if not c["bf16_losses"][-1] < c["bf16_losses"][0]:
+        raise AssertionError(f"17c bf16: loss {c['bf16_losses']}")
+    mt_replicas("17c bf16", tr)
+    del tr, hist
+    release()
+    c["s"] = time.perf_counter() - t0
+    out["17c"] = c
+    print(f"  17c [{card}]: {moe.name} expert-parallel (16 of 64 experts a "
+          f"shard) at full width, {MT_PARITY_LAYERS} of 16 layers, on "
+          f"data=1xmodel=4: f32 vs unsharded, losses {c['losses']} vs "
+          f"{c['losses_unsharded']}, aux {c['aux']} vs "
+          f"{c['aux_unsharded']}, grad norms {c['grad_norms']} vs "
+          f"{c['grad_norms_unsharded']}, step 1's gradient within "
+          f"{c['grad_max_rel']:.3g} of each leaf's scale, "
+          f"{c['shard_bytes']:,} B a shard; bf16 5 steps: loss "
+          f"{c['bf16_losses'][0]:.3f} -> {c['bf16_losses'][-1]:.3f} "
+          f"({c['s']:.1f} s)", flush=True)
+
+    # -- 17d: accumulation, the codecs, checkpoint and restore -----------
+    t0 = time.perf_counter()
+    d = {}
+    cfg2 = base.replace(num_layers=2, dtype="float32")
+    d_batch = _host_batch(api.synth_batch(g, cfg2, "train", 4, 64))
+    res = {}
+    for accum in (1, 2):
+        tr = Trainer(cfg2, TrainConfig(grad_accum=accum, learning_rate=1e-3,
+                                       seed=seed), mesh=mesh)
+        hist = tr.train(itertools.repeat(d_batch), 1, log_every=1)
+        _finite(f"17d accum {accum}", hist)
+        res[accum] = (hist[0]["loss"],
+                      tr.params.placed("embed.table").full())
+        del tr
+    np.testing.assert_allclose(res[1][0], res[2][0], rtol=1e-4)
+    torch.testing.assert_close(res[1][1], res[2][1], rtol=1e-3, atol=1e-5)
+    d["accum"] = {"loss_1": res[1][0], "loss_2": res[2][0],
+                  "leaf_max_abs_diff": float(
+                      (res[1][1] - res[2][1]).abs().max())}
+    del res
+    release()
+    cfg4 = base.replace(num_layers=4)
+    c4_batch = _host_batch(api.synth_batch(g, cfg4, "train", TRAIN_BATCH,
+                                           128))
+    for scheme in ("bf16", "int8"):
+        tr = Trainer(cfg4, TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                                       grad_compression=scheme, seed=seed),
+                     mesh=mesh)
+        hist = tr.train(itertools.repeat(c4_batch), 5, log_every=1)
+        _finite(f"17d {scheme}", hist)
+        ls = [h["loss"] for h in hist]
+        if not ls[-1] < ls[0]:
+            raise AssertionError(f"17d {scheme}: loss {ls}")
+        mt_replicas(f"17d {scheme}", tr)
+        d[scheme] = ls
+        del tr
+        release()
+    ck_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_train_")
+    try:
+        r_tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, seed=seed)
+        r_batch = _host_batch(api.synth_batch(g, cfg4, "train", 4, 128))
+        tr = Trainer(cfg4, r_tc, mesh=mesh, checkpoint_dir=ck_dir,
+                     checkpoint_every=5)
+        tr.train(itertools.repeat(r_batch), 6, log_every=2)
+        if tr.step_num != 6 or tr.ckpt.latest_step() != 5:
+            raise AssertionError(f"17d: step {tr.step_num}, checkpoint "
+                                 f"{tr.ckpt.latest_step()}")
+        tr.guard.request()
+        tr.train(itertools.repeat(r_batch), 10, log_every=2)
+        if tr.step_num != 7 or tr.ckpt.latest_step() != 7:
+            raise AssertionError(f"17d: preempted at {tr.step_num}")
+        saved = [{k: v.full() for k, v in specs.flat_tree(t).items()}
+                 for t in (tr.params.tree(), tr.opt_state.mu.tree(),
+                           tr.opt_state.nu.tree())]
+        del tr
+        release()
+        d["restore_s"], n = {}, 0
+        for where, kw in (("data=1xmodel=4", {"mesh": lmesh.model_mesh(
+                MT_EP, ("data", "model"), "cuda")}),
+                          ("one device", {"device": dev})):
+            tr2 = Trainer(cfg4, r_tc, checkpoint_dir=ck_dir, **kw)
+            t1 = time.perf_counter()
+            if not tr2.maybe_restore() or tr2.step_num != 7 or \
+                    int(tr2.opt_state.step) != 7:
+                raise AssertionError(f"17d: the restore onto {where} lost "
+                                     "the step")
+            d["restore_s"][where] = time.perf_counter() - t1
+            tree = tr2._tree()
+            for want, got in zip(saved, (tree["params"], tree["opt"][1],
+                                         tree["opt"][2])):
+                for k, v in specs.flat_tree(got).items():
+                    if not torch.equal(want[k], v.full().to(want[k].device)
+                                       if hasattr(v, "full") else v):
+                        raise AssertionError(f"17d: {k} differs after the "
+                                             f"restore onto {where}")
+                    n += 1
+            del tr2, tree
+            release()
+        d["leaves_equal"] = n
+        d["checkpoints_GB"] = sum(
+            os.path.getsize(os.path.join(r, f)) for r, _, fs in
+            os.walk(ck_dir) for f in fs) / 1e9
+        del saved
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    release()
+    d["s"] = time.perf_counter() - t0
+    out["17d"] = d
+    print(f"  17d [{card}]: on {lmesh.describe(mesh)}: f32, 2 layers, "
+          f"accumulation 2 loss {d['accum']['loss_2']:.6f} == 1's "
+          f"{d['accum']['loss_1']:.6f} (embedding max diff "
+          f"{d['accum']['leaf_max_abs_diff']:.3g}); 4 layers: bf16 "
+          f"compression loss {d['bf16'][0]:.3f} -> {d['bf16'][-1]:.3f}, "
+          f"int8 {d['int8'][0]:.3f} -> {d['int8'][-1]:.3f} in 5 steps; a "
+          f"checkpoint at 5, preempted at 7 ({d['checkpoints_GB']:.2f} GB on "
+          f"disk), restored onto data=1xmodel=4 and one device "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in d['restore_s'].items())})"
+          f": {n} param/moment leaves torch.equal once gathered "
+          f"({d['s']:.1f} s)", flush=True)
+
+    # -- 17e: one step of each other arch at full width ------------------
+    t0 = time.perf_counter()
+    out["17e"] = {}
+    for arch, shape in MT_FAMILIES:
+        full = registry.get_arch(arch)
+        kw = {"num_layers": 2}
+        if full.family == "hybrid":
+            kw = {"num_layers": full.shared_block_period}
+        elif full.family == "encdec":
+            kw = {"num_layers": 4, "num_enc_layers": 2, "num_dec_layers": 2}
+        cfg_e = full.replace(dtype="float32", **kw)
+        e_batch = _host_batch(api.synth_batch(g, cfg_e, "train", 4, MT_SEQ))
+        e_tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, seed=seed)
+        one = Trainer(cfg_e, e_tc, device=dev)
+        want = one.train(itertools.repeat(e_batch), 1, log_every=1)[0]
+        del one
+        release()
+        e_mesh = lmesh.model_mesh(shape, ("data", "model"), "cuda")
+        tr = Trainer(cfg_e, e_tc, mesh=e_mesh)
+        got = tr.train(itertools.repeat(e_batch), 1, log_every=1)[0]
+        mt_replicas(f"17e {arch}", tr)
+        _finite(f"17e {arch}", [got])
+        for k in ("loss", "grad_norm", "aux"):
+            if abs(got[k] - want[k]) > MT_TOL * abs(want[k]) + 1e-7:
+                raise AssertionError(f"17e {arch}: {k} {got[k]} vs "
+                                     f"{want[k]}")
+        r = {"mesh": list(shape), "layers": kw, "loss": got["loss"],
+             "loss_unsharded": want["loss"], "grad_norm": got["grad_norm"],
+             "grad_norm_unsharded": want["grad_norm"], "aux": got["aux"],
+             "step_s": got["step_s"], "step_s_unsharded": want["step_s"],
+             "shard_bytes": tr.params.nbytes(0)}
+        out["17e"][arch] = r
+        del tr
+        release()
+        print(f"  17e [{card}]: {arch} ({kw}) f32 on "
+              f"{lmesh.describe(e_mesh)}: one step's loss {r['loss']:.6f} "
+              f"vs {r['loss_unsharded']:.6f} unsharded, grad norm "
+              f"{r['grad_norm']:.6f} vs {r['grad_norm_unsharded']:.6f}, aux "
+              f"{r['aux']:.4f}; {1e3 * r['step_s']:.0f} ms vs "
+              f"{1e3 * r['step_s_unsharded']:.0f} ms", flush=True)
+    out["17e_s"] = time.perf_counter() - t0
+    out.update(path_launches(kernels, {}))
+    if any(out["launches"].values()):
+        raise AssertionError(f"17: kernel launches {out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4901,6 +5351,13 @@ def main(argv=None) -> int:
                                      fam["12b"], ed["13a"])
     print(f"phase 16: mesh in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(msh), flush=True)
+    release()
+    # 17. training over the (data, model) mesh (after phase 16's memory is
+    # freed), the counts set to 0 just before (it launches none of them)
+    t0 = time.perf_counter()
+    paths["mesh_train"] = mtr = phase_mesh_train(args.seed, card, trn["14a"])
+    print(f"phase 17: mesh training in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(mtr), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -1,15 +1,17 @@
 """Training entry point of the port: ``python -m repro_torch.launch.train
---arch granite-3-2b [--full] [--device cpu]``.
+--arch granite-3-2b [--full] [--production-mesh [--multi-pod]] [--device
+cpu]``.
 
 The counterpart of ``src/repro/launch/train.py``, with its flags and
 defaults: a reduced config (``--reduced``, the default) or the full one
 (``--full``), a synthetic corpus unless ``--data-dir`` names uint32 token
 shards, and the fault-tolerant `Trainer` (checkpoint/restart, preemption,
 straggler monitor) always on.  It trains on the CUDA card unless
-``--device`` names another.  The reference's ``--production-mesh`` and
-``--multi-pod`` (training over the device mesh, which the port's
-`repro_torch.launch.mesh` builds for serving) and ``--multihost`` (a
-multi-host runtime) are not ported yet.
+``--device`` names another.  ``--production-mesh`` trains over the
+reference's 16 x 16 (data, model) mesh (``--multi-pod``: 2 x 16 x 16),
+one card a shard: it is refused on a node with fewer than 256 (512)
+cards, and with ``--device`` every shard goes on that device.  The
+reference's ``--multihost`` (a multi-host runtime) is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import argparse
 from repro_torch.configs import registry
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import Prefetcher, TokenDataset
+from repro_torch.launch.mesh import describe, make_production_mesh
 from repro_torch.models import api
 from repro_torch.train.trainer import Trainer
 
@@ -37,6 +40,12 @@ def main(argv=None) -> Trainer:
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false",
                     help="the full config")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="train over the 16 x 16 (data, model) mesh: 256 "
+                    "cards, or every shard on --device")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production-mesh, the 2 x 16 x 16 (pod, "
+                    "data, model) mesh: 512 cards")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data-dir", default=None,
@@ -53,11 +62,17 @@ def main(argv=None) -> Trainer:
                      grad_accum=args.grad_accum,
                      grad_compression=args.grad_compression, seed=args.seed)
 
+    mesh = (make_production_mesh(multi_pod=args.multi_pod,
+                                 devices=args.device)
+            if args.production_mesh else None)
+
     print(f"arch={cfg.name} params={cfg.param_count():,} "
           f"(active {cfg.active_param_count():,}) reduced={args.reduced}")
-    trainer = Trainer(cfg, tc, checkpoint_dir=args.checkpoint_dir,
+    trainer = Trainer(cfg, tc, mesh=mesh, checkpoint_dir=args.checkpoint_dir,
                       checkpoint_every=args.checkpoint_every,
                       install_signals=True, device=args.device)
+    if mesh is not None:
+        print(f"training on the mesh {describe(mesh)}")
     if trainer.maybe_restore():
         print(f"restored from step {trainer.step_num}")
 

@@ -25,8 +25,8 @@ Head padding: when num_heads doesn't divide the model axis (qwen2-vl: 28),
 q-heads are padded up to the next multiple of 16, so parameter shapes
 match the reference's leaf for leaf.
 
-Over a mesh: `prefill` and `decode_step` take a model placed by
-`specs.place_params` (`specs.ShardedLM`), every family.  One process
+Over a mesh: `prefill`, `decode_step` and `forward_train` take a model
+placed by `specs.place_params` (`specs.ShardedLM`), every family.  One process
 drives every shard, one after another (on several cards their launches
 overlap).  The batch splits over the data axes where it divides; each
 shard gathers a layer's FSDP pieces over 'data' once a call, then runs
@@ -46,7 +46,10 @@ divide over 'model' those matrices run whole on every shard.  The logits
 come back as a `sharding.Placed` ([B, Vp], vocab over 'model'), the
 caches as placed leaves (K/V by `attention.kv_placement`, the recurrent
 states by heads, rwkv6's shifts whole, mamba2's conv window a
-`sharding.Joined`), the positions whole.
+`sharding.Joined`), the positions whole.  `forward_train` returns every
+position's logits placed ([B, S, Vp]) and writes no cache; with
+``cfg.remat`` each layer runs under `_remat` across all shards, its FSDP
+gathers inside, so the backward gathers again.
 """
 from __future__ import annotations
 
@@ -606,9 +609,14 @@ def _splice_vision(x, v):
 
 
 def _per_block(t, call: MeshCall) -> list:
-    """A whole batch tensor [B, ...] as each shard's data block."""
-    return list(sharding.place(t, (call.batch_entry,) + (None,) * (
-        t.dim() - 1), call.mesh).parts)
+    """A batch tensor [B, ...] as each shard's data block: a whole one
+    cut, a placed one (the trainer's batches) taken as it is placed."""
+    spec = (call.batch_entry,) + (None,) * (len(t.shape) - 1)
+    if isinstance(t, sharding.Placed):
+        if tuple(t.spec) + (None,) * (len(spec) - len(t.spec)) == spec:
+            return list(t.parts)
+        t = t.full()
+    return list(sharding.place(t, spec, call.mesh).parts)
 
 
 def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens,
@@ -619,7 +627,7 @@ def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens,
     qwen2-vl's `vis_embeds` [B, Nv, D] take each block's first positions."""
     call = _mesh_call(sp, cfg, tokens.shape[0])
     mesh = sp.mesh
-    parts = sharding.place(tokens, (call.batch_entry, None), mesh).parts
+    parts = _per_block(tokens, call)
     split = sp.tp_split("embed.table", 0)
     rows = []
     for i, (e, t) in enumerate(zip(call.emb, parts)):
@@ -714,7 +722,7 @@ def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     per shard its caches, aux)."""
     _require_decoder(cfg)
     s = xs[0].shape[1]
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
                      for x in xs]
     else:
@@ -735,13 +743,15 @@ def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     whole = "mlp." if cfg.family == "moe" and not call.ep else None
     windows = _layer_windows(cfg, cfg.num_layers)
     for l in range(cfg.num_layers):
-        bl = sp.gathered("blocks.", layer=l, whole=whole)
-        xs, a = _block_mesh(bl, xs, cfg, call, mode=mode, window=windows[l],
-                            positions=positions, kvs=kvs, layer=l, pos=pos,
-                            mrope_pos=mrope_pos)
+        def layer(*xs_, l=l):
+            bl = sp.gathered("blocks.", layer=l, whole=whole)
+            return _block_mesh(bl, list(xs_), cfg, call, mode=mode,
+                               window=windows[l], positions=positions,
+                               kvs=kvs, layer=l, pos=pos,
+                               mrope_pos=mrope_pos)
+        xs, a = _remat(cfg, layer, *xs)
         if a is not None:
             aux = aux + a
-        del bl
     return xs, kvs, aux
 
 
@@ -757,52 +767,73 @@ def _rwkv_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     head-local, wo by rows: one sum over 'model'); the channel mix's
     cwk/cwv give a partial value (one sum) and cwr each shard's slice of
     the receptance, whose product with the value is gathered over
-    'model'.  The shifts see the whole hidden.  Prefill starts from zero
-    states.  Returns (xs, per shard its `RWKVCache` [L, ...]: state over
-    its heads, shifts whole)."""
+    'model'.  The shifts see the whole hidden.  Train and prefill start
+    from zero states; train writes no cache (each layer under `_remat`).
+    Returns (xs, per shard its `RWKVCache` [L, ...]: state over its heads,
+    shifts whole; train: None)."""
     mesh = call.mesh
     m = _model_width(mesh)
     heads = cfg.d_model // cfg.ssm_head_dim
     time_tp = sp.tp_split("blocks.wr", 1) and heads % m == 0
     r_tp = sp.tp_split("blocks.cwr", 1)
     k_tp = sp.tp_split("blocks.cwk", 1)
-    if caches is None:
+    hl = heads // m if time_tp else heads
+    train = mode == "train"
+    if train:
+        zeros = [rwkv6.RWKVCache.init(x.shape[0], cfg, x.dtype, x.device,
+                                      heads=hl) for x in xs]
+    elif caches is None:
         caches = [rwkv6.RWKVCache.init(
             x.shape[0], cfg, x.dtype, x.device, (cfg.num_layers,),
-            heads=heads // m if time_tp else heads) for x in xs]
-    for l in range(cfg.num_layers):
+            heads=hl) for x in xs]
+
+    def layer(*xs_, l):
         bl = sp.gathered("blocks.", layer=l,
                          whole=None if time_tp else _TIME_MIX)
         if time_tp:
             for i, b in enumerate(bl):
                 _rwkv_heads(b, cfg, _model_coord(mesh, i), m)
-        ys = []
-        for b, x, c in zip(bl, xs, caches):
-            h = layers.rms_norm(x, b.ln1, cfg.norm_eps)
-            y, c.state[l], c.x_att[l] = rwkv6.time_mix(b, h, cfg, c.state[l],
-                                                       c.x_att[l])
+        ins = zeros if train else [rwkv6.RWKVCache(
+            c.state[l], c.x_att[l], c.x_ffn[l]) for c in caches]
+        ys, news = [], []
+        for b, x, c in zip(bl, xs_, ins):
+            y, st, xa = rwkv6.time_mix(
+                b, layers.rms_norm(x, b.ln1, cfg.norm_eps), cfg, c.state,
+                c.x_att)
             ys.append(y)
+            news.append((st, xa))
         if time_tp:
             ys = sharding.all_sum(ys, mesh, "model")
-        pairs = [_add_norm(x, y, b.ln2, cfg) for x, y, b in zip(xs, ys, bl)]
-        xs = [p[0] for p in pairs]
+        pairs = [_add_norm(x, y, b.ln2, cfg)
+                 for x, y, b in zip(xs_, ys, bl)]
+        out = [p[0] for p in pairs]
         rs, vs = [], []
-        for b, (_, h2), c in zip(bl, pairs, caches):
-            r, v, c.x_ffn[l] = rwkv6.channel_parts(b, h2, c.x_ffn[l])
+        for j, (b, (_, h2), c) in enumerate(zip(bl, pairs, ins)):
+            r, v, xf = rwkv6.channel_parts(b, h2, c.x_ffn)
             rs.append(r)
             vs.append(v)
+            news[j] = rwkv6.RWKVCache(*news[j], xf)
         if k_tp:
             vs = sharding.all_sum(vs, mesh, "model")
         if r_tp:
             n = rs[0].shape[-1]
             ys = sharding.all_gather(
                 [r * v.narrow(-1, _model_coord(mesh, i) * n, n)
-                 for i, (r, v) in enumerate(zip(rs, vs))], mesh, "model", -1)
+                 for i, (r, v) in enumerate(zip(rs, vs))], mesh,
+                "model", -1)
         else:
             ys = [r * v for r, v in zip(rs, vs)]
-        xs = [x + y for x, y in zip(xs, ys)]
-        del bl
-    return xs, caches
+        return [x + y for x, y in zip(out, ys)], news
+
+    for l in range(cfg.num_layers):
+        if train:
+            xs = list(_remat(cfg, lambda *a, l=l: tuple(layer(*a, l=l)[0]),
+                             *xs))
+            continue
+        xs, news = layer(*xs, l=l)
+        for c, new in zip(caches, news):
+            c.state[l], c.x_att[l], c.x_ffn[l] = new
+    return xs, None if train else caches
 
 
 def _rwkv_heads(b, cfg: ModelConfig, c: int, m: int) -> None:
@@ -828,14 +859,17 @@ def _zamba_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     summed over 'model' first), out_proj by rows (one sum); then the
     shared attention block (`_block_mesh`, planned on its own leaves: its
     MLP is unstacked, so column/row-parallel) with each group's KV cache.
-    Returns (xs, per shard its `ZambaCaches`: mamba state over its heads,
-    conv window [L, B_l, W-1, di_l + 2N] (its x channels, then every B/C
-    channel), the shared block's K/V)."""
+    Train writes no cache; each mamba layer and each shared-block call
+    runs under `_remat`, gathering its leaves inside.  Returns (xs, per
+    shard its `ZambaCaches`: mamba state over its heads, conv window [L,
+    B_l, W-1, di_l + 2N] (its x channels, then every B/C channel), the
+    shared block's K/V; train: None)."""
     mesh = call.mesh
     m = _model_width(mesh)
     ssm_tp = sp.tp_split("blocks.w_dt", 1) and sp.tp_split("blocks.w_x", 1)
     period = cfg.shared_block_period
     n_groups = cfg.num_layers // period
+    train = mode == "train"
     shared = _mesh_call(sp, cfg, call.batch, "shared_attn.attn.",
                         "shared_attn.mlp.", emb=call.emb)
     if mode == "prefill":
@@ -846,38 +880,56 @@ def _zamba_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
                 heads=cfg.ssm_heads // m if ssm_tp else cfg.ssm_heads),
             attn=_kv_caches(cfg, n_groups, x.shape[0], max(s, s_max),
                             x.device, shared.kv_local)) for x in xs]
-    sbl = sp.gathered("shared_attn.")
+    # serving gathers the shared block once a call; train regathers it in
+    # each (recomputed) call
+    sbl = None if train else sp.gathered("shared_attn.")
+
+    def mamba_layer(*xs_, l):
+        bl = sp.gathered("blocks.", layer=l,
+                         whole=None if ssm_tp else _SSM_CUT)
+        if ssm_tp:
+            for i, b in enumerate(bl):
+                _mamba_heads(b, cfg, _model_coord(mesh, i), m)
+        ygs, news = [], []
+        for i, (b, x) in enumerate(zip(bl, xs_)):
+            mc = (mamba2.MambaCache(caches[i].mamba.state[l],
+                                    caches[i].mamba.conv[l])
+                  if mode == "decode" else None)
+            yg, new = mamba2.mamba_gated(
+                b, layers.rms_norm(x, b.ln, cfg.norm_eps), cfg,
+                mode=mode, cache=mc, chunk=128)
+            ygs.append(yg)
+            news.append(new)
+        var = [None] * len(ygs)
+        if ssm_tp:
+            var = [q / cfg.ssm_d_inner for q in sharding.all_sum(
+                [(y * y).sum(-1, keepdim=True) for y in ygs], mesh,
+                "model")]
+        outs = [mamba2.mamba_out(b, y, cfg, x.dtype, v)
+                for b, y, x, v in zip(bl, ygs, xs_, var)]
+        if ssm_tp:
+            outs = sharding.all_sum(outs, mesh, "model")
+        return [x + o for x, o in zip(xs_, outs)], news
+
+    def shared_block(*xs_, g):
+        out, _ = _block_mesh(
+            sbl if sbl is not None else sp.gathered("shared_attn."),
+            list(xs_), cfg, shared, mode=mode, window=0, positions=positions,
+            kvs=None if train else [c.attn for c in caches], layer=g,
+            pos=pos)
+        return tuple(out)
+
     for g in range(n_groups):
         for l in range(g * period, (g + 1) * period):
-            bl = sp.gathered("blocks.", layer=l,
-                             whole=None if ssm_tp else _SSM_CUT)
-            if ssm_tp:
-                for i, b in enumerate(bl):
-                    _mamba_heads(b, cfg, _model_coord(mesh, i), m)
-            ygs = []
-            for b, x, c in zip(bl, xs, caches):
-                mc = (mamba2.MambaCache(c.mamba.state[l], c.mamba.conv[l])
-                      if mode == "decode" else None)
-                yg, new = mamba2.mamba_gated(
-                    b, layers.rms_norm(x, b.ln, cfg.norm_eps), cfg,
-                    mode=mode, cache=mc, chunk=128)
+            if train:
+                xs = list(_remat(cfg, lambda *a, l=l: tuple(
+                    mamba_layer(*a, l=l)[0]), *xs))
+                continue
+            xs, news = mamba_layer(*xs, l=l)
+            for c, new in zip(caches, news):
                 c.mamba.state[l], c.mamba.conv[l] = new
-                ygs.append(yg)
-            var = [None] * len(ygs)
-            if ssm_tp:
-                var = [q / cfg.ssm_d_inner for q in sharding.all_sum(
-                    [(y * y).sum(-1, keepdim=True) for y in ygs], mesh,
-                    "model")]
-            outs = [mamba2.mamba_out(b, y, cfg, x.dtype, v)
-                    for b, y, x, v in zip(bl, ygs, xs, var)]
-            if ssm_tp:
-                outs = sharding.all_sum(outs, mesh, "model")
-            xs = [x + o for x, o in zip(xs, outs)]
-            del bl
-        xs, _ = _block_mesh(sbl, xs, cfg, shared, mode=mode, window=0,
-                            positions=positions,
-                            kvs=[c.attn for c in caches], layer=g, pos=pos)
-    return xs, caches
+        xs = list(_remat(cfg, shared_block, *xs, g=g))
+    return xs, None if train else caches
 
 
 def _mamba_heads(b, cfg: ModelConfig, c: int, m: int) -> None:
@@ -893,19 +945,24 @@ def _encode_mesh(sp: specs.ShardedLM, cfg: ModelConfig, call: MeshCall,
                  src_emb):
     """The encoder on every shard over its data block of the source
     frames [B, Se, D] (`_block_mesh` non-causal, planned on the encoder's
-    leaves), then ``enc_final_norm``."""
+    leaves; each layer under `_remat`), then ``enc_final_norm``."""
     enc = _mesh_call(sp, cfg, call.batch, "enc_blocks.attn.",
                      "enc_blocks.mlp.", emb=call.emb)
-    xs = _per_block(src_emb.to(layers.torch_dtype(cfg.dtype)), call)
+    xs = [x.to(layers.torch_dtype(cfg.dtype))
+          for x in _per_block(src_emb, call)]
     s = xs[0].shape[1]
     positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
                  for x in xs]
+
+    def layer(*xs_, l):
+        out, _ = _block_mesh(sp.gathered("enc_blocks.", layer=l), list(xs_),
+                             cfg, enc, mode="train", window=0,
+                             positions=positions, kvs=None, layer=l,
+                             pos=None, causal=False)
+        return tuple(out)
+
     for l in range(cfg.num_enc_layers):
-        bl = sp.gathered("enc_blocks.", layer=l)
-        xs, _ = _block_mesh(bl, xs, cfg, enc, mode="train", window=0,
-                            positions=positions, kvs=None, layer=l, pos=None,
-                            causal=False)
-        del bl
+        xs = list(_remat(cfg, layer, *xs, l=l))
     return [layers.rms_norm(x, f, cfg.norm_eps, gemma_style=True)
             for x, f in zip(xs, sp.leaf("enc_final_norm"))]
 
@@ -919,53 +976,62 @@ def _decode_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     encoder's K/V, then the MLP.  Prefill makes each shard's ``{"self":
     KV [L_dec, B_l, max(S, s_max), KVH_l, Dh], "cross": KV [L_dec, B_l,
     Se, KVH_l, Dh]}`` from `enc_outs`; decode writes the token's rows
-    into ``caches[i]["self"]``.  Returns (xs, per shard its caches)."""
+    into ``caches[i]["self"]``; train keeps no cache (each layer under
+    `_remat`, its cross K/V made from `enc_outs`).  Returns (xs, per shard
+    its caches; train: None)."""
     dec = _mesh_call(sp, cfg, call.batch, "dec_blocks.attn.",
                      "dec_blocks.mlp.", emb=call.emb)
     cross = _mesh_call(sp, cfg, call.batch, "dec_blocks.cross.",
                        "dec_blocks.mlp.", emb=call.emb)
     mesh, acfg = call.mesh, _acfg(cfg)
     s = xs[0].shape[1]
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = [torch.arange(s, device=x.device).expand(x.shape[0], s)
                      for x in xs]
+    else:
+        positions = [p[:, None] for p in pos]
+    if mode == "prefill":
         caches = [{"self": _kv_caches(cfg, cfg.num_dec_layers, x.shape[0],
                                       max(s, s_max), x.device, dec.kv_local),
                    "cross": _kv_caches(cfg, cfg.num_dec_layers, x.shape[0],
                                        e.shape[1], x.device, cross.kv_local)}
                   for x, e in zip(xs, enc_outs)]
-    else:
-        positions = [p[:, None] for p in pos]
 
     def tp_sum(parts, cut: bool):
         return sharding.all_sum(parts, mesh, "model") if cut else parts
 
-    for l in range(cfg.num_dec_layers):
+    def layer(*xs_, l):
         bl = sp.gathered("dec_blocks.", layer=l)
         hs = [layers.rms_norm(x, b.ln_attn, cfg.norm_eps, gemma_style=True)
-              for x, b in zip(xs, bl)]
+              for x, b in zip(xs_, bl)]
         outs = _attn_mesh([b.attn for b in bl], hs, cfg, dec, mode=mode,
                           window=0, positions=positions,
-                          kvs=[c["self"] for c in caches], layer=l, pos=pos)
+                          kvs=None if mode == "train" else
+                          [c["self"] for c in caches], layer=l, pos=pos)
         pairs = [_add_norm(x, a, b.ln_cross, cfg, gemma_style=True)
-                 for x, a, b in zip(xs, outs, bl)]
-        xs = [p[0] for p in pairs]
+                 for x, a, b in zip(xs_, outs, bl)]
         cos = []
-        for i, (b, (_, hc), c) in enumerate(zip(bl, pairs, caches)):
-            cc = c["cross"]
-            if mode == "prefill":
+        for i, (b, (_, hc)) in enumerate(zip(bl, pairs)):
+            if mode == "train":
                 kv = attn.cross_kv(b.cross, enc_outs[i], acfg)
-                cc.k[l], cc.v[l] = kv.k, kv.v
-            cos.append(attn.cross_attention(
-                b.cross, hc, KVCache(cc.k[l], cc.v[l]), acfg,
-                kv_heads=cross.kv_heads[i]))
+            else:
+                cc = caches[i]["cross"]
+                if mode == "prefill":
+                    kv = attn.cross_kv(b.cross, enc_outs[i], acfg)
+                    cc.k[l], cc.v[l] = kv.k, kv.v
+                kv = KVCache(cc.k[l], cc.v[l])
+            cos.append(attn.cross_attention(b.cross, hc, kv, acfg,
+                                            kv_heads=cross.kv_heads[i]))
         pairs = [_add_norm(x, co, b.ln_mlp, cfg, gemma_style=True)
-                 for x, co, b in zip(xs, tp_sum(cos, cross.attn_tp), bl)]
+                 for (x, _), co, b in zip(pairs, tp_sum(cos, cross.attn_tp),
+                                          bl)]
         ms = tp_sum([layers.mlp_apply(b.mlp, h2, cfg.act)
                      for b, (_, h2) in zip(bl, pairs)], dec.mlp_tp)
-        xs = [x + mo for (x, _), mo in zip(pairs, ms)]
-        del bl
-    return xs, caches
+        return tuple(x + mo for (x, _), mo in zip(pairs, ms))
+
+    for l in range(cfg.num_dec_layers):
+        xs = list(_remat(cfg, layer, *xs, l=l))
+    return xs, None if mode == "train" else caches
 
 
 def _placed(parts, spec, call: MeshCall, shape) -> sharding.Placed:
@@ -1027,21 +1093,45 @@ def _placed_caches(cfg: ModelConfig, call: MeshCall, local, s_kv: int):
 
 
 def _logits_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
-                 call: MeshCall) -> sharding.Placed:
-    """The last position's logits: a `sharding.Placed` [B, Vp], the batch
-    as the call placed it, the vocab over 'model' where the head (or the
-    tied table) is cut so."""
+                 call: MeshCall, last: bool = True) -> sharding.Placed:
+    """The last position's logits, a `sharding.Placed` [B, Vp] (with
+    `last` False every position's, [B, S, Vp]): the batch as the call
+    placed it, the vocab over 'model' where the head (or the tied table)
+    is cut so."""
     fn = sp.leaf("final_norm")
     heads = sp.gathered("head.")
-    parts = tuple(
-        layers.unembed_apply(e, h, layers.rms_norm(
-            x[:, -1:], f, cfg.norm_eps, gemma_style=True), cfg)[:, 0]
-        for x, f, e, h in zip(xs, fn, call.emb, heads))
+    parts = []
+    for x, f, e, h in zip(xs, fn, call.emb, heads):
+        y = layers.unembed_apply(e, h, layers.rms_norm(
+            x[:, -1:] if last else x, f, cfg.norm_eps, gemma_style=True),
+            cfg)
+        parts.append(y[:, 0] if last else y)
     cut = (sp.tp_split("embed.table", 0) if cfg.tie_embeddings
            else sp.tp_split("head.w", 1))
-    return sharding.Placed(parts, (call.batch_entry, "model" if cut
-                                   else None), call.mesh,
-                           (call.batch, cfg.vocab_padded))
+    lead = (call.batch,) if last else (call.batch, xs[0].shape[1])
+    return sharding.Placed(tuple(parts), (call.batch_entry,) + (None,) * (
+        len(lead) - 1) + ("model" if cut else None,), call.mesh,
+        lead + (cfg.vocab_padded,))
+
+
+def _forward_train_mesh(sp: specs.ShardedLM, cfg: ModelConfig, batch):
+    """`forward_train` on a placed model: (the placed logits [B, S, Vp],
+    the aux loss on shard 0's device).  No cache is allocated or written;
+    each layer runs under `_remat` across every shard, its FSDP gathers
+    inside, so the backward gathers again."""
+    xs, call = embed_mesh(sp, cfg, batch["tokens"], batch.get("vis_embeds"))
+    aux = torch.zeros((), device=xs[0].device)
+    if cfg.family == "encdec":
+        enc = _encode_mesh(sp, cfg, call, batch["src_emb"])
+        xs, _ = _decode_stack_mesh(sp, xs, cfg, call, mode="train",
+                                   enc_outs=enc)
+    else:
+        mrope_pos = batch.get("mrope_pos")
+        if mrope_pos is not None:
+            mrope_pos = _per_block(mrope_pos, call)
+        xs, _, aux = _run_stack_mesh(sp, xs, cfg, call, mode="train",
+                                     mrope_pos=mrope_pos)
+    return _logits_mesh(sp, cfg, xs, call, last=False), aux
 
 
 def _last_pos(call: MeshCall, s: int) -> torch.Tensor:
@@ -1108,10 +1198,12 @@ def forward_train(params: LM, cfg: ModelConfig, batch):
     """-> (logits [B,S,Vp], aux_loss), differentiable (the enc-dec family
     takes ``src_emb`` beside its target ``tokens``; its aux is 0).  Callers
     that only read it and hold parameters that require grad run it under
-    ``torch.no_grad()``."""
+    ``torch.no_grad()``.  Over a mesh (a placed model) the logits are a
+    `sharding.Placed` [B, S, Vp] (the batch over the data axes, the vocab
+    over 'model' where the head is cut so), which `train_step.loss_fn`
+    reads as it is placed."""
     if mesh_of(params, cfg) is not None:
-        raise NotImplementedError("forward_train over a mesh comes with the "
-                                  "training slice of the mesh")
+        return _forward_train_mesh(params, cfg, batch)
     x = _embed_inputs(params, cfg, batch)
     if cfg.family == "encdec":
         x, _ = _decode_stack(params, cfg, x,

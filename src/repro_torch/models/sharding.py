@@ -18,10 +18,18 @@ repeat (eight shards on one card).  Where the reference's GSPMD holds one
 global array with a sharding, the port holds a `Placed`: one local piece
 per shard, each on its shard's device, and the placement that cut them.
 The model code runs Megatron-style tensor parallelism on the local pieces
-(`repro_torch.models.lm`); the only traffic between shards is the three
+(`repro_torch.models.lm`); the only traffic between shards is the
 collectives at the end of this file, each of which runs in shard order.
 On one card a collective is an add or a concatenation on that card; on
 several cards its operands are copied device to device (``.to(dev)``).
+
+Training differentiates through them: one process builds one autograd
+graph over every shard, so the backward of `all_gather` (a concatenation)
+already sums the uses of a gathered piece, and that of `all_sum` hands
+each part the sum of its group's output gradients.  A piece the placement
+replicates is a copy on each shard, whose gradient covers only its own
+shard's use; `replica_sum` adds the copies' gradients (the transpose of
+the reference's implicit GSPMD psum, its data-parallel gradient sum).
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import contextlib
 import dataclasses
 import math
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -192,20 +200,32 @@ class Placed:
     def dtype(self) -> torch.dtype:
         return self.parts[0].dtype
 
+    @torch.no_grad()
     def full(self, device=None) -> torch.Tensor:
         """The whole tensor on `device` (default: shard 0's), each slice
-        copied from the first shard that holds it."""
+        copied from the first shard that holds it (`distinct`); a value,
+        outside autograd."""
         dev = torch.device(device) if device is not None else \
             self.parts[0].device
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
-        seen = set()
-        for i, p in enumerate(self.parts):
-            sl = local_slices(self.shape, self.spec, self.mesh, i)
-            key = tuple((s.start, s.stop) for s in sl)
-            if key not in seen:
-                seen.add(key)
-                out[sl] = p.to(dev)
+        for i in distinct(self.shape, self.spec, self.mesh):
+            out[local_slices(self.shape, self.spec, self.mesh, i)] = \
+                self.parts[i].to(dev)
         return out
+
+
+def distinct(shape, spec_: Placement, mesh: ShardMesh) -> List[int]:
+    """The shards that hold each slice of a tensor of `shape` placed by
+    `spec_` first, in shard order: one per slice (the others hold replicas
+    of theirs)."""
+    out, seen = [], set()
+    for i in range(mesh.size):
+        key = tuple((s.start, s.stop)
+                    for s in local_slices(shape, spec_, mesh, i))
+        if key not in seen:
+            seen.add(key)
+            out.append(i)
+    return out
 
 
 def place(x: torch.Tensor, spec_: Placement, mesh: ShardMesh, *,
@@ -312,18 +332,26 @@ class NamedSharding:
 
 
 # ---------------------------------------------------------------------------
-# collectives: each over one mesh axis, in shard order, computed once per
+# collectives: each over mesh axes, in shard order, computed once per
 # device of a group (the shards of a group on one card share the result)
 # ---------------------------------------------------------------------------
 
+Axes = Union[str, Sequence[str]]
+
+
+def _axis_tuple(axis: Axes) -> Tuple[str, ...]:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 def all_sum(parts: Sequence[torch.Tensor], mesh: ShardMesh,
-            axis: str) -> List[torch.Tensor]:
-    """Each shard's part summed over the shards of its group on `axis`
-    (``psum``), in axis order with f32 accumulation for 16-bit parts, then
-    in the parts' dtype.  Every member computes the same sum in the same
-    order, so the members of a group get the same bits."""
+            axis: Axes) -> List[torch.Tensor]:
+    """Each shard's part summed over the shards of its group on `axis` (an
+    axis name or several: ``psum``), in row-major shard order with f32
+    accumulation for 16-bit parts, then in the parts' dtype.  Every member
+    computes the same sum in the same order, so the members of a group get
+    the same bits."""
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
-    for g in groups(mesh, (axis,)):
+    for g in groups(mesh, _axis_tuple(axis)):
         done: Dict[torch.device, torch.Tensor] = {}
         for i in g:
             dev = mesh.devices[i]
@@ -336,6 +364,52 @@ def all_sum(parts: Sequence[torch.Tensor], mesh: ShardMesh,
                         acc = acc + parts[j].to(dev)
                 done[dev] = acc.to(parts[i].dtype)
             out[i] = done[dev]
+    return out
+
+
+def all_max(parts: Sequence[torch.Tensor], mesh: ShardMesh,
+            axis: Axes) -> List[torch.Tensor]:
+    """Each shard's part's elementwise maximum over its group on `axis`
+    (``pmax``); exact, so every member gets the same bits."""
+    out: List[Optional[torch.Tensor]] = [None] * len(parts)
+    for g in groups(mesh, _axis_tuple(axis)):
+        done: Dict[torch.device, torch.Tensor] = {}
+        for i in g:
+            dev = mesh.devices[i]
+            if dev not in done:
+                acc = parts[g[0]].to(dev)
+                for j in g[1:]:
+                    acc = torch.maximum(acc, parts[j].to(dev))
+                done[dev] = acc
+            out[i] = done[dev]
+    return out
+
+
+def replica_axes(spec_: Placement, mesh: ShardMesh) -> Tuple[str, ...]:
+    """The mesh axes (of more than one shard) that `spec_` does not cut:
+    the shards along them hold replicas of the same slice."""
+    used = {a for e in spec_ for a in entry_axes(e)}
+    return tuple(a for a, n in zip(mesh.axis_names, mesh.shape)
+                 if a not in used and n > 1)
+
+
+def replica_sum(parts: Sequence[torch.Tensor], spec_: Placement,
+                mesh: ShardMesh) -> List[torch.Tensor]:
+    """The gradient of a placed leaf from each piece's own: every piece's
+    part summed with the parts of the pieces that hold the same slice (the
+    shards along `replica_axes`), by `all_sum` (shard order, f32
+    accumulation for 16-bit parts): the transpose of using one slice in
+    several places, which gives every replica the same bits.  Each shard
+    gets a tensor of its own (the optimizer updates them in place)."""
+    axes = replica_axes(spec_, mesh)
+    if not axes:
+        return list(parts)
+    out, seen = [], set()
+    for t in all_sum(parts, mesh, axes):
+        if id(t) in seen:
+            t = t.clone()
+        seen.add(id(t))
+        out.append(t)
     return out
 
 

@@ -10,7 +10,9 @@ per-device argument bytes of the reference's ``pod1`` (16 x 16) and
 dimension: None, an axis name, or a tuple of axis names (a
 ``PartitionSpec``'s entries).  `place_params` cuts a model by them onto a
 live mesh (`ShardedLM`: each shard holds its local piece of every leaf);
-`gather_params` puts it back together.
+`gather_params` puts it back together.  `nest`, `flat_tree` and
+`stacked_tree` move between '.'-joined keys and the reference's nested
+params tree (a trainer's checkpoint layout).
 
 Logical plan: TP over 'model' on heads / ffn-hidden / vocab / experts;
 FSDP (ZeRO-3) over 'data' on the other big dim.  Any mapping whose dim
@@ -326,15 +328,9 @@ def param_shardings(cfg: ModelConfig, mesh: ShardMesh) -> dict:
     the reference's `param_shardings`, in the layout of
     `repro_torch.convert.lm_params_to_numpy` and of checkpoints."""
     sizes = _sizes(mesh)
-    tree: dict = {"head": {}}
-    for key, (shape, _) in _leaves(cfg).items():
-        node = tree
-        *outer, leaf = key.split(".")
-        for k in outer:
-            node = node.setdefault(k, {})
-        node[leaf] = sharding.NamedSharding(mesh,
-                                            _placement(key, shape, sizes))
-    return tree
+    return nest({key: sharding.NamedSharding(mesh,
+                                             _placement(key, shape, sizes))
+                 for key, (shape, _) in _leaves(cfg).items()})
 
 
 def _namespace(flat: Dict[str, torch.Tensor]) -> types.SimpleNamespace:
@@ -371,7 +367,12 @@ class ShardedLM:
     `gathered` hands the model code one layer's leaves per shard as the
     layer runs them: the FSDP cuts gathered over 'data' (ZeRO-3's
     all-gather before use), a layer-axis cut fetched from the shard that
-    holds the layer, and each leaf cut over 'model' as `_tp_spec` says."""
+    holds the layer, and each leaf cut over 'model' as `_tp_spec` says.
+
+    For training (`requires_grad_`, `named_pieces`) the pieces are the
+    leaves of autograd, a stacked piece read as one view a layer
+    (`layer_views`); the moments are models of the same placements
+    (`like`)."""
 
     def __init__(self, cfg: ModelConfig, mesh: ShardMesh,
                  specs: Mapping[str, Placement],
@@ -384,6 +385,73 @@ class ShardedLM:
         sizes = _sizes(mesh)
         self.tp = {k: _tp_spec(k, self._layer_shape(k), sizes)
                    for k in self.specs}
+        self._views: Optional[List[Dict[str, List[torch.Tensor]]]] = None
+
+    def __call__(self, cfg: ModelConfig, batch):
+        """`lm.forward_train` on this model (as calling an `lm.LM` does)."""
+        from repro_torch.models import lm
+        return lm.forward_train(self, cfg, batch)
+
+    # -- the pieces a step differentiates and updates ---------------------
+
+    def layer_views(self) -> List[Dict[str, List[torch.Tensor]]]:
+        """Per shard, each stacked leaf's piece as one tensor per layer
+        (``piece[l]`` detached: a leaf of autograd's that shares the
+        piece's storage, so an in-place update of it shows in the piece).
+        The model code reads these, so a layer's gradient is its own
+        tensor, not a slice of a zero tensor of the piece's size."""
+        if self._views is None:
+            self._views = [{k: [t[l].detach() for l in range(t.shape[0])]
+                            for k, t in s.items() if self._stacked(k)}
+                           for s in self.shards]
+        return self._views
+
+    def requires_grad_(self, on: bool = True) -> "ShardedLM":
+        """Turn ``requires_grad`` on for every piece that `named_pieces`
+        lists (the trainer's master weights); returns the model."""
+        for t in self.named_pieces().values():
+            t.requires_grad_(on)
+        return self
+
+    def named_pieces(self) -> Dict[str, torch.Tensor]:
+        """``{piece_name(key, i, layer): tensor}`` over every leaf and
+        shard: an unstacked leaf's piece, a stacked leaf's `layer_views`."""
+        views = self.layer_views()
+        out = {}
+        for key in self.specs:
+            for i, s in enumerate(self.shards):
+                if self._stacked(key):
+                    for l, t in enumerate(views[i][key]):
+                        out[piece_name(key, i, l)] = t
+                else:
+                    out[piece_name(key, i)] = s[key]
+        return out
+
+    def distinct_names(self) -> List[str]:
+        """The `named_pieces` of the first shard that holds each slice of
+        each leaf (`sharding.distinct`): what a global norm counts once."""
+        out = []
+        for key in self.specs:
+            for i in sharding.distinct(self.shapes[key], self.specs[key],
+                                       self.mesh):
+                if self._stacked(key):
+                    out += [piece_name(key, i, l)
+                            for l in range(self.shards[i][key].shape[0])]
+                else:
+                    out.append(piece_name(key, i))
+        return out
+
+    def like(self, fn) -> "ShardedLM":
+        """A model of the same leaves and placements whose pieces are
+        ``fn(piece)`` (the moments' zeros, a bf16 copy)."""
+        return ShardedLM(self.cfg, self.mesh, self.specs, self.shapes,
+                         [{k: fn(t) for k, t in s.items()}
+                          for s in self.shards])
+
+    def tree(self) -> dict:
+        """The placed leaves (`placed`) in the reference's params tree
+        (`param_shardings`' layout): a checkpoint saves each whole."""
+        return nest({key: self.placed(key) for key in self.specs})
 
     def _stacked(self, key: str) -> bool:
         return key.split(".", 1)[0] in STACKS
@@ -414,15 +482,16 @@ class ShardedLM:
                                             - len(self.specs[key]))
         if not self._stacked(key):
             return [s[key] for s in self.shards], spec
+        views = self.layer_views()
         if spec[0] is None:
-            return [s[key][layer] for s in self.shards], spec[1:]
+            return [v[key][layer] for v in views], spec[1:]
         # the layer axis cut over one axis: layer `layer` lives on the
         # shards at coordinate layer // (L / n) of it
         axis = spec[0]
         per = self.shapes[key][0] // sharding.axis_sizes(self.mesh)[axis]
         parts: List[Optional[torch.Tensor]] = [None] * self.mesh.size
         for g in sharding.groups(self.mesh, (axis,)):
-            src = self.shards[g[layer // per]][key][layer % per]
+            src = views[g[layer // per]][key][layer % per]
             for i in g:
                 parts[i] = src.to(self.mesh.devices[i])
         return parts, spec[1:]
@@ -460,6 +529,92 @@ class ShardedLM:
             for d, t in zip(flat, parts):
                 d[sub] = t
         return [_namespace(d) for d in flat]
+
+
+def piece_name(key: str, i: int, layer: Optional[int] = None) -> str:
+    """A piece's name among `ShardedLM.named_pieces`: ``blocks.attn.wq@3/5``
+    (shard 3's piece, layer 5 of it), ``final_norm@3``."""
+    return f"{key}@{i}" if layer is None else f"{key}@{i}/{layer}"
+
+
+def split_name(name: str) -> Tuple[str, int, Optional[int]]:
+    """(tree key, shard, layer of the piece or None) of a `piece_name`."""
+    key, _, rest = name.rpartition("@")
+    i, _, layer = rest.partition("/")
+    return key, int(i), (int(layer) if layer else None)
+
+
+def nest(flat: Mapping[str, object]) -> dict:
+    """{'.'-joined tree key: leaf} as the reference's nested params tree
+    (``head`` empty where the embeddings are tied)."""
+    tree: dict = {"head": {}}
+    for key, value in flat.items():
+        node = tree
+        *outer, leaf = key.split(".")
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+    return tree
+
+
+class Stacked:
+    """A block group's per-layer tensors as one stacked leaf of the
+    reference's tree, made only when read: ``full(device)`` stacks them
+    there (a checkpoint saves it whole, on the host)."""
+
+    def __init__(self, parts: Sequence[torch.Tensor]):
+        self.parts = tuple(parts)
+
+    @torch.no_grad()
+    def full(self, device=None) -> torch.Tensor:
+        dev = torch.device(device) if device is not None else \
+            self.parts[0].device
+        return torch.stack([p.to(dev) for p in self.parts])
+
+
+def stacked_tree(named: Mapping[str, torch.Tensor]) -> dict:
+    """A model's ``{parameter name: tensor}`` (or anything keyed alike: its
+    moments) in the reference's params tree, each block group's leaf a
+    `Stacked` over its layers."""
+    flat: Dict[str, object] = {}
+    layers: Dict[str, List[torch.Tensor]] = {}
+    for name, t in named.items():
+        key = _tree_key(name)
+        if key == name:
+            flat[key] = t
+        else:
+            layers.setdefault(key, []).append(t)
+            flat.setdefault(key, None)
+    for key, ts in layers.items():
+        flat[key] = Stacked(ts)
+    return nest(flat)
+
+
+def flat_tree(tree: dict) -> Dict[str, object]:
+    """The leaves of a nested params tree by '.'-joined tree key."""
+    out: Dict[str, object] = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + [key])
+            else:
+                out[".".join(path + [key])] = value
+
+    walk(tree, [])
+    return out
+
+
+@torch.no_grad()
+def copy_tree_into(named: Mapping[str, torch.Tensor], tree: dict) -> None:
+    """Whole leaves of the reference's tree (tensors or host arrays)
+    copied into a model's ``{parameter name: tensor}`` (block leaves
+    unstacked along their layer axis), in place."""
+    flat = flat_tree(tree)
+    for name, t in named.items():
+        key = _tree_key(name)
+        whole = torch.as_tensor(flat[key])
+        t.copy_(whole if key == name else whole[int(name.split(".")[1])])
 
 
 def _block(mesh: ShardMesh, i: int, axis: str, dim: int) -> Tuple[int, int]:
@@ -509,6 +664,7 @@ def place_params(params, cfg: ModelConfig, mesh: ShardMesh) -> ShardedLM:
     return place_tree(cfg, leaves, mesh)
 
 
+@torch.no_grad()
 def gather_params(sp: ShardedLM, device=None):
     """The whole model (`lm.LM`) of a placed one, on `device` (default:
     shard 0's)."""
@@ -528,16 +684,7 @@ def from_placed_tree(cfg: ModelConfig, mesh: ShardMesh,
                      tree: dict) -> ShardedLM:
     """The placed model of a tree of `sharding.Placed` leaves in the
     reference's layout (a restore with `param_shardings`)."""
-    flat: Dict[str, sharding.Placed] = {}
-
-    def walk(node, path):
-        for key, value in node.items():
-            if isinstance(value, dict):
-                walk(value, path + [key])
-            else:
-                flat[".".join(path + [key])] = value
-
-    walk(tree, [])
+    flat = flat_tree(tree)
     want = _leaves(cfg)
     if set(flat) != set(want):
         raise KeyError(f"leaves missing {sorted(set(want) - set(flat))}, "

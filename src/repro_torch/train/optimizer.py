@@ -14,15 +14,23 @@ float32 on the host, as the reference computes them in f32.  The element
 arithmetic is the reference's in f32; where a product and a sum fuse into
 one rounding differs (XLA's CPU backend contracts ``b1 * m + ...`` into a
 fused multiply-add), results differ in the last place.
+
+Over a mesh the params are a trainable `specs.ShardedLM`: the leaves are
+its pieces (`ShardedLM.named_pieces`), the moments are models of the same
+placements (`ShardedLM.like`), so a shard holds exactly its pieces' bytes
+of each, the global norm counts each slice once (`distinct_names`), and
+the same elementwise update on replicas that hold the same bits keeps
+them bit-equal.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models import specs
 
 Tree = Dict[str, torch.Tensor]
 
@@ -33,17 +41,30 @@ GROUP_ELEMS = 1 << 27        # elements a foreach group updates at once
 
 class OptState(NamedTuple):
     step: torch.Tensor       # int32 0-d, on the host
-    mu: Tree                 # first moment, f32, one per parameter
+    mu: Tree                 # first moment, f32, one per parameter (a
+    #                          `specs.ShardedLM` of the params' placements
+    #                          over a mesh)
     nu: Tree                 # second moment
 
 
 def named(params) -> Tree:
-    """``{name: parameter}`` of a model, or the dict itself."""
-    return (dict(params.named_parameters())
-            if isinstance(params, torch.nn.Module) else dict(params))
+    """``{name: parameter}`` of a model, a placed model's pieces
+    (`specs.ShardedLM.named_pieces`), or the dict itself."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    if isinstance(params, specs.ShardedLM):
+        return params.named_pieces()
+    return dict(params)
 
 
 def init(params) -> OptState:
+    """Zero f32 moments, one per parameter; over a mesh in the params'
+    placements."""
+    if isinstance(params, specs.ShardedLM):
+        def zeros(t):
+            return torch.zeros_like(t, dtype=torch.float32)
+        return OptState(step=torch.zeros((), dtype=torch.int32),
+                        mu=params.like(zeros), nu=params.like(zeros))
     z = {k: torch.zeros_like(p, dtype=torch.float32)
          for k, p in named(params).items()}
     return OptState(step=torch.zeros((), dtype=torch.int32), mu=z,
@@ -63,20 +84,35 @@ def lr_at(tc: TrainConfig, step) -> float:
     return float(f(tc.learning_rate) * warm * (f(0.1) + f(0.9) * cos))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, f32, on the leaves'
-    device."""
-    norms = torch._foreach_norm([x.float() for x in tree.values()])
+def _by_device(ts: List[torch.Tensor]) -> Dict[torch.device,
+                                                List[torch.Tensor]]:
+    out: Dict[torch.device, List[torch.Tensor]] = {}
+    for t in ts:
+        out.setdefault(t.device, []).append(t)
+    return out
+
+
+def global_norm(tree: Tree, distinct: Optional[List[str]] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf (those named in
+    `distinct`: a placed model's `distinct_names`, each slice once), f32,
+    on the first leaf's device."""
+    leaves = [tree[k] for k in (tree if distinct is None else distinct)]
+    dev = leaves[0].device
+    norms = [n.to(dev) for ts in _by_device(leaves).values()
+             for n in torch._foreach_norm([x.float() for x in ts])]
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        distinct: Optional[List[str]] = None
                         ) -> Tuple[Tree, torch.Tensor]:
-    """Scales `grads` in place so their global norm is at most `max_norm`;
-    returns (grads, the norm before clipping)."""
-    norm = global_norm(grads)
+    """Scales `grads` in place so their global norm (`global_norm`) is at
+    most `max_norm`; returns (grads, the norm before clipping)."""
+    norm = global_norm(grads, distinct)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    torch._foreach_mul_(list(grads.values()), scale)
+    for dev, ts in _by_device(list(grads.values())).items():
+        torch._foreach_mul_(ts, scale.to(dev))
     return grads, norm
 
 
@@ -87,14 +123,27 @@ def decayed(name: str, p: torch.Tensor) -> bool:
 
 
 def _groups(names: List[str], params: Tree) -> List[List[str]]:
-    out, cur, size = [], [], 0
-    for k in names:
-        if cur and size + params[k].numel() > GROUP_ELEMS:
+    """`names` in groups of at most GROUP_ELEMS elements, each on one
+    device."""
+    out = []
+    for dev_names in _by_name_device(names, params):
+        cur, size = [], 0
+        for k in dev_names:
+            if cur and size + params[k].numel() > GROUP_ELEMS:
+                out.append(cur)
+                cur, size = [], 0
+            cur.append(k)
+            size += params[k].numel()
+        if cur:
             out.append(cur)
-            cur, size = [], 0
-        cur.append(k)
-        size += params[k].numel()
-    return out + [cur] if cur else out
+    return out
+
+
+def _by_name_device(names: List[str], params: Tree) -> List[List[str]]:
+    out: Dict[torch.device, List[str]] = {}
+    for k in names:
+        out.setdefault(params[k].device, []).append(k)
+    return list(out.values())
 
 
 @torch.no_grad()
@@ -105,8 +154,11 @@ def apply_updates(params, grads: Tree, state: OptState, tc: TrainConfig
     1e-8), decay the `decayed` leaves by ``tc.weight_decay``, step by the
     scheduled lr.  Returns (params, the state with its step advanced,
     {"grad_norm", "lr"})."""
+    distinct = params.distinct_names() if isinstance(
+        params, specs.ShardedLM) else None
     params = named(params)
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    mu, nu = named(state.mu), named(state.nu)
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, distinct)
     step = state.step + 1
     t = int(step)
     lr = lr_at(tc, t)
@@ -118,8 +170,8 @@ def apply_updates(params, grads: Tree, state: OptState, tc: TrainConfig
         for grp in _groups(names, params):
             ps = [params[k] for k in grp]
             gs = [grads[k].float() for k in grp]
-            ms = [state.mu[k] for k in grp]
-            vs = [state.nu[k] for k in grp]
+            ms = [mu[k] for k in grp]
+            vs = [nu[k] for k in grp]
             torch._foreach_mul_(ms, b1)
             torch._foreach_add_(ms, gs, alpha=1 - b1)
             torch._foreach_mul_(vs, b2)

@@ -566,9 +566,13 @@ def test_mesh_refusals():
     with sharding.use_mesh(mesh):
         logits, _, _ = lm.prefill(sp, cfg, {"tokens": toks}, 8)
     assert logits.mesh == mesh
-    with pytest.raises(NotImplementedError, match="training"):
-        lm.forward_train(sp, cfg, {"tokens": toks})
-    # every family runs placed; forward_train stays refused for each
+    with pytest.raises(ValueError, match="another mesh"):
+        with sharding.use_mesh(_mesh((2, 1))):
+            lm.forward_train(sp, cfg, {"tokens": toks})
+    train_logits, _ = lm.forward_train(sp, cfg, {"tokens": toks})
+    assert train_logits.mesh == mesh
+    assert train_logits.shape == (2, 4, cfg.vocab_padded)
+    # every family runs placed, forward_train too (its logits placed)
     for arch in ("olmoe-1b-7b", "rwkv6-1.6b", "qwen2-vl-7b", "zamba2-2.7b",
                  "seamless-m4t-large-v2"):
         other = registry.reduced_arch(arch)
@@ -581,8 +585,9 @@ def test_mesh_refusals():
         logits, caches, _ = lm.prefill(osp, other, batch, 8)
         assert logits.mesh == mesh
         assert all(t.mesh == mesh for _, t in specs.cache_leaves(caches))
-        with pytest.raises(NotImplementedError, match="training"):
-            lm.forward_train(osp, other, batch)
+        train_logits, _ = lm.forward_train(osp, other, batch)
+        assert train_logits.mesh == mesh
+        assert train_logits.shape == (2, 4, other.vocab_padded)
         with sharding.use_mesh(_mesh((2, 1))):
             with pytest.raises(ValueError, match="another mesh"):
                 lm.prefill(osp, other, batch, 8)

@@ -13,7 +13,7 @@
 
     python3 tools/profile_port.py --serving [--arch ARCH] [--mesh DxM] [--out FILE]
 
-    python3 tools/profile_port.py --train [--out FILE]
+    python3 tools/profile_port.py --train [--mesh DxM] [--out FILE]
 
     python3 tools/profile_port.py --ab-decode TREE [TREE ...] [--out FILE]
 
@@ -77,7 +77,12 @@ warmup 2), warmed by one step first, then one step under the profiler;
 then the optimizer's update alone on the same state (random grads); then
 one warm decode step of phase 13a's seamless-m4t-large-v2 (8 requests of
 256 source frames and 256 tokens, prefilled first).  Same breakdown, with
-the peak device memory of the train step.
+the peak device memory of the train step.  With ``--mesh 2x4`` the same
+train step then runs placed on a (data, model) mesh of that shape on the
+one card (``chip_smoke.py`` phase 17b: ``Trainer(mesh=)``'s step, every
+shard one after another), warmed and profiled the same way, and its
+optimizer update alone on the placed state, in place of the seamless
+decode step.
 
 ``--ab-decode`` times the one-device decode path of several checkouts in
 turn (each TREE the root of one, e.g. the parent commit unpacked with
@@ -418,9 +423,10 @@ def serving(seed: int, arch: str, mesh_shape=None) -> dict:
     return out
 
 
-def train(seed: int) -> dict:
+def train(seed: int, mesh_shape=None) -> dict:
     """Profiled train step of phase 14a, its optimizer update alone, and
-    one decode step of phase 13a (see the module doc)."""
+    one decode step of phase 13a, or with `mesh_shape` the train step and
+    the update placed on that mesh (see the module doc)."""
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.models import api, lm
@@ -459,6 +465,9 @@ def train(seed: int) -> dict:
                           * chip_smoke.TRAIN_SEQ, "remat": cfg.remat}
     del params, state, grads
     chip_smoke.release()
+    if mesh_shape is not None:
+        out.update(mesh_train(seed, cfg, tc, batch, mesh_shape))
+        return out
 
     cfg = registry.get_arch(chip_smoke.ENCDEC_ARCH)
     params = lm.init_params(torch.Generator(device=dev).manual_seed(seed),
@@ -478,6 +487,47 @@ def train(seed: int) -> dict:
     out["seamless decode step"] = profiled(dec)
     out["seamless model"] = {"arch": cfg.name, "params": cfg.param_count(),
                              "requests": chip_smoke.ENCDEC_REQUESTS}
+    return out
+
+
+def mesh_train(seed: int, cfg, tc, batch, mesh_shape) -> dict:
+    """`train`'s step and update on a (data, model) mesh of `mesh_shape`
+    on the card (the placed params drawn as unsharded, the batch placed
+    over the data axes)."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import lm, sharding, specs
+    from repro_torch.train import optimizer
+    from repro_torch.train.train_step import make_train_step, trainable
+
+    dev = torch.device("cuda")
+    mesh = lmesh.model_mesh(mesh_shape, ("data", "model"), "cuda")
+    params = trainable(specs.place_params(lm.init_params(
+        torch.Generator(device=dev).manual_seed(seed), cfg, master=True),
+        cfg.replace(dtype="float32"), mesh))
+    chip_smoke.release()
+    state = {"opt": optimizer.init(params)}
+    step = make_train_step(cfg, tc)
+    sizes = sharding.axis_sizes(mesh)
+    placed = {k: sharding.place(v, specs.batch_spec(sizes, v.shape), mesh)
+              for k, v in batch.items()}
+    out = {}
+
+    def one():
+        with sharding.use_mesh(mesh):
+            _, state["opt"], m = step(params, state["opt"], placed)
+        state["loss"] = float(m["loss"])
+
+    one()                                       # warm
+    torch.cuda.reset_peak_memory_stats()
+    key = f"mesh {lmesh.describe(mesh)} train step"
+    out[key] = profiled(one)
+    out[key]["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out[key]["loss"] = state["loss"]
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    grads = {k: torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for k, p in params.named_pieces().items()}
+    out[f"mesh {lmesh.describe(mesh)} optimizer update"] = profiled(
+        lambda: optimizer.apply_updates(params, grads, state["opt"], tc))
     return out
 
 
@@ -540,8 +590,8 @@ def main(argv=None) -> int:
                     f"{chip_smoke.SERVE_ARCH})")
     ap.add_argument("--ab-decode", nargs="+", metavar="TREE", default=None)
     ap.add_argument("--mesh", default=None,
-                    help="--serving: DxM, the model on a (data, model) "
-                    "mesh of that shape on the card")
+                    help="--serving, --train: DxM, the model on a (data, "
+                    "model) mesh of that shape on the card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device", file=sys.stderr)
@@ -577,7 +627,10 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),
                       "torch": torch.__version__,
-                      "train": train(args.seed)}, args.out)
+                      "train": train(args.seed, None if args.mesh is None
+                                     else tuple(int(n) for n in
+                                                args.mesh.split("x")))},
+                     args.out)
     if args.fused:
         torch.backends.cuda.matmul.allow_tf32 = False
         return _emit({"card": chip_smoke.nvidia_smi(),

@@ -151,6 +151,16 @@ Phases (any failure raises and the script exits non-zero):
    compression, a checkpoint and a preemption restored onto (1, 4) and
    onto one device, every leaf equal; one step of every other arch at 2
    layers on a mesh against the unsharded step.
+18. collectives: granite-3-2b at full width, 4 layers, on (2, 4) of the
+   card, a train and a decode step: the dry run's collective bytes (a mesh
+   of meta devices, ``launch.dryrun``) equal to those a
+   ``models.sharding.CollectiveCounter`` counts while the step runs on the
+   card, kind for kind; the dry run of granite-3-2b x train_4k over the
+   reference's 16 x 16 mesh, its collective bytes and H100 roofline terms;
+   two processes on the card (gloo: NCCL refuses two ranks on one card)
+   training granite-3-2b in float32 at 4 layers on (2, 4), four shards
+   each, against the one-process mesh of the same seed (3 steps' loss and
+   grad norm, step 1's gradient leaf by leaf, every replica bit-equal).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Imports only torch, numpy
@@ -5222,6 +5232,329 @@ def phase_mesh_train(seed: int, card: str, train_14a=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh's collectives counted, and run across processes
+# ---------------------------------------------------------------------------
+
+MH_MESH = (2, 4)        # 18a, 18c: granite-3-2b on 8 shards of the card
+MH_LAYERS = 4           # 18a, 18c: of its 40 layers, at full width
+MH_SLOTS = 256          # 18a: the decode step's cache positions
+MH_STEPS = 3            # 18c: steps of the two processes and of one
+MH_TOL = 1e-4           # 18c: loss / grad norm rtol; each leaf of step 1's
+#                         gradient within MH_TOL of its largest magnitude
+
+
+def dry_live_bytes(seed: int) -> dict:
+    """18a: granite-3-2b at full width, MH_LAYERS layers (bf16 compute, f32
+    master weights, remat) on MH_MESH of the card: the dry run's
+    collective bytes (a mesh of meta devices) of a train step (TRAIN_BATCH
+    x MT_SEQ tokens) and a decode step (TRAIN_BATCH tokens, MH_SLOTS cache
+    positions) against a `sharding.CollectiveCounter` around the same step
+    run on the card, kind for kind (exact fractions)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models import api, lm, sharding, specs
+    from repro_torch.serving import serve_step
+    from repro_torch.train.trainer import Trainer
+
+    cfg = registry.get_arch(TRAIN_ARCH).replace(num_layers=MH_LAYERS)
+    sizes = dict(zip(("data", "model"), MH_MESH))
+    mesh = lmesh.model_mesh(MH_MESH, ("data", "model"), "cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed + 18)
+    out = {}
+    for kind, shape in (("train", ShapeConfig("18a", "train", MT_SEQ,
+                                              TRAIN_BATCH)),
+                        ("decode", ShapeConfig("18a", "decode", MH_SLOTS,
+                                               TRAIN_BATCH))):
+        t0 = time.perf_counter()
+        counts, traces = dryrun.trace_cell(cfg, shape,
+                                           mesh=dryrun.meta_mesh(sizes))
+        dry_s = time.perf_counter() - t0
+        if kind == "train":
+            tr = Trainer(cfg, TrainConfig(seed=seed), mesh=mesh)
+            batch = _host_batch(api.synth_batch(g, cfg, "train", TRAIN_BATCH,
+                                                MT_SEQ))
+            with sharding.CollectiveCounter() as live:
+                tr.train(iter([batch]), 1)
+            del tr
+        else:
+            sp = specs.place_params(lm.init_params(g, cfg), cfg, mesh)
+            tok = torch.zeros((TRAIN_BATCH, 1), dtype=torch.int32,
+                              device="cuda")
+            with sharding.use_mesh(mesh):
+                _, caches, pos = lm.prefill(sp, cfg, {"tokens": tok},
+                                            MH_SLOTS)
+                with sharding.CollectiveCounter() as live:
+                    logits, _ = lm.decode_step(sp, cfg, tok, caches, pos)
+                    serve_step.greedy(logits, cfg.vocab_size)
+            torch.cuda.synchronize()
+            del sp, caches, logits
+        release()
+        if counts.collective_wire != live.wire:
+            raise AssertionError(f"18a {kind}: the dry run's collective "
+                                 f"bytes {counts.collective_wire} != the "
+                                 f"card's {live.wire}")
+        out[kind] = {"bytes": live.bytes(), "ops": dict(live.ops),
+                     "total": float(sum(live.wire.values())),
+                     "dry_s": dry_s, "traces": traces,
+                     "busiest_shard": counts.device_shard,
+                     "dot_flops_per_device": counts.dot_flops}
+    return out
+
+
+def pod1_dry_run() -> dict:
+    """18b: the dry run of granite-3-2b x train_4k over the reference's
+    production mesh (16 x 16 meta devices; layers traced at 1 and 2 and
+    extended to 40): collective bytes by kind and the roofline terms on an
+    H100, with the host time the trace took."""
+    from repro_torch.configs.base import H100
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import specs
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell(TRAIN_ARCH, "train_4k",
+                          mesh=specs.mesh_sizes(False))
+    wall = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        raise AssertionError(f"18b: {rec.get('error')}")
+    roll = rec["hlo_rollup_per_device"]
+    if not roll["collective_bytes"] or rec["memory_analysis"][
+            "argument_size_in_bytes"] != rec["argument_bytes_per_device"][
+            "pod1"]:
+        raise AssertionError(f"18b: {roll['collective_bytes']}, arguments "
+                             f"{rec['memory_analysis']} vs "
+                             f"{rec['argument_bytes_per_device']}")
+    t = roofline.terms(rec, H100)
+    return {"mesh": rec["mesh"], "trace_s": wall, "traces": rec["traces"],
+            "collective_bytes": roll["collective_bytes"],
+            "collective_ops": roll["collective_ops"],
+            "collective_bytes_total": roll["collective_bytes_total"],
+            "dot_flops": roll["dot_flops"],
+            "hbm_bytes_est": roll["hbm_bytes_est"],
+            "argument_bytes": rec["memory_analysis"]["argument_size_in_bytes"],
+            "per_device": rec["per_device"],
+            "terms": {k: t[k] for k in ("compute_s", "memory_s",
+                                        "collective_s", "dominant",
+                                        "step_s_overlap", "step_s_serial",
+                                        "roofline_fraction")}}
+
+
+def mh_worker(rank: int, init: str, out_dir: str, cfg, tc,
+              device: str) -> None:
+    """18c, one of two processes on the card (gloo): `cfg` (granite-3-2b
+    f32 at full width, MH_LAYERS layers) on MH_MESH spanning the two
+    processes (4 shards each: 'data' across them) for MH_STEPS steps; rank
+    0 then runs the one-process mesh of the same seed and batch and holds
+    them."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import multihost
+    from repro_torch.models import sharding, specs
+    from repro_torch.train.train_step import grads_of
+    from repro_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    batch = dict(np.load(os.path.join(out_dir, "batch.npz")))
+    res = {}
+
+    def whole_grads(tr):
+        with sharding.use_mesh(tr.mesh):
+            loss, _, g = grads_of(tr.params, cfg, tc, tr._batch(batch))
+        sp, out = tr.params, {}
+        for key in sp.specs:       # every process takes part in each gather
+            parts = tuple(
+                torch.stack([g[specs.piece_name(key, i, l)] for l in range(
+                    sp.shards[i][key].shape[0])]) if sp._stacked(key)
+                else g[specs.piece_name(key, i)] for i in range(sp.mesh.size))
+            out[key] = sharding.Placed(parts, sp.specs[key], sp.mesh,
+                                       sp.shapes[key]).full()
+        return out
+
+    t0 = time.perf_counter()
+    multihost.init(f"file://{init}", 2, rank, backend="gloo")
+    try:
+        res["init_s"] = time.perf_counter() - t0
+        mesh = lmesh.process_mesh(MH_MESH, ("data", "model"), device)
+        tr = Trainer(cfg, tc, mesh=mesh)
+        t1 = time.perf_counter()
+        got = whole_grads(tr)
+        sync_cards()
+        res["grads_s"] = time.perf_counter() - t1
+        hist = tr.train(itertools.repeat(batch), MH_STEPS, log_every=1)
+        res["losses"] = [h["loss"] for h in hist]
+        res["grad_norms"] = [h["grad_norm"] for h in hist]
+        res["step_s"] = [h["step_s"] for h in hist]
+        # the pieces of slices held by more than one shard, for rank 0 to
+        # hold each against its replicas
+        mine = {}
+        for what, sp in (("params", tr.params), ("mu", tr.opt_state.mu),
+                         ("nu", tr.opt_state.nu)):
+            for key, spec in sp.specs.items():
+                for h in sharding._holders(sp.placed(key)):
+                    if len(h) > 1:
+                        for i in h:
+                            if sharding.is_local(mesh, i):
+                                mine[f"{what}/{key}/{i}"] = \
+                                    sp.shards[i][key].cpu()
+        torch.save(mine, os.path.join(out_dir, f"replicas-{rank}.pt"))
+        del tr
+        torch.distributed.barrier()
+        res["group_s"] = time.perf_counter() - t0
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank == 0:
+        one = Trainer(cfg, tc, mesh=lmesh.model_mesh(MH_MESH,
+                                                     ("data", "model"),
+                                                     device))
+        t1 = time.perf_counter()
+        want = whole_grads(one)
+        sync_cards()
+        res["grads_s_one"] = time.perf_counter() - t1
+        worst = 0.0
+        for key, w in want.items():
+            err = float((got[key] - w).abs().max()) / max(
+                float(w.abs().max()), 1e-12)
+            worst = max(worst, err)
+        res["grad_max_rel"] = worst
+        del got, want
+        hist = one.train(itertools.repeat(batch), MH_STEPS, log_every=1)
+        res["losses_one"] = [h["loss"] for h in hist]
+        res["grad_norms_one"] = [h["grad_norm"] for h in hist]
+        res["step_s_one"] = [h["step_s"] for h in hist]
+        reps = {}
+        for r in range(2):
+            reps.update(torch.load(os.path.join(out_dir,
+                                                f"replicas-{r}.pt")))
+        n = 0
+        for what, sp in (("params", one.params), ("mu", one.opt_state.mu),
+                         ("nu", one.opt_state.nu)):
+            for key in sp.specs:
+                for h in sharding._holders(sp.placed(key)):
+                    if len(h) > 1:
+                        first = reps[f"{what}/{key}/{h[0]}"]
+                        for i in h[1:]:
+                            n += 1
+                            if not torch.equal(reps[f"{what}/{key}/{i}"],
+                                               first):
+                                res.setdefault("replicas_differ", []).append(
+                                    f"{what}/{key}/{i}")
+        res["replicas_held"] = n
+    with open(os.path.join(out_dir, f"result-{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def over_processes(seed: int, device: str = "cuda", beside=lambda: None):
+    """18c: `mh_worker` in two processes on the card over gloo (NCCL
+    refuses two ranks on one card); their losses and grad norms within
+    MH_TOL of the one-process mesh's, step 1's gradient within MH_TOL of
+    each leaf's scale, every replica `torch.equal`.  `beside` runs here
+    while they do (18b, host work); returns (18c's results, its)."""
+    import multiprocessing as mp
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import api
+
+    cfg = registry.get_arch(TRAIN_ARCH).replace(num_layers=MH_LAYERS,
+                                                dtype="float32")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2,
+                     total_steps=TRAIN_STEPS, seed=seed)
+    g = torch.Generator(device=device).manual_seed(seed + 180)
+    work = tempfile.mkdtemp(prefix="chip_smoke_multihost_")
+    try:
+        np.savez(os.path.join(work, "batch.npz"), **_host_batch(
+            api.synth_batch(g, cfg, "train", TRAIN_BATCH, MT_SEQ)))
+        ctx = mp.get_context("spawn")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=mh_worker, args=(
+            r, os.path.join(work, "init"), work, cfg, tc, device))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        besides = beside()
+        for p in procs:
+            p.join(timeout=600)
+        wall = time.perf_counter() - t0
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+            if p.exitcode != 0:
+                raise AssertionError(f"18c: a process exited {p.exitcode}")
+        res = [json.load(open(os.path.join(work, f"result-{r}.json")))
+               for r in range(2)]
+    finally:
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    r0 = res[0]
+    if r0["losses"] != res[1]["losses"] or \
+            r0["grad_norms"] != res[1]["grad_norms"]:
+        raise AssertionError(f"18c: the processes disagree: {res}")
+    for k in ("losses", "grad_norms"):
+        for a, b in zip(r0[k], r0[f"{k}_one"]):
+            if abs(a - b) > MH_TOL * abs(b) + 1e-7:
+                raise AssertionError(f"18c: {k} {r0[k]} vs {r0[k + '_one']}")
+    if r0["grad_max_rel"] > MH_TOL:
+        raise AssertionError(f"18c: step 1's gradient {r0['grad_max_rel']}")
+    if r0.get("replicas_differ") or not r0["replicas_held"]:
+        raise AssertionError(f"18c: replicas {r0.get('replicas_differ')}")
+    r0["wall_s"] = wall
+    r0["rank1"] = {k: res[1][k] for k in ("init_s", "grads_s", "step_s",
+                                          "group_s")}
+    return r0, besides
+
+
+def phase_collectives(seed: int, card: str) -> dict:
+    """The mesh's collectives: 18a the dry run's collective bytes equal
+    the counter's on the card (granite-3-2b at full width on (2, 4), a
+    train and a decode step); 18b the production-mesh dry run of
+    granite-3-2b x train_4k with its roofline terms; 18c training over a
+    mesh that spans two processes on the card (gloo) against the
+    one-process mesh.  The kernels' launch counts are set to 0 just before:
+    none may launch."""
+    kernels = serving_kernels()
+    out = {"card": card}
+    t0 = time.perf_counter()
+    a = dry_live_bytes(seed)
+    out["18a"] = a
+    print(f"  18a [{card}]: {TRAIN_ARCH} at full width, {MH_LAYERS} layers, "
+          f"on data={MH_MESH[0]}xmodel={MH_MESH[1]} of the card: the dry "
+          f"run's collective bytes == the card's, kind for kind: train step "
+          f"({TRAIN_BATCH} x {MT_SEQ}) {a['train']['bytes']} "
+          f"({a['train']['ops']} ops; traced in {a['train']['dry_s']:.1f} s), "
+          f"decode step ({TRAIN_BATCH} tokens over {MH_SLOTS} positions) "
+          f"{a['decode']['bytes']} ({a['decode']['ops']} ops) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    # 18b's dry run is host work: it runs while 18c's processes train
+    t0 = time.perf_counter()
+    c, b = over_processes(seed, beside=pod1_dry_run)
+    out["18b"], out["18c"] = b, c
+    print(f"  18b [{card}]: {TRAIN_ARCH} x train_4k on the reference's "
+          f"{b['mesh']} ({b['traces']} traces, {b['trace_s']:.1f} s of host "
+          f"time beside 18c): wire bytes per device {b['collective_bytes']} "
+          f"(total {b['collective_bytes_total']:.4e}), dot FLOPs "
+          f"{b['dot_flops']:.4e}, HBM bytes {b['hbm_bytes_est']:.4e}, "
+          f"arguments {b['argument_bytes']:.0f} B; H100 terms {b['terms']}",
+          flush=True)
+    print(f"  18c [{card}]: {TRAIN_ARCH} f32 at full width, {MH_LAYERS} "
+          f"layers, on data={MH_MESH[0]}xmodel={MH_MESH[1]} spanning two "
+          f"processes on the card over gloo (4 shards each): losses "
+          f"{c['losses']} vs one process {c['losses_one']}, grad norms "
+          f"{c['grad_norms']} vs {c['grad_norms_one']} (rtol {MH_TOL}); step "
+          f"1's gradient within {c['grad_max_rel']:.3g} of each leaf's "
+          f"scale; {c['replicas_held']} replicas torch.equal; steps "
+          f"{c['step_s']} s vs one process {c['step_s_one']} s (18b beside "
+          f"them); the process group's wall time {c['group_s']:.1f} s (join "
+          f"{c['init_s']:.2f} s), both processes {c['wall_s']:.1f} s; NCCL "
+          f"(a card a process) is not exercised on a one-card machine "
+          f"({time.perf_counter() - t0:.1f} s with 18b)", flush=True)
+    out.update(path_launches(kernels, {}))
+    if any(out["launches"].values()):
+        raise AssertionError(f"18: kernel launches {out['launches']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5358,6 +5691,15 @@ def main(argv=None) -> int:
     paths["mesh_train"] = mtr = phase_mesh_train(args.seed, card, trn["14a"])
     print(f"phase 17: mesh training in {time.perf_counter() - t0:.1f} s "
           f"[{card}]: " + json.dumps(mtr), flush=True)
+    release()
+    # 18. the mesh's collectives: dry-run bytes against the card's, the
+    # production mesh's dry run, training across two processes (after
+    # phase 17's memory is freed), the counts set to 0 just before (it
+    # launches none of them)
+    t0 = time.perf_counter()
+    paths["collectives"] = col = phase_collectives(args.seed, card)
+    print(f"phase 18: collectives in {time.perf_counter() - t0:.1f} s "
+          f"[{card}]: " + json.dumps(col), flush=True)
     release()
     f32, q8 = paths["float32"], paths["int8"]
     for path in ("full_scan", "probed"):

@@ -62,8 +62,16 @@ def _host(leaf: Any, copy: bool = False) -> np.ndarray:
     """`leaf` as a host array; with `copy`, one that shares no memory with
     it (``.cpu()`` of a host tensor and ``np.asarray`` of an array return
     the same memory, which the caller may go on changing in place).  A
-    leaf placed on a mesh is saved whole."""
-    if hasattr(leaf, "full"):                    # a sharding.Placed
+    leaf placed on a mesh is saved whole; one spread over processes
+    raises, as the reference's ``np.asarray`` of an array spread over hosts
+    does (there is no distributed checkpoint in either package)."""
+    if hasattr(leaf, "full"):        # a sharding.Placed, a specs.Stacked
+        owners = getattr(getattr(leaf, "mesh", None), "owners", None)
+        if owners is not None and len(set(owners)) > 1:
+            raise RuntimeError(
+                "the Checkpointer saves whole leaves from one process and "
+                "this leaf is spread over several (a mesh over processes): "
+                "as the reference's, it has no distributed checkpoint")
         return leaf.full("cpu").numpy()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()

@@ -60,10 +60,14 @@ ShardedState = Tuple[ivf.IVFState, ...]
 class ShardMesh:
     """The port's mesh: the reference's row-major shard order over named
     axes, and one device per shard.  Frozen and hashable: it is part of
-    the batch signature, so only lanes on equal meshes fuse."""
+    the batch signature, so only lanes on equal meshes fuse.  `owners`,
+    on a mesh whose shards span processes (`repro_torch.launch.mesh.
+    process_mesh`), is the rank of the process that holds each shard; a
+    shard another process holds is on the ``meta`` device here."""
     shape: Tuple[int, ...]
     axis_names: Tuple[str, ...]
     devices: Tuple[torch.device, ...]
+    owners: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if len(self.shape) != len(self.axis_names):
@@ -73,6 +77,9 @@ class ShardMesh:
             raise ValueError(f"mesh shape {self.shape} needs "
                              f"{math.prod(self.shape)} devices, got "
                              f"{len(self.devices)}")
+        if self.owners is not None and len(self.owners) != len(self.devices):
+            raise ValueError(f"{len(self.owners)} owners for "
+                             f"{len(self.devices)} shards")
 
     @property
     def size(self) -> int:

@@ -2,7 +2,8 @@
 
 Functions, not module-level constants, so importing this module touches no
 device.  Each returns the port's `ShardMesh` (one process drives every
-shard; `repro_torch.models.sharding`).  With no devices named a mesh takes
+shard, or with `process_mesh` each process of a process group its run of
+them; `repro_torch.models.sharding`).  With no devices named a mesh takes
 one card a shard (``cuda:0`` .. ``cuda:n-1``) and raises when the node has
 fewer: devices are never cycled silently.  A device named alone holds
 every shard (``devices="cuda"``: eight shards on the one card), and a list
@@ -47,6 +48,33 @@ def model_mesh(shape: Sequence[int], axes: Sequence[str],
     shape = tuple(int(s) for s in shape)
     return ShardMesh(shape, tuple(axes),
                      mesh_devices(math.prod(shape), devices))
+
+
+def process_mesh(shape: Sequence[int], axes: Sequence[str],
+                 device: Union[str, torch.device, None] = None
+                 ) -> ShardMesh:
+    """A `ShardMesh` of `shape` over `axes` whose shards span the processes
+    of the default process group (`repro_torch.launch.multihost.init`):
+    process p holds the p-th run of ``prod(shape) / world`` shards in
+    row-major order, every one on its `device` (default: its card,
+    `multihost.local_device`, which raises without one: the CPU is taken
+    only when named); the other processes' shards are stand-ins on the
+    ``meta`` device (`sharding.is_local`)."""
+    from repro_torch.launch import multihost
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("a mesh over processes needs the process group "
+                           "(repro_torch.launch.multihost.init)")
+    shape = tuple(int(s) for s in shape)
+    n, world, me = math.prod(shape), dist.get_world_size(), dist.get_rank()
+    if n % world:
+        raise ValueError(f"{n} shards do not divide over {world} processes")
+    per = n // world
+    dev = resolve_device(device) if device is not None else \
+        multihost.local_device()
+    owners = tuple(i // per for i in range(n))
+    return ShardMesh(shape, tuple(axes), tuple(
+        dev if o == me else torch.device("meta") for o in owners), owners)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -11,7 +11,10 @@ share their keys) and reports, per (arch x shape x mesh) cell:
     memory term     = HBM_bytes_per_device / HBM_bw             [s]
     collective term = wire_bytes_per_device / link_bw           [s]
 
-(one card moves no collective bytes), the dominant term, MODEL_FLOPS =
+(`H100.ici_bandwidth`, NVLink's 450e9 B/s one way, as the reference
+charges ICI; a mesh record's wire bytes are `launch.dryrun`'s collective
+bytes, one card's are none, and ``dcn_bandwidth``, 0.0, is never a
+divisor), the dominant term, MODEL_FLOPS =
 6*N_active*D (train) or 2*N_active*D (forward-only serving), the
 useful-compute ratio MODEL_FLOPS / dot FLOPs, and a projected step time =
 max of the three terms (perfect overlap) alongside their sum (no overlap).

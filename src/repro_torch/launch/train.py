@@ -10,17 +10,33 @@ straggler monitor) always on.  It trains on the CUDA card unless
 ``--device`` names another.  ``--production-mesh`` trains over the
 reference's 16 x 16 (data, model) mesh (``--multi-pod``: 2 x 16 x 16),
 one card a shard: it is refused on a node with fewer than 256 (512)
-cards, and with ``--device`` every shard goes on that device.  The
-reference's ``--multihost`` (a multi-host runtime) is not ported yet.
+cards, and with ``--device`` every shard goes on that device; ``--mesh
+DxM`` names a (data, model) mesh of another shape.
+
+``--multihost`` joins the processes that ``COORDINATOR`` /
+``NUM_PROCESSES`` / ``PROCESS_ID`` (or torchrun's variables) name
+(`repro_torch.launch.multihost`), and the mesh spans them: each process
+holds its run of the shards on its own device and the collectives move
+data between the processes.  ``--backend`` names the process group's
+backend: NCCL (the default: one card a process) or gloo (the default with
+``--device cpu``, or several processes on one card).  ``--multihost``
+needs a mesh (``--mesh`` or ``--production-mesh``), and the CPU is taken
+only when ``--device cpu`` names it.  Every process draws the same
+params and batches from ``--seed``.  A checkpoint of a mesh over processes
+is refused, as in the reference.
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from repro_torch.configs import registry
 from repro_torch.configs.base import TrainConfig
 from repro_torch.data.pipeline import Prefetcher, TokenDataset
-from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.launch import multihost
+from repro_torch.launch.mesh import (describe, make_production_mesh,
+                                     model_mesh, process_mesh)
 from repro_torch.models import api
 from repro_torch.train.trainer import Trainer
 
@@ -53,7 +69,33 @@ def main(argv=None) -> Trainer:
                          "(synthetic corpus when omitted)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default=None,
+                    help="a (data, model) mesh DxM (e.g. 2x4), one card a "
+                    "shard or every shard on --device")
+    ap.add_argument("--multihost", action="store_true",
+                    help="torch.distributed from COORDINATOR/NUM_PROCESSES/"
+                    "PROCESS_ID (or torchrun's env://): the mesh spans the "
+                    "processes")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="with --multihost: the process group's backend "
+                    "(default gloo with --device cpu, else nccl)")
     args = ap.parse_args(argv)
+    if args.multihost and not (args.mesh or args.production_mesh):
+        ap.error("--multihost spans a mesh: name --mesh DxM or "
+                 "--production-mesh")
+
+    joined = args.multihost and multihost.init(backend=args.backend,
+                                               device=args.device)
+    if joined:
+        print(f"multihost: {multihost.host_info()}", flush=True)
+    try:
+        return _train(args)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args) -> Trainer:
 
     cfg = (registry.reduced_arch(args.arch) if args.reduced
            else registry.get_arch(args.arch))
@@ -62,9 +104,22 @@ def main(argv=None) -> Trainer:
                      grad_accum=args.grad_accum,
                      grad_compression=args.grad_compression, seed=args.seed)
 
-    mesh = (make_production_mesh(multi_pod=args.multi_pod,
-                                 devices=args.device)
-            if args.production_mesh else None)
+    shape = None
+    if args.production_mesh:
+        shape = (2, 16, 16) if args.multi_pod else (16, 16)
+    elif args.mesh:
+        shape = tuple(int(n) for n in args.mesh.split("x"))
+    axes = ("pod", "data", "model") if len(shape or ()) == 3 else \
+        ("data", "model")
+    if shape is None:
+        mesh = None
+    elif torch.distributed.is_initialized():
+        mesh = process_mesh(shape, axes, args.device)
+    elif args.production_mesh:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    devices=args.device)
+    else:
+        mesh = model_mesh(shape, axes, args.device)
 
     print(f"arch={cfg.name} params={cfg.param_count():,} "
           f"(active {cfg.active_param_count():,}) reduced={args.reduced}")

@@ -625,7 +625,8 @@ def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens,
     embeddings [B_l, S, D], the call's layout).  A vocab-cut table looks up
     its own rows and the sum over 'model' fills in the rest exactly.
     qwen2-vl's `vis_embeds` [B, Nv, D] take each block's first positions."""
-    call = _mesh_call(sp, cfg, tokens.shape[0])
+    with sharding.scope("embed"):
+        call = _mesh_call(sp, cfg, tokens.shape[0])
     mesh = sp.mesh
     parts = _per_block(tokens, call)
     split = sp.tp_split("embed.table", 0)
@@ -636,7 +637,8 @@ def embed_mesh(sp: specs.ShardedLM, cfg: ModelConfig, tokens,
               if split else None)
         rows.append(layers.embed_rows(e.table, t, v0))
     if split:
-        rows = sharding.all_sum(rows, mesh, "model")
+        with sharding.scope("embed"):
+            rows = sharding.all_sum(rows, mesh, "model")
     xs = [layers.embed_finish(r, cfg) for r in rows]
     if cfg.family == "vlm" and vis_embeds is not None:
         xs = [_splice_vision(x, v)
@@ -727,7 +729,7 @@ def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
                      for x in xs]
     else:
         positions = [p[:, None] for p in pos]
-    aux = torch.zeros((), device=xs[0].device)
+    aux = torch.zeros((), device=sharding.home(call.mesh))
     if cfg.family == "ssm":
         xs, kvs = _rwkv_stack_mesh(sp, xs, cfg, call, mode=mode, caches=kvs)
         return xs, kvs, aux
@@ -744,11 +746,12 @@ def _run_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     windows = _layer_windows(cfg, cfg.num_layers)
     for l in range(cfg.num_layers):
         def layer(*xs_, l=l):
-            bl = sp.gathered("blocks.", layer=l, whole=whole)
-            return _block_mesh(bl, list(xs_), cfg, call, mode=mode,
-                               window=windows[l], positions=positions,
-                               kvs=kvs, layer=l, pos=pos,
-                               mrope_pos=mrope_pos)
+            with sharding.scope(f"blocks.{l}"):
+                bl = sp.gathered("blocks.", layer=l, whole=whole)
+                return _block_mesh(bl, list(xs_), cfg, call, mode=mode,
+                                   window=windows[l], positions=positions,
+                                   kvs=kvs, layer=l, pos=pos,
+                                   mrope_pos=mrope_pos)
         xs, a = _remat(cfg, layer, *xs)
         if a is not None:
             aux = aux + a
@@ -788,6 +791,10 @@ def _rwkv_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
             heads=hl) for x in xs]
 
     def layer(*xs_, l):
+        with sharding.scope(f"blocks.{l}"):
+            return rwkv_layer(*xs_, l=l)
+
+    def rwkv_layer(*xs_, l):
         bl = sp.gathered("blocks.", layer=l,
                          whole=None if time_tp else _TIME_MIX)
         if time_tp:
@@ -885,6 +892,10 @@ def _zamba_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
     sbl = None if train else sp.gathered("shared_attn.")
 
     def mamba_layer(*xs_, l):
+        with sharding.scope(f"blocks.{l}"):
+            return mamba_body(*xs_, l=l)
+
+    def mamba_body(*xs_, l):
         bl = sp.gathered("blocks.", layer=l,
                          whole=None if ssm_tp else _SSM_CUT)
         if ssm_tp:
@@ -912,11 +923,13 @@ def _zamba_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
         return [x + o for x, o in zip(xs_, outs)], news
 
     def shared_block(*xs_, g):
-        out, _ = _block_mesh(
-            sbl if sbl is not None else sp.gathered("shared_attn."),
-            list(xs_), cfg, shared, mode=mode, window=0, positions=positions,
-            kvs=None if train else [c.attn for c in caches], layer=g,
-            pos=pos)
+        with sharding.scope("shared_attn"):
+            out, _ = _block_mesh(
+                sbl if sbl is not None else sp.gathered("shared_attn."),
+                list(xs_), cfg, shared, mode=mode, window=0,
+                positions=positions,
+                kvs=None if train else [c.attn for c in caches], layer=g,
+                pos=pos)
         return tuple(out)
 
     for g in range(n_groups):
@@ -955,10 +968,11 @@ def _encode_mesh(sp: specs.ShardedLM, cfg: ModelConfig, call: MeshCall,
                  for x in xs]
 
     def layer(*xs_, l):
-        out, _ = _block_mesh(sp.gathered("enc_blocks.", layer=l), list(xs_),
-                             cfg, enc, mode="train", window=0,
-                             positions=positions, kvs=None, layer=l,
-                             pos=None, causal=False)
+        with sharding.scope(f"enc_blocks.{l}"):
+            out, _ = _block_mesh(sp.gathered("enc_blocks.", layer=l),
+                                 list(xs_), cfg, enc, mode="train", window=0,
+                                 positions=positions, kvs=None, layer=l,
+                                 pos=None, causal=False)
         return tuple(out)
 
     for l in range(cfg.num_enc_layers):
@@ -1001,6 +1015,10 @@ def _decode_stack_mesh(sp: specs.ShardedLM, xs, cfg: ModelConfig,
         return sharding.all_sum(parts, mesh, "model") if cut else parts
 
     def layer(*xs_, l):
+        with sharding.scope(f"dec_blocks.{l}"):
+            return dec_layer(*xs_, l=l)
+
+    def dec_layer(*xs_, l):
         bl = sp.gathered("dec_blocks.", layer=l)
         hs = [layers.rms_norm(x, b.ln_attn, cfg.norm_eps, gemma_style=True)
               for x, b in zip(xs_, bl)]
@@ -1098,8 +1116,9 @@ def _logits_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,
     `last` False every position's, [B, S, Vp]): the batch as the call
     placed it, the vocab over 'model' where the head (or the tied table)
     is cut so."""
-    fn = sp.leaf("final_norm")
-    heads = sp.gathered("head.")
+    with sharding.scope("head"):
+        fn = sp.leaf("final_norm")
+        heads = sp.gathered("head.")
     parts = []
     for x, f, e, h in zip(xs, fn, call.emb, heads):
         y = layers.unembed_apply(e, h, layers.rms_norm(
@@ -1120,7 +1139,7 @@ def _forward_train_mesh(sp: specs.ShardedLM, cfg: ModelConfig, batch):
     each layer runs under `_remat` across every shard, its FSDP gathers
     inside, so the backward gathers again."""
     xs, call = embed_mesh(sp, cfg, batch["tokens"], batch.get("vis_embeds"))
-    aux = torch.zeros((), device=xs[0].device)
+    aux = torch.zeros((), device=sharding.home(sp.mesh))
     if cfg.family == "encdec":
         enc = _encode_mesh(sp, cfg, call, batch["src_emb"])
         xs, _ = _decode_stack_mesh(sp, xs, cfg, call, mode="train",
@@ -1136,7 +1155,7 @@ def _forward_train_mesh(sp: specs.ShardedLM, cfg: ModelConfig, batch):
 
 def _last_pos(call: MeshCall, s: int) -> torch.Tensor:
     return torch.full((call.batch,), s - 1, dtype=torch.int32,
-                      device=call.mesh.devices[0])
+                      device=sharding.home(call.mesh))
 
 
 def prefill_embedded_mesh(sp: specs.ShardedLM, cfg: ModelConfig, xs,

@@ -30,7 +30,7 @@ them (expert parallelism), else every shard runs all experts, gathered
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -125,18 +125,23 @@ def moe_apply_sharded(ps, xs, cfg: ModelConfig, mesh, *, ep: bool,
     rows (else each holds the whole batch).  Returns (y per shard, the
     batch's aux loss)."""
     e = cfg.num_experts
-    ys = [None] * mesh.size
-    fracs = []
+    n = mesh.size
+    routes: List[Optional[tuple]] = [None] * n
+    srcs, takes = [0] * n, [None] * n
+    firsts = []
     for g in sharding.groups(mesh, ("model",)):        # one data block
-        # routing and capacity once per block, on its first shard
-        cidx, cgate, ft, fp = _route(ps[g[0]].router, xs[g[0]], cfg)
-        fracs.append((ft, fp))
+        # routing and capacity once per block, on its first shard, which
+        # hands each expert shard its experts' slice (`sharding.fetch`)
+        routes[g[0]] = _route(ps[g[0]].router, xs[g[0]], cfg)
+        firsts.append(g[0])
         el = e // len(g) if ep else e
         for j, i in enumerate(g):
-            dev = xs[i].device
-            sl = slice(j * el, (j + 1) * el) if ep else slice(None)
-            ys[i] = _ffn_body(xs[i], cidx[:, sl].to(dev), cgate[:, sl].to(dev),
-                              ps[i].wi, ps[i].wu, ps[i].wo, act=cfg.act)
+            srcs[i] = g[0]
+            takes[i] = (1, j * el, el) if ep else None
+    cidx = sharding.fetch([r and r[0] for r in routes], mesh, srcs, takes)
+    cgate = sharding.fetch([r and r[1] for r in routes], mesh, srcs, takes)
+    ys = [_ffn_body(xs[i], cidx[i], cgate[i], ps[i].wi, ps[i].wu, ps[i].wo,
+                    act=cfg.act) for i in range(n)]
     if ep:
         ys = sharding.all_sum(ys, mesh, "model")
     if cfg.num_shared_experts:
@@ -144,12 +149,16 @@ def moe_apply_sharded(ps, xs, cfg: ModelConfig, mesh, *, ep: bool,
         if shared_tp:
             sh = sharding.all_sum(sh, mesh, "model")
         ys = [y + s for y, s in zip(ys, sh)]
-    # the fractions of the whole batch: the mean over equal data blocks
-    dev = xs[0].device
-    if batch_split and len(fracs) > 1:
-        fracs = [tuple(torch.stack([f[k].to(dev) for f in fracs]).mean(0)
-                       for k in (0, 1))]
-    frac_tokens, frac_probs = (f.to(dev) for f in fracs[0])
+    # the fractions of the whole batch: the mean over equal data blocks,
+    # whole values (`sharding.to_home`)
+    if not (batch_split and len(firsts) > 1):
+        firsts = firsts[:1]
+    fracs = sharding.to_home([routes[i][k] for i in firsts for k in (2, 3)],
+                             mesh, [i for i in firsts for _ in (2, 3)])
+    frac_tokens, frac_probs = fracs[0], fracs[1]
+    if len(firsts) > 1:
+        frac_tokens, frac_probs = (torch.stack(fracs[k::2]).mean(0)
+                                   for k in (0, 1))
     return ys, e * (frac_tokens * frac_probs).sum()
 
 

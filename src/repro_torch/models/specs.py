@@ -23,6 +23,8 @@ axis.
 """
 from __future__ import annotations
 
+import functools
+import math
 import re
 import types
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -124,10 +126,14 @@ def _sizes(mesh: Mesh) -> Mapping[str, int]:
 
 
 def param_specs(cfg: ModelConfig, sizes: Mesh,
-                params=None) -> Dict[str, Placement]:
+                params=None, stacked: bool = False) -> Dict[str, Placement]:
     """{parameter name: placement} for every parameter of the port's model
     of `cfg` (built on the meta device unless `params`, an `lm.LM` or a
-    {name: tensor} mapping, is given) on a mesh or its axis sizes."""
+    {name: tensor} mapping, is given) on a mesh or its axis sizes; with
+    `stacked`, a block leaf's is its stacked leaf's, the layer axis first
+    (cut over 'model' where a stacked dense MLP's depth divides it, so a
+    device holds whole layers of it: `shard_bytes` of a layer's bytes over
+    that placement is a device's share of the stack, per layer)."""
     sizes = _sizes(sizes)
     if params is None:
         from repro_torch.models import lm
@@ -141,7 +147,8 @@ def param_specs(cfg: ModelConfig, sizes: Mesh,
         if logical is None:          # norms / scalars / vectors: replicated
             out[name] = ()
             continue
-        out[name] = _sanitize(logical, shape, sizes)[len(shape) - p.dim():]
+        full = _sanitize(logical, shape, sizes)
+        out[name] = full if stacked else full[len(shape) - p.dim():]
     return out
 
 
@@ -408,9 +415,12 @@ class ShardedLM:
 
     def requires_grad_(self, on: bool = True) -> "ShardedLM":
         """Turn ``requires_grad`` on for every piece that `named_pieces`
-        lists (the trainer's master weights); returns the model."""
-        for t in self.named_pieces().values():
-            t.requires_grad_(on)
+        lists (the trainer's master weights) and this process holds (a
+        stand-in of another process's shard takes no gradient here); returns
+        the model."""
+        for name, t in self.named_pieces().items():
+            if sharding.is_local(self.mesh, split_name(name)[1]):
+                t.requires_grad_(on)
         return self
 
     def named_pieces(self) -> Dict[str, torch.Tensor]:
@@ -475,42 +485,76 @@ class ShardedLM:
         spec = self.tp.get(key, ())
         return dim < len(spec) and spec[dim] == "model"
 
-    def _layer_parts(self, key: str, layer: Optional[int]):
-        """Leaf `key` (layer `layer` of a stacked one) per shard, and the
-        placement of those pieces."""
+    def _layer_spec(self, key: str) -> Placement:
+        """The placement of leaf `key`'s pieces (a stacked leaf's, of one
+        layer: without its layer axis)."""
+        spec = self.specs[key] + (None,) * (len(self.shapes[key])
+                                            - len(self.specs[key]))
+        return spec[1:] if self._stacked(key) else spec
+
+    def _layer_parts(self, key: str, layer: Optional[int],
+                     cuts=()) -> List[torch.Tensor]:
+        """Leaf `key` (layer `layer` of a stacked one) per shard, each piece
+        cut to shard i's block over axis w of dim d for each (d, w) of
+        `cuts`."""
+        mesh = self.mesh
+        takes = [[(d, *_block(mesh, i, w, n)) for d, w, n in cuts]
+                 for i in range(mesh.size)]
         spec = self.specs[key] + (None,) * (len(self.shapes[key])
                                             - len(self.specs[key]))
         if not self._stacked(key):
-            return [s[key] for s in self.shards], spec
-        views = self.layer_views()
-        if spec[0] is None:
-            return [v[key][layer] for v in views], spec[1:]
-        # the layer axis cut over one axis: layer `layer` lives on the
-        # shards at coordinate layer // (L / n) of it
-        axis = spec[0]
-        per = self.shapes[key][0] // sharding.axis_sizes(self.mesh)[axis]
-        parts: List[Optional[torch.Tensor]] = [None] * self.mesh.size
-        for g in sharding.groups(self.mesh, (axis,)):
-            src = views[g[layer // per]][key][layer % per]
-            for i in g:
-                parts[i] = src.to(self.mesh.devices[i])
-        return parts, spec[1:]
+            parts = [s[key] for s in self.shards]
+        elif spec[0] is None:
+            parts = [v[key][layer] for v in self.layer_views()]
+        else:
+            # the layer axis cut over one axis: layer `layer` lives on the
+            # shards at coordinate layer // (L / n) of it, which hand it to
+            # their group (`sharding.fetch`), each reader its first cut
+            views = self.layer_views()
+            axis = spec[0]
+            per = self.shapes[key][0] // sharding.axis_sizes(mesh)[axis]
+            srcs = [0] * mesh.size
+            owned: List[Optional[torch.Tensor]] = [None] * mesh.size
+            for g in sharding.groups(mesh, (axis,)):
+                o = g[layer // per]
+                owned[o] = views[o][key][layer % per]
+                for i in g:
+                    srcs[i] = o
+            with sharding.scope(_leaf_name(key)):
+                parts = sharding.fetch(owned, mesh, srcs, [
+                    t[0] if t else None for t in takes])
+            takes = [t[1:] for t in takes]
+        return [functools.reduce(lambda p, t: p.narrow(*t), tk, p)
+                for p, tk in zip(parts, takes)]
 
     def leaf(self, key: str, layer: Optional[int] = None,
              whole: bool = False) -> List[torch.Tensor]:
         """Leaf `key` (layer `layer` of a stacked one) per shard as the
         model code runs it: cut over 'model' as `tp` says (whole with
-        `whole`), every other cut gathered."""
-        parts, have = self._layer_parts(key, layer)
+        `whole`), every other cut gathered.  A dim the gathers do not touch
+        is cut first, so each shard fetches and gathers only its own slice
+        of it."""
+        have = self._layer_spec(key)
         want = (None,) * len(have) if whole else self.tp[key] + (None,) * (
             len(have) - len(self.tp[key]))
+        shape = self._layer_shape(key)
+        gathered = [any(a != w for a in sharding.entry_axes(h))
+                    for h, w in zip(have, want)]
+        cuts = [(d, w, shape[d] // math.prod(
+            sharding.axis_sizes(self.mesh)[a]
+            for a in sharding.entry_axes(h)))
+            for d, (h, w) in enumerate(zip(have, want))
+            if w is not None and w not in sharding.entry_axes(h)]
+        parts = self._layer_parts(key, layer,
+                                  [c for c in cuts if not gathered[c[0]]])
         for dim, (h, w) in enumerate(zip(have, want)):
             for a in reversed(sharding.entry_axes(h)):
                 if a != w:
-                    parts = sharding.all_gather(parts, self.mesh, a, dim)
-        for dim, (h, w) in enumerate(zip(have, want)):
-            if w is not None and w not in sharding.entry_axes(h):
-                parts = [p.narrow(dim, *_block(self.mesh, i, w, p.shape[dim]))
+                    with sharding.scope(_leaf_name(key)):
+                        parts = sharding.all_gather(parts, self.mesh, a, dim)
+        for d, w, _ in cuts:
+            if gathered[d]:
+                parts = [p.narrow(d, *_block(self.mesh, i, w, p.shape[d]))
                          for i, p in enumerate(parts)]
         return parts
 
@@ -529,6 +573,12 @@ class ShardedLM:
             for d, t in zip(flat, parts):
                 d[sub] = t
         return [_namespace(d) for d in flat]
+
+
+def _leaf_name(key: str) -> str:
+    """A leaf's collectives' scope inside its block's or module's:
+    ``blocks.attn.wq`` -> ``attn.wq``, ``embed.table`` -> ``table``."""
+    return key.split(".", 1)[-1]
 
 
 def piece_name(key: str, i: int, layer: Optional[int] = None) -> str:

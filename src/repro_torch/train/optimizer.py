@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
-from repro_torch.models import specs
+from repro_torch.core.distributed import ShardMesh
+from repro_torch.models import sharding, specs
 
 Tree = Dict[str, torch.Tensor]
 
@@ -92,27 +93,42 @@ def _by_device(ts: List[torch.Tensor]) -> Dict[torch.device,
     return out
 
 
-def global_norm(tree: Tree, distinct: Optional[List[str]] = None
-                ) -> torch.Tensor:
+def global_norm(tree: Tree, distinct: Optional[List[str]] = None,
+                mesh: Optional[ShardMesh] = None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf (those named in
     `distinct`: a placed model's `distinct_names`, each slice once), f32,
-    on the first leaf's device."""
-    leaves = [tree[k] for k in (tree if distinct is None else distinct)]
-    dev = leaves[0].device
-    norms = [n.to(dev) for ts in _by_device(leaves).values()
-             for n in torch._foreach_norm([x.float() for x in ts])]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    on the first leaf's device.  Over `mesh` (the leaves a placed model's
+    pieces) each shard takes its pieces' norms, which become whole values
+    on `sharding.home` (`sharding.to_home`: every process gets each, the
+    same bits) before their norm, in `distinct`'s order."""
+    names = list(tree if distinct is None else distinct)
+    if mesh is None:
+        leaves = [tree[k] for k in names]
+        dev = leaves[0].device
+        norms = [n.to(dev) for ts in _by_device(leaves).values()
+                 for n in torch._foreach_norm([x.float() for x in ts])]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    norms = {}
+    for ks in _by_name_device(names, tree, mesh):
+        norms.update(zip(ks, torch._foreach_norm([tree[k].float()
+                                                  for k in ks])))
+    with sharding.scope("optimizer"):
+        whole = sharding.to_home([norms[k] for k in names], mesh,
+                                 [specs.split_name(k)[1] for k in names])
+    return torch.linalg.vector_norm(torch.stack(whole))
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float,
-                        distinct: Optional[List[str]] = None
+                        distinct: Optional[List[str]] = None,
+                        mesh: Optional[ShardMesh] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scales `grads` in place so their global norm (`global_norm`) is at
     most `max_norm`; returns (grads, the norm before clipping)."""
-    norm = global_norm(grads, distinct)
+    norm = global_norm(grads, distinct, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    for dev, ts in _by_device(list(grads.values())).items():
-        torch._foreach_mul_(ts, scale.to(dev))
+    for ks in _by_name_device(list(grads), grads, mesh):
+        torch._foreach_mul_([grads[k] for k in ks],
+                            scale.to(grads[ks[0]].device))
     return grads, norm
 
 
@@ -122,11 +138,12 @@ def decayed(name: str, p: torch.Tensor) -> bool:
     return p.dim() + name.startswith(STACKED) >= 2
 
 
-def _groups(names: List[str], params: Tree) -> List[List[str]]:
+def _groups(names: List[str], params: Tree,
+            mesh: Optional[ShardMesh] = None) -> List[List[str]]:
     """`names` in groups of at most GROUP_ELEMS elements, each on one
-    device."""
+    device (over a mesh, of one shard)."""
     out = []
-    for dev_names in _by_name_device(names, params):
+    for dev_names in _by_name_device(names, params, mesh):
         cur, size = [], 0
         for k in dev_names:
             if cur and size + params[k].numel() > GROUP_ELEMS:
@@ -139,10 +156,15 @@ def _groups(names: List[str], params: Tree) -> List[List[str]]:
     return out
 
 
-def _by_name_device(names: List[str], params: Tree) -> List[List[str]]:
-    out: Dict[torch.device, List[str]] = {}
+def _by_name_device(names: List[str], params: Tree,
+                    mesh: Optional[ShardMesh] = None) -> List[List[str]]:
+    """`names` by device, over a mesh by shard (a placed model's pieces:
+    each group one shard's work)."""
+    out: Dict[object, List[str]] = {}
     for k in names:
-        out.setdefault(params[k].device, []).append(k)
+        key = specs.split_name(k)[1] if mesh is not None \
+            else params[k].device
+        out.setdefault(key, []).append(k)
     return list(out.values())
 
 
@@ -154,11 +176,12 @@ def apply_updates(params, grads: Tree, state: OptState, tc: TrainConfig
     1e-8), decay the `decayed` leaves by ``tc.weight_decay``, step by the
     scheduled lr.  Returns (params, the state with its step advanced,
     {"grad_norm", "lr"})."""
-    distinct = params.distinct_names() if isinstance(
-        params, specs.ShardedLM) else None
+    mesh = distinct = None
+    if isinstance(params, specs.ShardedLM):
+        mesh, distinct = params.mesh, params.distinct_names()
     params = named(params)
     mu, nu = named(state.mu), named(state.nu)
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, distinct)
+    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip, distinct, mesh)
     step = state.step + 1
     t = int(step)
     lr = lr_at(tc, t)
@@ -167,7 +190,7 @@ def apply_updates(params, grads: Tree, state: OptState, tc: TrainConfig
     bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(t))
     for decay in (True, False):
         names = [k for k, p in params.items() if decayed(k, p) == decay]
-        for grp in _groups(names, params):
+        for grp in _groups(names, params, mesh):
             ps = [params[k] for k in grp]
             gs = [grads[k].float() for k in grp]
             ms = [mu[k] for k in grp]

@@ -67,7 +67,8 @@ def vocab_parallel_ce(logits: sharding.Placed, targets,
     averaged over each data block and over the blocks.  All in f32, so it
     equals the CE of the gathered logits but for the order of the sums.
     `targets` [B, S] whole or placed as the logits' batch is.  Returns
-    the 0-d loss on shard 0's device."""
+    the 0-d loss on `sharding.home` (every process's, on a mesh that spans
+    processes)."""
     mesh = logits.mesh
     spec = tuple(logits.spec) + (None,) * (3 - len(logits.spec))
     vocab = sharding.entry_axes(spec[-1])
@@ -88,21 +89,23 @@ def vocab_parallel_ce(logits: sharding.Placed, targets,
         v0s.append(v0)
     mx = [x.detach().amax(-1) for x in masked]
     if vocab:
-        mx = sharding.all_max(mx, mesh, vocab)
+        with sharding.scope("loss"):
+            mx = sharding.all_max(mx, mesh, vocab)
     sums, golds = [], []
     for x, m, t, v0 in zip(masked, mx, tparts, v0s):
         sums.append(torch.exp(x - m[..., None]).sum(-1))
-        local = t.to(x.device).long() - v0
+        local = t.long() - v0            # the targets are on x's shard
         inside = (local >= 0) & (local < x.shape[-1])
         g = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
         golds.append(torch.where(inside, g[..., 0], 0.0))
-    if vocab:
-        sums = sharding.all_sum(sums, mesh, vocab)
-        golds = sharding.all_sum(golds, mesh, vocab)
-    dev = logits.parts[0].device
-    blocks = [g[0] for g in sharding.groups(mesh, vocab)]
-    ces = [(mx[i] + torch.log(sums[i]) - golds[i]).mean().to(dev)
-           for i in blocks]
+    with sharding.scope("loss"):
+        if vocab:
+            sums = sharding.all_sum(sums, mesh, vocab)
+            golds = sharding.all_sum(golds, mesh, vocab)
+        blocks = [g[0] for g in sharding.groups(mesh, vocab)]
+        ces = sharding.to_home(
+            [(mx[i] + torch.log(sums[i]) - golds[i]).mean() for i in blocks],
+            mesh, blocks)
     return torch.stack(ces).mean()
 
 
@@ -125,12 +128,15 @@ def _grads(loss, leaves: Dict[str, torch.Tensor], like) -> dict:
 
 def _placed_grads(loss, sp: specs.ShardedLM, like) -> dict:
     """The gradient of every piece of `sp` (zeros where a piece took no
-    part), summed over its replicas (`sharding.replica_sum`, in the
-    pieces' dtype), then in `like`'s pieces' dtypes."""
+    part, and stand-ins for another process's shards), summed over its
+    replicas (`sharding.replica_sum`, in the pieces' dtype), then in
+    `like`'s pieces' dtypes."""
     named = sp.named_pieces()
-    gs = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
-    raw = {k: torch.zeros_like(t) if g is None else g
-           for (k, t), g in zip(named.items(), gs)}
+    held = {k: t for k, t in named.items() if t.requires_grad}
+    gs = dict(zip(held, torch.autograd.grad(loss, list(held.values()),
+                                            allow_unused=True)))
+    raw = {k: torch.zeros_like(t) if gs.get(k) is None else gs[k]
+           for k, t in named.items()}
     del gs
     out = {}
     for key, spec in sp.specs.items():
@@ -139,8 +145,10 @@ def _placed_grads(loss, sp: specs.ShardedLM, like) -> dict:
         for l in layers_:
             names = [specs.piece_name(key, i, l)
                      for i in range(sp.mesh.size)]
-            for n, g in zip(names, sharding.replica_sum(
-                    [raw.pop(n) for n in names], spec, sp.mesh)):
+            with sharding.scope(f"grads.{key}"):
+                summed = sharding.replica_sum([raw.pop(n) for n in names],
+                                              spec, sp.mesh)
+            for n, g in zip(names, summed):
                 out[n] = g.to(like[n].dtype)
     return out
 
@@ -151,7 +159,11 @@ def grads_of(params, cfg: ModelConfig, tc: TrainConfig, batch):
     grads keyed as `optimizer.named` keys the params, summed over their
     replicas on a mesh."""
     named = optimizer.named(params)
-    if any(not p.requires_grad for p in named.values()):
+    held = named
+    if isinstance(params, specs.ShardedLM):       # this process's shards
+        held = {k: t for k, t in named.items()
+                if sharding.is_local(params.mesh, specs.split_name(k)[1])}
+    if any(not p.requires_grad for p in held.values()):
         raise ValueError("the model's parameters do not require grad; "
                          "call train_step.trainable(model) first")
     bf16 = tc.grad_compression == "bf16"
@@ -159,8 +171,9 @@ def grads_of(params, cfg: ModelConfig, tc: TrainConfig, batch):
         sp = params.like(lambda t: t.detach().to(torch.bfloat16)
                          if t.dtype == torch.float32 else t.detach()
                          ).requires_grad_(True) if bf16 else params
-        loss, parts = loss_fn(sp, cfg, batch)
-        return loss.detach(), parts, _placed_grads(loss, sp, named)
+        with sharding.chain(sp.mesh):
+            loss, parts = loss_fn(sp, cfg, batch)
+            return loss.detach(), parts, _placed_grads(loss, sp, named)
     if bf16:
         low = {k: (p.detach().to(torch.bfloat16).requires_grad_()
                    if p.dtype == torch.float32 else p)

@@ -50,7 +50,7 @@ class Trainer:
         is then its first shard's); else on `device` (the card unless
         named)."""
         self.cfg, self.tc, self.mesh = cfg, tc, mesh
-        self.device = (mesh.devices[0] if mesh is not None
+        self.device = (sharding.home(mesh) if mesh is not None
                        else resolve_device(device))
         self.ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
         self.checkpoint_every = checkpoint_every

@@ -1,0 +1,39 @@
+"""Helpers that the metric readers under `metrics/` share: what the
+window completed, and the least time of that work (`costs`)."""
+from __future__ import annotations
+
+FAILED_MS = 1e6          # a failed request's latency: over any limit
+
+
+def in_window(ctx, items):
+    """Requests or writes that completed inside the window."""
+    return [x for x in items if x.ok and ctx.t0 <= x.t_done <= ctx.t1]
+
+
+def query_least_s(ctx) -> float:
+    return sum(ctx.costs.query_s(ctx.cfg, ctx.spill, r.b, r.path)
+               for r in in_window(ctx, ctx.requests))
+
+
+def write_least_s(ctx) -> float:
+    total = 0.0
+    for w in in_window(ctx, ctx.writes):
+        fn = ctx.costs.insert_s if w.kind == "insert" else ctx.costs.delete_s
+        total += fn(ctx.cfg, ctx.spill, w.rows)
+    total += ctx.rebuilds * ctx.costs.rebuild_s(ctx.cfg, ctx.spill,
+                                               ctx.live_rows)
+    return total
+
+
+def exec_ms(ctx, kind: str):
+    """Mean execution time (latency less queue wait) of the window's
+    scheduler tasks of `kind`; None where none completed."""
+    n, wait_s, lat_s = ctx.delta(kind)
+    return 1e3 * (lat_s - wait_s) / n if n else None
+
+
+def idle_pct(ctx):
+    """Share of the traced window with no device work, in %."""
+    if ctx.trace is None or ctx.trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.trace["window_s"])

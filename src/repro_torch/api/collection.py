@@ -64,6 +64,7 @@ from repro_torch.core import locking
 from repro_torch.core import metrics
 from repro_torch.core import templates
 from repro_torch.core.hnsw import HNSW
+from repro_torch.core.spans import span
 from repro_torch.core.tuner import RecallTuner
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
@@ -175,6 +176,15 @@ class Collection:
         self._approx_live = 0      # host-side live-row estimate (saved)
         self.counters = {"queries": 0, "inserts": 0, "deletes": 0,
                          "rebuilds": 0, "spilled": 0}
+        # the writer lock's cost, host-side and process-local (neither
+        # saved nor held to the reference, unlike `counters`): insert calls
+        # and their seconds waiting for the lock; the seconds each
+        # rebuild's publish step held it (its whole attempt when the
+        # attempt runs exclusive), the rows it replayed and its restarts
+        self.writer_counters = {"insert_calls": 0, "insert_lock_wait_s": 0.0,
+                                "rebuild_lock_hold_s": 0.0,
+                                "rebuild_replayed_rows": 0,
+                                "rebuild_restarts": 0}
         # Per-shard maintenance state; the unsharded collection is the
         # 1-shard case.  Shard i's entries are only touched by ops that
         # land on shard i, so shard-local rebuilds schedule independently:
@@ -460,13 +470,14 @@ class Collection:
         release and retry.  Terminates because evictions only happen on
         other tenants' admissions, which are finite between our retries.
         """
-        while True:
-            self.promote()
-            self._writer_lock.acquire()
-            with self._lock:
-                if self._residency_tier == "hot":
-                    return
-            self._writer_lock.release()
+        with span("ame.coll.writer_lock"):
+            while True:
+                self.promote()
+                self._writer_lock.acquire()
+                with self._lock:
+                    if self._residency_tier == "hot":
+                        return
+                self._writer_lock.release()
 
     @contextlib.contextmanager
     def _hot_writer(self):
@@ -983,7 +994,9 @@ class Collection:
         self._check_shardable("insert", n)
         src = (vectors, ids)
         ids = self._ids_for(n, ids)
+        t_wait = time.perf_counter()
         with self._hot_writer():
+            t_wait = time.perf_counter() - t_wait
             if self.sharded:
                 state, spilled = dce.dist_insert(self._state, x, ids,
                                                  self.cfg, self.mesh)
@@ -997,6 +1010,8 @@ class Collection:
                 for s, sp in enumerate(per_shard):
                     self._shard_pressure[s]["spilled"] += sp
                 self._approx_live += n
+                self.writer_counters["insert_calls"] += 1
+                self.writer_counters["insert_lock_wait_s"] += t_wait
             self._swap(state, inserts=n, spilled=spilled)
             self._log_delta("insert", x, ids)
             # mirror into the derived HNSW graph (no-op until one exists);
@@ -1061,7 +1076,8 @@ class Collection:
             return self._query_graph(q.cpu().numpy(), k)
         else:
             raise ValueError(f"unknown query path {path!r}")
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with span("ame.coll.query.to_host"):
+            return ids.cpu().numpy(), scores.cpu().numpy()
 
     def rebuild(self, shard: Optional[int] = None, *,
                 max_restarts: int = 2) -> dict:
@@ -1087,12 +1103,12 @@ class Collection:
                 raise ValueError(
                     f"collection {self.name!r} is unsharded; rebuild(shard="
                     f"{shard}) is only meaningful with shard_db=True")
-            return self._rebuild_single(max_restarts)
+            return self._rebuild_counted(self._rebuild_single(max_restarts))
         if shard is None:
             out = {"rebuild_s": 0.0, "spilled": 0, "replayed": 0,
                    "restarts": 0, "aborted": False, "shards": []}
             for s in range(self._n_shards):
-                r = self._rebuild_shard(s, max_restarts)
+                r = self._rebuild_counted(self._rebuild_shard(s, max_restarts))
                 for key in ("rebuild_s", "spilled", "replayed", "restarts"):
                     out[key] += r[key]
                 out["aborted"] = out["aborted"] or r["aborted"]
@@ -1101,7 +1117,20 @@ class Collection:
         if not 0 <= shard < self._n_shards:
             raise ValueError(f"collection {self.name!r} has shards "
                              f"0..{self._n_shards - 1}; got shard={shard}")
-        return self._rebuild_shard(shard, max_restarts)
+        return self._rebuild_counted(self._rebuild_shard(shard, max_restarts))
+
+    def _rebuild_counted(self, out: dict) -> dict:
+        with self._lock:
+            self.writer_counters["rebuild_replayed_rows"] += out["replayed"]
+            self.writer_counters["rebuild_restarts"] += out["restarts"]
+        return out
+
+    def _rebuild_held(self, since: float) -> None:
+        """Count the writer lock's hold by a rebuild since `since` (the
+        caller still holds it)."""
+        with self._lock:
+            self.writer_counters["rebuild_lock_hold_s"] += (
+                time.perf_counter() - since)
 
     def _rebuild_single(self, max_restarts: int) -> dict:
         """Unsharded delta-replay rebuild (full re-cluster)."""
@@ -1114,6 +1143,7 @@ class Collection:
                 # state to rebuild (and a demotion mid-rebuild bumps _epoch,
                 # aborting us at the publish step like a bulk build would)
                 self._acquire_writer_hot()
+                held = time.perf_counter()
                 snap = self._state
                 epoch = self._epoch
                 if not exclusive:
@@ -1137,6 +1167,7 @@ class Collection:
                     raise
                 if not exclusive:
                     self._writer_lock.acquire()
+                    held = time.perf_counter()
                 try:
                     with self._lock:
                         log = self._delta_logs[0] or []
@@ -1153,29 +1184,31 @@ class Collection:
                         restarts += 1
                         continue
                     replayed = sum(int(op.ids.shape[0]) for op in log)
-                    tombstoned = 0
-                    extra = 0
-                    if log:
-                        new, extra, tombstoned = ivf.replay(new, log, self.cfg)
-                    # replayed deletes leave real tombstones in the swapped
-                    # state — pressure must reflect them.  Only the
-                    # recompute's own leftover spill becomes the floor; replay
-                    # spill stays live pressure for the next rebuild.
-                    with self._lock:
-                        self._shard_pressure[0] = {"tombstones": tombstoned,
-                                                   "spilled": spilled + extra}
-                        self._spill_floors[0] = spilled
-                    spilled += extra
-                    self._swap(new, rebuilds=1)
-                    # the rebuilt store may have repacked/dropped slots the
-                    # mirrored graph still reflects — drop the derived
-                    # graph; the next graph query rebuilds it from the
-                    # post-replay live rows
-                    self._graph_invalidate()
+                    with span("ame.coll.rebuild.replay"):
+                        tombstoned = 0
+                        extra = 0
+                        if log:
+                            new, extra, tombstoned = ivf.replay(new, log, self.cfg)
+                        # replayed deletes leave real tombstones in the swapped
+                        # state — pressure must reflect them.  Only the
+                        # recompute's own leftover spill becomes the floor; replay
+                        # spill stays live pressure for the next rebuild.
+                        with self._lock:
+                            self._shard_pressure[0] = {"tombstones": tombstoned,
+                                                       "spilled": spilled + extra}
+                            self._spill_floors[0] = spilled
+                        spilled += extra
+                        self._swap(new, rebuilds=1)
+                        # the rebuilt store may have repacked/dropped slots the
+                        # mirrored graph still reflects — drop the derived
+                        # graph; the next graph query rebuilds it from the
+                        # post-replay live rows
+                        self._graph_invalidate()
                     return {"rebuild_s": time.perf_counter() - t0,
                             "spilled": spilled, "replayed": replayed,
                             "restarts": restarts, "aborted": False}
                 finally:
+                    self._rebuild_held(held)
                     self._writer_lock.release()
 
     def _rebuild_shard(self, shard: int, max_restarts: int) -> dict:
@@ -1197,6 +1230,7 @@ class Collection:
             while True:
                 exclusive = restarts >= max_restarts
                 self._acquire_writer_hot()
+                held = time.perf_counter()
                 snap = self._state[shard]
                 epoch = self._epoch
                 if not exclusive:
@@ -1220,6 +1254,7 @@ class Collection:
                     raise
                 if not exclusive:
                     self._writer_lock.acquire()
+                    held = time.perf_counter()
                 try:
                     with self._lock:
                         log = self._delta_logs[shard] or []
@@ -1268,6 +1303,7 @@ class Collection:
                             "shard": shard, "rebalanced": moved,
                             "rebalance_to": moved_to}
                 finally:
+                    self._rebuild_held(held)
                     self._writer_lock.release()
 
     def _rebalance_spill(self, state, src: int):
@@ -1678,6 +1714,12 @@ class Collection:
         k, nprobe, path = self.resolve_query(batch, k, nprobe, path)
         return (self.cfg, self.cfg.store_dtype, self.spill_capacity,
                 self.mesh if self.sharded else None, k, nprobe, path)
+
+    def host_counters(self) -> dict:
+        """`counters` and `writer_counters` in one dict, read under the
+        pointer lock: host values only, no device sync."""
+        with self._lock:
+            return {**self.counters, **self.writer_counters}
 
     def stats(self) -> dict:
         """Counters + index occupancy snapshot.  Syncs device scalars —

@@ -59,6 +59,7 @@ from repro_torch.core import templates
 from repro_torch.core.scheduler import AdmissionControl, Overloaded, Task, \
     WindowedScheduler
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
+from repro_torch.kernels import ops as kernel_ops
 
 _NAME_RE = re.compile(r"^[A-Za-z0-9._-]+$")
 SERVICE_FILE = "service.json"
@@ -379,8 +380,7 @@ class MemoryService:
 
         nbytes = getattr(op.payload, "nbytes", 0)
         task = Task(fn=fn, kind=op.kind, backend=plan.backend,
-                    priority=plan.priority, size_bytes=int(nbytes),
-                    shard=op.shard)
+                    priority=plan.priority, size_bytes=int(nbytes))
         fut.task = self.scheduler.submit(task)
         return fut
 
@@ -675,6 +675,35 @@ class MemoryService:
                 "maintenance": maint.stats() if maint is not None else {},
                 "stack_cache": self._stack_cache.stats(),
                 "residency": self._residency.stats()}
+
+    def counters(self) -> Dict[str, float]:
+        """Every cumulative counter of the service in one flat dict, for a
+        reader that differences two calls across a window:
+
+        * ``sched.<kind>.n`` / ``.wait_s`` / ``.lat_s`` / ``.admit_wait_s``:
+          the scheduler's tasks of each op kind (`WindowedScheduler.totals`);
+        * ``coll.<name>.<counter>``: each collection's `counters` and
+          `writer_counters` (`Collection.host_counters`);
+        * ``launches.<kernel>.<variant>`` (``launches.segsum_gemm``): the
+          hand-written kernels' launches in this process
+          (`kernels.ops.launch_counts`).
+
+        Reads host counters only, with no device sync, so it is safe to
+        call at a measurement window's edges."""
+        with self._lock:
+            colls = dict(self._collections)
+            sched = self._scheduler
+        out: Dict[str, float] = {}
+        if sched is not None:
+            for kind, totals in sched.totals().items():
+                for key, v in totals.items():
+                    out[f"sched.{kind}.{key}"] = v
+        for name, coll in colls.items():
+            for key, v in coll.host_counters().items():
+                out[f"coll.{name}.{key}"] = v
+        for key, v in kernel_ops.launch_counts().items():
+            out[f"launches.{key}"] = v
+        return out
 
     def shutdown(self) -> None:
         with self._lock:

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import EngineConfig
+from repro_torch.core.spans import span
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -250,10 +251,11 @@ def _requantize_touched(state: IVFState, x: torch.Tensor,
     encode the appended spill rows x[rows] at their slots `spos`.  Deletes
     need no counterpart: they only flip ids, and every scan masks ids < 0.
     """
-    _requantize_lists(state, torch.unique(clusters))
-    _write_spill_codes(state, x[rows],
-                       torch.zeros(rows.shape[0], dtype=torch.int32,
-                                   device=x.device), spos)
+    with span("ame.index.insert.requantize"):
+        _requantize_lists(state, torch.unique(clusters))
+        _write_spill_codes(state, x[rows],
+                           torch.zeros(rows.shape[0], dtype=torch.int32,
+                                       device=x.device), spos)
 
 
 # ---------------------------------------------------------------------------
@@ -334,8 +336,10 @@ def rebuild(gen: torch.Generator, state: IVFState,
     Reclaims tombstoned slots and drains the spill buffer (the paper's
     'index template' operation — large, latency-insensitive, GEMM-heavy).
     """
-    rows, ids = _flat_rows(state)
-    return build(gen, rows, ids, cfg, spill_capacity=state.spill.shape[0])
+    with span("ame.index.rebuild.flat_copy"):
+        rows, ids = _flat_rows(state)
+    with span("ame.index.rebuild.cluster"):
+        return build(gen, rows, ids, cfg, spill_capacity=state.spill.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +396,9 @@ def own_insert_fields(state: IVFState, cfg: EngineConfig) -> IVFState:
     reader of `state` unaffected."""
     written = ("lists", "list_ids", "list_sizes", "spill", "spill_ids",
                "spill_size") + (_Q_FIELDS if cfg.quantized else ())
-    return state._replace(**{f: getattr(state, f).clone() for f in written})
+    with span("ame.index.insert.clone"):
+        return state._replace(**{f: getattr(state, f).clone()
+                                 for f in written})
 
 
 def insert(state: IVFState, x: torch.Tensor, ids: torch.Tensor,
@@ -422,15 +428,16 @@ def _delete(state: IVFState, ids: torch.Tensor, *,
     the place of the reference's loop over ids.
     """
     ids = ids.to(state.list_ids.device)
-    l_hit = torch.isin(state.list_ids, ids)
-    s_hit = torch.isin(state.spill_ids, ids)
-    n = (l_hit.sum() + s_hit.sum()).to(torch.int32)
-    if copy:
-        list_ids = state.list_ids.masked_fill(l_hit, -1)
-        spill_ids = state.spill_ids.masked_fill(s_hit, -1)
-    else:
-        list_ids = state.list_ids.masked_fill_(l_hit, -1)
-        spill_ids = state.spill_ids.masked_fill_(s_hit, -1)
+    with span("ame.index.delete.mask"):
+        l_hit = torch.isin(state.list_ids, ids)
+        s_hit = torch.isin(state.spill_ids, ids)
+        n = (l_hit.sum() + s_hit.sum()).to(torch.int32)
+        if copy:
+            list_ids = state.list_ids.masked_fill(l_hit, -1)
+            spill_ids = state.spill_ids.masked_fill(s_hit, -1)
+        else:
+            list_ids = state.list_ids.masked_fill_(l_hit, -1)
+            spill_ids = state.spill_ids.masked_fill_(s_hit, -1)
     new = state._replace(list_ids=list_ids, spill_ids=spill_ids,
                          num_deleted=state.num_deleted + n)
     return new, n
@@ -642,14 +649,17 @@ def _query_full_scan_q8(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     """Two-stage full scan: int8 coarse scan over every row, exact f32
     rescore of the top `rescore_k` survivors (the f32 tier is touched only
     for B * rescore_k gathered rows)."""
-    codes, scales, zeros, norms = _flat_codes(state)
-    ids = _flat_ids(state)
-    coarse = _scan_q8(q, codes, ids, scales, zeros, norms, cfg)
-    r = _rescore_r(cfg, k, codes.shape[-2])
-    del codes, scales, zeros, norms
-    cand = torch.topk(_order_scores(coarse, cfg.metric), r, dim=-1).indices
-    rows = _gather_flat_rows(state, cand)
-    return _rescore_topk(q, rows, _take(state, ids, cand), cfg.metric, k)
+    with span("ame.index.full_scan.flat_copy"):
+        codes, scales, zeros, norms = _flat_codes(state)
+        ids = _flat_ids(state)
+    with span("ame.index.full_scan.scan"):
+        coarse = _scan_q8(q, codes, ids, scales, zeros, norms, cfg)
+        r = _rescore_r(cfg, k, codes.shape[-2])
+        del codes, scales, zeros, norms
+        cand = torch.topk(_order_scores(coarse, cfg.metric), r,
+                          dim=-1).indices
+        rows = _gather_flat_rows(state, cand)
+        return _rescore_topk(q, rows, _take(state, ids, cand), cfg.metric, k)
 
 
 def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -665,10 +675,12 @@ def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     if cfg.quantized:
         out_ids, top, _ = _query_full_scan_q8(state, q, cfg, k)
         return out_ids, top
-    rows, ids = _flat_rows(state)
-    scores = _scan(q, rows, ids, cfg)
-    top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=-1)
-    return _take(state, ids, idx), top
+    with span("ame.index.full_scan.flat_copy"):
+        rows, ids = _flat_rows(state)
+    with span("ame.index.full_scan.scan"):
+        scores = _scan(q, rows, ids, cfg)
+        top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=-1)
+        return _take(state, ids, idx), top
 
 
 def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -677,10 +689,12 @@ def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     (under the int8 policy the exact f32 rows, never dequantized ones)."""
     if cfg.quantized:
         return _query_full_scan_q8(state, q, cfg, k)
-    rows, ids = _flat_rows(state)
-    scores = _scan(q, rows, ids, cfg)
-    top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
-    return ids[idx], top, rows[idx]
+    with span("ame.index.full_scan.flat_copy"):
+        rows, ids = _flat_rows(state)
+    with span("ame.index.full_scan.scan"):
+        scores = _scan(q, rows, ids, cfg)
+        top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
+        return ids[idx], top, rows[idx]
 
 
 def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -699,11 +713,18 @@ def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     1 + B launches — and (ids, scores) are [G, B, k]; a single collection
     is the G = 1 case.
     """
-    if state.lists.dim() == 3:
-        ids, scores = query_probed(
-            IVFState(*[None if t is None else t[None] for t in state]),
-            q[None], cfg, k, nprobe)
-        return ids[0], scores[0]
+    with span("ame.index.probed"):
+        if state.lists.dim() == 3:
+            ids, scores = _query_probed_lanes(
+                IVFState(*[None if t is None else t[None] for t in state]),
+                q[None], cfg, k, nprobe)
+            return ids[0], scores[0]
+        return _query_probed_lanes(state, q, cfg, k, nprobe)
+
+
+def _query_probed_lanes(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
+                        k: int, nprobe: int):
+    """`query_probed` on a stacked state (every leaf with its lane axis)."""
     g, c, l, _ = state.lists.shape
     # clamp so topk's k <= axis holds even when a caller asks for more
     # probes than there are clusters
@@ -742,13 +763,14 @@ def _gather_slabs(src: torch.Tensor, pi: torch.Tensor,
     pi [G, nprobe], tail [G, S, ...]); one copy of each."""
     g, nprobe = pi.shape
     l, inner = src.shape[2], src.shape[3:]
-    out = torch.empty((g, nprobe * l + tail.shape[1], *inner),
-                      dtype=src.dtype, device=src.device)
-    for j in range(g):
-        torch.index_select(src[j], 0, pi[j],
-                           out=out[j, :nprobe * l].view(nprobe, l, *inner))
-    out[:, nprobe * l:] = tail
-    return out
+    with span("ame.index.probed.gather"):
+        out = torch.empty((g, nprobe * l + tail.shape[1], *inner),
+                          dtype=src.dtype, device=src.device)
+        for j in range(g):
+            torch.index_select(src[j], 0, pi[j],
+                               out=out[j, :nprobe * l].view(nprobe, l, *inner))
+        out[:, nprobe * l:] = tail
+        return out
 
 
 def _probe_q8(state: IVFState, qi: torch.Tensor, pi: torch.Tensor,

@@ -22,22 +22,24 @@ a worker pops from its own heap first, then steals per `_steal_order`
 by throughput workers), and otherwise *waits* — no pop/requeue spin burning
 CPU when only one task class is queued.
 
-Completed-task history is bounded (`history` tasks, default 1024): `stats()`
-reports cumulative counts and mean waits from per-kind aggregates that never
-reset, and percentiles over the retained window, so sustained traffic can't
-grow the scheduler's footprint without bound.
+No completed task is retained: `stats()` reports cumulative counts and
+means, and `totals()` the cumulative sums, from per-kind aggregates that
+never reset, so sustained traffic can't grow the scheduler's footprint.
+A reader differences `totals()` across a window: per kind, tasks completed,
+their queue wait, their latency, and `admit_wait_s`, the time `submit`
+blocked on the full submission window before the task was queued (which the
+queue wait, measured from the queueing, leaves out).
 
 Modes for the Fig. 7 benchmark: "windowed" (AME), "all" (flood), "serial"
 (one at a time).
 """
 from __future__ import annotations
 
-import collections
 import heapq
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -112,10 +114,7 @@ class Task:
     backend: str                 # latency | throughput | background
     priority: int = 0
     size_bytes: int = 0
-    # mesh shard a shard-local maintenance task targets (None = whole
-    # collection); lets stats/debugging attribute background rebuilds to
-    # the hot shard that triggered them
-    shard: Optional[int] = None
+    admit_wait: float = 0.0      # blocked on the submission window
     submit_t: float = 0.0
     start_t: float = 0.0
     end_t: float = 0.0
@@ -132,32 +131,17 @@ class Task:
         return self.end_t - self.submit_t
 
 
-class CompletedTask(NamedTuple):
-    """Lightweight completion record retained for windowed percentiles.
-
-    Deliberately NOT the Task itself: a Task pins its fn closure (op
-    payloads, futures) and result arrays, which would keep up to `history`
-    payloads alive for nothing."""
-    kind: str
-    backend: str
-    latency: float
-    queue_wait: float
-    shard: Optional[int] = None
-
-
 class WindowedScheduler:
     """Worker-pulled, windowed-batch-submission task scheduler."""
 
     def __init__(self, window: int = 8, mode: str = "windowed",
                  backends: Dict[str, int] | None = None,
-                 history: int = 1024,
                  admission: Optional[AdmissionControl] = None):
         assert mode in ("windowed", "all", "serial")
         self.window = window if mode == "windowed" else (1 if mode == "serial" else 1 << 30)
         self.mode = mode
         # worker threads per backend class (paper: workers bound to CPU/GPU/NPU)
         self.backends = backends or {"latency": 1, "throughput": 1, "background": 1}
-        self.history = history
         self.admission = admission
         self._cond = threading.Condition()
         # one priority heap per backend class; tasks for classes nobody owns
@@ -168,7 +152,6 @@ class WindowedScheduler:
         self._sem = threading.Semaphore(self.window)
         self._seq = 0
         self._outstanding = 0            # queued or running (drain target)
-        self.completed: collections.deque = collections.deque(maxlen=history)
         self._agg: Dict[str, Dict[str, float]] = {}
         self._n_completed = 0
         self._peak_inflight_bytes = 0
@@ -233,6 +216,7 @@ class WindowedScheduler:
         """
         if self.admission is not None:
             self._admit(task)
+            t0 = time.perf_counter()
             wait = self.admission.max_queue_wait_s
             if not self._sem.acquire(timeout=wait if wait else 30.0):
                 with self._cond:
@@ -241,8 +225,10 @@ class WindowedScheduler:
                 raise Overloaded(task.backend, self.window, self.window,
                                  reason="submission window full")
         else:
+            t0 = time.perf_counter()
             self._sem.acquire()
         task.submit_t = time.perf_counter()
+        task.admit_wait = task.submit_t - t0
         with self._cond:
             self._seq += 1
             self._outstanding += 1
@@ -321,14 +307,13 @@ class WindowedScheduler:
             with self._cond:
                 self._inflight_bytes -= task.size_bytes
                 self._n_completed += 1
-                self.completed.append(CompletedTask(
-                    task.kind, task.backend, task.latency, task.queue_wait,
-                    task.shard))
                 agg = self._agg.setdefault(
-                    task.kind, {"n": 0, "wait_total": 0.0, "lat_total": 0.0})
+                    task.kind, {"n": 0, "wait_total": 0.0, "lat_total": 0.0,
+                                "admit_total": 0.0})
                 agg["n"] += 1
                 agg["wait_total"] += task.queue_wait
                 agg["lat_total"] += task.latency
+                agg["admit_total"] += task.admit_wait
                 bex = self._backend_exec.setdefault(
                     task.backend, {"n": 0, "total_s": 0.0})
                 bex["n"] += 1
@@ -343,10 +328,19 @@ class WindowedScheduler:
                 self._cond.notify_all()   # wake drain()ers + idle stealers
 
     # ------------------------------------------------------------------
+    def totals(self) -> Dict[str, Dict[str, float]]:
+        """Per kind, cumulative since start: tasks completed (`n`), their
+        queue wait, latency and submission-window wait in seconds
+        (`wait_s`, `lat_s`, `admit_wait_s`).  Host counters only."""
+        with self._cond:
+            return {k: {"n": int(a["n"]), "wait_s": a["wait_total"],
+                        "lat_s": a["lat_total"],
+                        "admit_wait_s": a["admit_total"]}
+                    for k, a in self._agg.items()}
+
     def stats(self) -> dict:
         adm = self.admission
         with self._cond:
-            recent = list(self.completed)
             agg = {k: dict(v) for k, v in self._agg.items()}
             peak = self._peak_inflight_bytes
             n_completed = self._n_completed
@@ -361,22 +355,11 @@ class WindowedScheduler:
                     b: adm.depth_limit(b) for b in self._queues}
                 admission["max_queue_wait_s"] = adm.max_queue_wait_s
 
-        def pct(xs, p):
-            # None, not 0.0, when every sample of this kind was evicted
-            # from the window — a fake 0ms percentile reads as "fast"
-            if not xs:
-                return None
-            xs = sorted(xs)
-            return 1e3 * xs[min(len(xs) - 1, int(p * len(xs)))]
-
         out = {"peak_inflight_bytes": peak, "completed": n_completed,
-               "history_retained": len(recent), "admission": admission}
+               "admission": admission}
         for kind, a in agg.items():
-            lats = [t.latency for t in recent if t.kind == kind]
             out[kind] = {
                 "n": int(a["n"]),
-                "p50_ms": pct(lats, 0.50),
-                "p99_ms": pct(lats, 0.99),
                 "mean_wait_ms": 1e3 * a["wait_total"] / max(a["n"], 1),
                 "mean_ms": 1e3 * a["lat_total"] / max(a["n"], 1),
             }

@@ -26,6 +26,7 @@ import struct
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import build, ref, scan_stream
 
 ROWS = 64                 # resident rows of x per block (the wgmma M)
@@ -205,7 +206,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
                 if n_keys else None)
         fn = build.entry("kmeans_assign", "kmeans_assign_wgmma_launch",
                          _WGMMA_ARGTYPES)
-        with torch.cuda.device(x.device):
+        with span("ame.kernel.kmeans_assign"), torch.cuda.device(x.device):
             err = fn(x.data_ptr(), centroids.data_ptr(), cb.data_ptr(),
                      cnorm.data_ptr(), idx.data_ptr(), dist.data_ptr(),
                      None if keys is None else keys.data_ptr(), m, c, d, cp,
@@ -215,7 +216,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor, *,
         vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0
                    and centroids.data_ptr() % 16 == 0)
         fn = build.entry("kmeans_assign", "kmeans_assign_launch", _ARGTYPES)
-        with torch.cuda.device(x.device):
+        with span("ame.kernel.kmeans_assign"), torch.cuda.device(x.device):
             err = fn(x.data_ptr(), centroids.data_ptr(), cnorm.data_ptr(),
                      idx.data_ptr(), dist.data_ptr(), m, c, d, vec4,
                      int(not fused_conversion), stream)

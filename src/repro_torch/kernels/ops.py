@@ -68,3 +68,15 @@ def segsum_gemm(x, assign, *, n_clusters, use_kernel=True):
     if not use_kernel:
         return _ref.segsum_gemm_ref(x, assign, n_clusters=n_clusters)
     return _segsum.segsum_gemm(x, assign, n_clusters=n_clusters)
+
+
+def launch_counts() -> dict:
+    """Launches of each hand-written kernel since the process started, by
+    variant (``<kernel>.<variant>``; `segsum_gemm` has one variant)."""
+    out = {}
+    for name, mod in (("scan_scores", _scan), ("scan_scores_q8", _scan_q8),
+                      ("kmeans_assign", _assign)):
+        for variant, n in mod.launches_by_variant.items():
+            out[f"{name}.{variant}"] = n.value
+    out["segsum_gemm"] = _segsum.launches.value
+    return out

@@ -14,6 +14,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import build, ref, scan_stream
 
 launches = build.LaunchCounter()
@@ -84,7 +85,7 @@ def scan_scores(q: torch.Tensor, db: torch.Tensor, ids: torch.Tensor,
         "scan_scores", _variant,
         variant_for(b, n, d, q.data_ptr(), db.data_ptr()))
     fn = build.entry("scan_scores", "scan_scores_launch", _ARGTYPES)
-    with torch.cuda.device(q.device):
+    with span("ame.kernel.scan_scores"), torch.cuda.device(q.device):
         err = fn(q.data_ptr(), db.data_ptr(), ids.data_ptr(),
                  None if db_norms is None else db_norms.data_ptr(),
                  out.data_ptr(), g, b, n, d, int(metric == "l2"), vec4,

@@ -15,6 +15,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import build, ref, scan_stream
 
 launches = build.LaunchCounter()
@@ -93,7 +94,7 @@ def scan_scores_q8(qc: torch.Tensor, codes: torch.Tensor, ids: torch.Tensor,
         "scan_scores_q8", _variant,
         variant_for(b, n, d, qc.data_ptr(), codes.data_ptr()))
     fn = build.entry("scan_scores_q8", "scan_scores_q8_launch", _ARGTYPES)
-    with torch.cuda.device(qc.device):
+    with span("ame.kernel.scan_scores_q8"), torch.cuda.device(qc.device):
         err = fn(qc.data_ptr(), codes.data_ptr(), ids.data_ptr(),
                  scales.data_ptr(), zeros.data_ptr(),
                  None if db_norms is None else db_norms.data_ptr(),

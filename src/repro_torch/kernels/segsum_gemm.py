@@ -11,6 +11,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.spans import span
 from repro_torch.kernels import build, ref
 
 launches = build.LaunchCounter()
@@ -54,7 +55,7 @@ def segsum_gemm(x: torch.Tensor, assign: torch.Tensor, *, n_clusters: int):
     counts = torch.empty((c,), dtype=torch.float32, device=x.device)
     vec4 = int(d % 4 == 0 and x.data_ptr() % 16 == 0)
     fn = build.entry("segsum_gemm", "segsum_gemm_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
+    with span("ame.kernel.segsum_gemm"), torch.cuda.device(x.device):
         err = fn(x.data_ptr(), order.data_ptr(), starts.data_ptr(),
                  cnt.data_ptr(), sums.data_ptr(), counts.data_ptr(), c, d,
                  vec4, torch.cuda.current_stream().cuda_stream)

@@ -264,35 +264,55 @@ def test_latency_class_isolated_from_background():
         t.done.wait()
     st = s.stats()
     s.shutdown()
-    assert st["query"]["p99_ms"] < st["rebuild"]["p50_ms"]
+    assert st["query"]["n"] == 16 and st["rebuild"]["n"] == 4
+    # the slowest query beats the rebuilds' mean (50, 100, 150, 200 ms)
+    assert 1e3 * max(t.latency for t in queries) < st["rebuild"]["mean_ms"]
+    assert st["query"]["mean_ms"] < st["rebuild"]["mean_ms"]
 
 
 def test_completed_history_bounded_but_stats_cumulative():
-    """Sustained traffic must not grow the scheduler: retained Task history
-    is bounded while counts/means come from cumulative aggregates."""
-    s = WindowedScheduler(window=8, history=16)
-    s.map([_task(ms=0.5) for _ in range(50)])
+    """Sustained traffic must not grow the scheduler: it retains no
+    completed task, while counts/means come from cumulative aggregates."""
+    import gc
+    import weakref
+    s = WindowedScheduler(window=8)
+    tasks = [_task(ms=0.5) for _ in range(50)]
+    s.map(tasks)
+    refs = [weakref.ref(t) for t in tasks]
+    del tasks
+    gc.collect()
     st = s.stats()
+    totals = s.totals()
     s.shutdown()
     assert st["completed"] == 50                  # cumulative, not truncated
-    assert st["query"]["n"] == 50
+    assert st["query"]["n"] == 50 == totals["query"]["n"]
     assert st["query"]["mean_wait_ms"] >= 0.0
-    assert st["history_retained"] <= 16           # bounded retention
-    assert len(s.completed) <= 16
+    assert st["query"]["mean_ms"] == pytest.approx(
+        1e3 * totals["query"]["lat_s"] / 50)
+    assert all(r() is None for r in refs)         # nothing retained per task
 
 
-def test_percentiles_none_when_kind_evicted_from_window():
-    """A kind whose samples all left the bounded window must report None
-    percentiles, not a fake 0.0 that reads as sub-millisecond latency."""
-    s = WindowedScheduler(window=4, history=4)
-    s.map([_task(kind="rebuild", backend="background", ms=1) for _ in range(2)])
-    s.map([_task(kind="query", ms=1) for _ in range(8)])    # evicts rebuilds
-    st = s.stats()
+def test_a_blocked_submission_window_counts_admit_wait():
+    """A submit that blocks on the full window counts that wait apart from
+    the queue wait, which starts once the task is queued."""
+    s = WindowedScheduler(window=1)
+    gate = threading.Event()
+    first = Task(fn=gate.wait, kind="rebuild", backend="background")
+    s.submit(first)
+    second = Task(fn=lambda: None, kind="query", backend="latency")
+    th = threading.Thread(target=s.submit, args=(second,))
+    th.start()
+    time.sleep(0.2)
+    assert second.submit_t == 0.0                 # still blocked in submit
+    gate.set()
+    th.join(timeout=10)
+    second.done.wait(timeout=10)
+    totals = s.totals()
     s.shutdown()
-    assert st["rebuild"]["n"] == 2                        # cumulative survives
-    assert st["rebuild"]["p50_ms"] is None
-    assert st["rebuild"]["mean_ms"] > 0                   # aggregate survives
-    assert st["query"]["p50_ms"] is not None
+    assert second.admit_wait >= 0.15
+    assert totals["query"]["admit_wait_s"] == second.admit_wait
+    assert totals["query"]["wait_s"] < 0.15
+    assert totals["rebuild"]["admit_wait_s"] < 0.05
 
 
 def test_unowned_backend_class_is_stolen():

@@ -1153,3 +1153,38 @@ def test_projected_rag_prefill_ids_equal_plain_on_the_card(dev):
         state, q, dataclasses.replace(ecfg, use_kernel=False), 4)[0]
     assert torch.equal(plain, ids)
     assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_each_kernel_launch_lies_in_its_span(dev):
+    """Under a profiler, each hand-written kernel's device work is launched
+    inside its ``ame.kernel.<kernel>`` range on the calling thread."""
+    from torch.profiler import ProfilerActivity, profile
+    x = _randn(dev, 300, 256)
+    c = _randn(dev, 128, 256, seed=1)
+    ids = torch.arange(300, dtype=torch.int32, device=dev)
+    codes = torch.randint(-127, 128, (300, 256), device=dev, dtype=torch.int8)
+    ones = torch.ones(300, device=dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ss.scan_scores(x[:4].contiguous(), x, ids)
+        qc, sq = ref.quantize_queries(x[:4].contiguous())
+        q8.scan_scores_q8(qc, codes, ids, ones, 0 * ones, sq,
+                          ref.query_corr(qc, sq))
+        assign, _ = ka.kmeans_assign(x, c)
+        sg.segsum_gemm(x, assign, n_clusters=128)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    kernels = {e.correlation_id() for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation()}
+    for name in ("scan_scores", "scan_scores_q8", "kmeans_assign",
+                 "segsum_gemm"):
+        rng = [e for e in events if e.name() == f"ame.kernel.{name}"
+               and e.device_type() == torch.autograd.DeviceType.CPU]
+        assert len(rng) == 1, name
+        r = rng[0]
+        inside = [e for e in events if e.name().startswith(("cuda", "cu"))
+                  and e.start_thread_id() == r.start_thread_id()
+                  and r.start_ns() <= e.start_ns()
+                  <= r.start_ns() + r.duration_ns()]
+        assert any(e.correlation_id() in kernels for e in inside), name

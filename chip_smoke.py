@@ -21,7 +21,9 @@ Phases (any failure raises and the script exits non-zero):
    version in both variants, lane g against the 2-D launch on lane g bit
    for bit, and timed at phase 6's fused shapes.  ``scan_scores`` is also
    checked and timed at phase 11a's retrieval (B=8 over the 1,503,232 slots
-   of a PAPER_1M layout at dim 2048).
+   of a PAPER_1M layout at dim 2048), and at the main path's full scan in
+   two segments (the list tier and the spill tier read in place), bit for
+   bit the one-segment launch over their concatenation.
 4. main path, f32: the PAPER_1M memory lifecycle (build, recall@10 against
    an exact brute force, queries, concurrent inserts, deletes, a
    delta-replay rebuild under inserts, queries again) through
@@ -422,8 +424,40 @@ def phase_kernels(seed: int, cfg) -> dict:
                                      library_queued_ms=lib_q)
         del q, db, ids
         torch.cuda.empty_cache()
-    full, probed = scan_times["full"], scan_times["probed"]
     d = cfg.dim
+    # the full scan as the main path runs it: the list tier and the spill
+    # tier read in place, two segments of one launch, bit for bit the
+    # one-segment launch over their concatenation
+    n_list = c * cfg.list_capacity
+    q, db, db2 = randn(64, d), randn(n_list, d), randn(n_full - n_list, d)
+    ids, ids2 = ids_with_holes(n_list), ids_with_holes(n_full - n_list)
+
+    def two(v=None):
+        return ss.scan_scores(q, db, ids, db2=db2, ids2=ids2, _variant=v)
+
+    flat, flat_ids = torch.cat([db, db2]), torch.cat([ids, ids2])
+
+    def one(v=None):
+        return ss.scan_scores(q, flat, flat_ids, _variant=v)
+
+    for v in ("stream", "generic"):
+        if not torch.equal(two(v), one(v)):
+            raise AssertionError(f"scan_scores {v}: two segments differ "
+                                 "from the flat launch")
+    # in turns with the one-segment launch over the concatenated rows
+    scan_times["full_two_segment"] = {
+        "shape": f"B=64 N1={n_list} N2={n_full - n_list} D={d} ip",
+        "ms": cuda_ms(two, reps=10),
+        "variant_ms": race({"stream": lambda: two("stream"),
+                            "generic": lambda: two("generic"),
+                            "one_segment_stream": lambda: one("stream")},
+                           10),
+        "bound_ms": scan_times["full"]["bound_ms"]}
+    del q, db, db2, ids, ids2, flat, flat_ids
+    torch.cuda.empty_cache()
+    full, probed = scan_times["full"], scan_times["probed"]
+    print("  scan_scores full scan in two segments: "
+          f"{scan_times['full_two_segment']}", flush=True)
     print(f"  scan_scores probe centroids: {scan_times['probe_centroids']}",
           flush=True)
     print(f"  scan_scores serving: {scan_times['serving']}", flush=True)
@@ -438,6 +472,7 @@ def phase_kernels(seed: int, cfg) -> dict:
         # without TF32 runs on the CUDA cores and is bound by operations
         "library_call": "torch.mm(q, db.T) f32 inputs, TF32 on",
         "probed": probed,
+        "full_two_segment": scan_times["full_two_segment"],
         "probe_centroids": scan_times["probe_centroids"],
         "serving": scan_times["serving"],
     }

@@ -562,10 +562,15 @@ def _order_scores(scores: torch.Tensor, metric: str) -> torch.Tensor:
     return -scores if metric == "l2" else scores
 
 
-def _scan(q, rows, ids, cfg: EngineConfig) -> torch.Tensor:
+def _scan(q, rows, ids, cfg: EngineConfig, rows2=None,
+          ids2=None) -> torch.Tensor:
+    """Scores of q against `rows` (ids), then against a second segment
+    `rows2` (ids2) if given, in one launch."""
+    norms2 = None if rows2 is None else _metric_norms(rows2, cfg.metric)
     return ops.scan_scores(
         q, rows, ids, _metric_norms(rows, cfg.metric), metric=cfg.metric,
-        use_kernel=cfg.use_kernel, fused_conversion=cfg.fused_conversion)
+        use_kernel=cfg.use_kernel, fused_conversion=cfg.fused_conversion,
+        db2=rows2, ids2=ids2, db2_norms=norms2)
 
 
 # --- int8 asymmetric two-stage query (coarse quantized scan -> f32 rescore)
@@ -601,17 +606,25 @@ def _take(state: IVFState, flat: torch.Tensor, idx: torch.Tensor):
     return flat[(*_lane_index(state, idx), idx)]
 
 
+def _take_tiers(state: IVFState, tier1: torch.Tensor, tier2: torch.Tensor,
+                idx: torch.Tensor) -> torch.Tensor:
+    """`_take` of the list tier's flat leaf `tier1` [(G,) C*L(, D)] and the
+    spill tier's `tier2` [(G,) S(, D)] as one slot axis (`_flat_rows`
+    order), without concatenating them."""
+    lane = _lane_index(state, idx)
+    n1, n2 = tier1.shape[len(lane)], tier2.shape[len(lane)]
+    first = tier1[(*lane, idx.clamp(0, n1 - 1))]
+    if n2 == 0:
+        return first
+    second = tier2[(*lane, (idx - n1).clamp(0, n2 - 1))]
+    spilled = (idx >= n1).view(*idx.shape, *[1] * (first.dim() - idx.dim()))
+    return torch.where(spilled, second, first)
+
+
 def _gather_flat_rows(state: IVFState, cand: torch.Tensor) -> torch.Tensor:
     """f32 rows for flat candidate indices [(G,) ..., R] (lists first, then
     spill — `_flat_rows` order) without materialising the flat copy."""
-    c, l, _ = state.lists.shape[-3:]
-    n_list = c * l
-    lane = _lane_index(state, cand)
-    li = cand.clamp(0, n_list - 1)
-    in_rows = state.lists[(*lane, li // l, li % l)]
-    sp_rows = state.spill[(*lane, (cand - n_list).clamp(
-        0, state.spill.shape[-2] - 1))]
-    return torch.where((cand >= n_list)[..., None], sp_rows, in_rows)
+    return _take_tiers(state, _list_tier(state)[0], state.spill, cand)
 
 
 def _rescore_topk(q: torch.Tensor, rows: torch.Tensor, ids: torch.Tensor,
@@ -662,9 +675,18 @@ def _query_full_scan_q8(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
         return _rescore_topk(q, rows, _take(state, ids, cand), cfg.metric, k)
 
 
+def _list_tier(state: IVFState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list tier's rows [(G,) C*L, D] and ids [(G,) C*L]: views of the
+    store, the first of a full scan's two segments (the spill tier, rows
+    and ids, is the second)."""
+    return state.lists.flatten(-3, -2), state.list_ids.flatten(-2)
+
+
 def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
                     k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Throughput template: fused GEMM scan of the whole database.
+    """Throughput template: fused GEMM scan of the whole database, the
+    list tier and the spill tier read where they lie (one launch, two
+    segments of rows).
 
     Returns (ids i32[B, k], scores f32[B, k]); l2 scores are negated
     distances, as in the reference.  Under the int8 store policy this is
@@ -676,11 +698,11 @@ def query_full_scan(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
         out_ids, top, _ = _query_full_scan_q8(state, q, cfg, k)
         return out_ids, top
     with span("ame.index.full_scan.flat_copy"):
-        rows, ids = _flat_rows(state)
+        rows, ids = _list_tier(state)
     with span("ame.index.full_scan.scan"):
-        scores = _scan(q, rows, ids, cfg)
+        scores = _scan(q, rows, ids, cfg, state.spill, state.spill_ids)
         top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=-1)
-        return _take(state, ids, idx), top
+        return _take_tiers(state, ids, state.spill_ids, idx), top
 
 
 def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
@@ -690,11 +712,12 @@ def query_full_scan_rows(state: IVFState, q: torch.Tensor, cfg: EngineConfig,
     if cfg.quantized:
         return _query_full_scan_q8(state, q, cfg, k)
     with span("ame.index.full_scan.flat_copy"):
-        rows, ids = _flat_rows(state)
+        rows, ids = _list_tier(state)
     with span("ame.index.full_scan.scan"):
-        scores = _scan(q, rows, ids, cfg)
+        scores = _scan(q, rows, ids, cfg, state.spill, state.spill_ids)
         top, idx = torch.topk(_order_scores(scores, cfg.metric), k, dim=1)
-        return ids[idx], top, rows[idx]
+        return (_take_tiers(state, ids, state.spill_ids, idx), top,
+                _gather_flat_rows(state, idx))
 
 
 def query_probed(state: IVFState, q: torch.Tensor, cfg: EngineConfig,

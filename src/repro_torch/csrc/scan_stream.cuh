@@ -28,6 +28,10 @@
 // depth inside a 16-byte-aligned row stride need no padding.  The rows are
 // a 3-D tensor map (depth, N, G) read in one-lane boxes, so the last tile
 // of lane g is zero-filled past N instead of reading lane g + 1's rows.
+// The rows may lie in two segments with a map each (scan_scores reads an
+// index's list tier and spill tier in place): the tile walk covers both
+// segments' tiles, the first segment's first, and the same zero fill ends
+// each segment's last tile.
 //
 // The host-side sizes here are mirrored in kernels/scan_stream.py, which
 // chooses the variant before a launch.
@@ -105,6 +109,20 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled refuses to encode on a thread with no current
+// context.  A thread whose PyTorch work so far launched nothing (a service
+// worker whose first task is a scan over views of the store) has none yet,
+// so each encode first binds the primary context of the runtime's current
+// device: the device of a context PyTorch bound, or device 0 on a thread
+// where it bound none, as PyTorch's own current device is then.  Returns 0
+// or a CUDA error code.
+inline int bind_current_device() {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaSetDevice(dev);
+  return static_cast<int>(e);
+}
+
 // A map of the row-major rows [n_rows, d] (elements of elem_bytes, the row
 // stride d * elem_bytes a multiple of 16, base 16-byte aligned) in boxes of
 // box_rows rows x box_elems elements of depth (box_elems * elem_bytes <=
@@ -115,6 +133,7 @@ inline int encode_2d(CUtensorMap* map, const void* base,
                      long long n_rows, int d, int box_elems, int box_rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (const int err = bind_current_device()) return err;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(n_rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * elem_bytes};
@@ -138,6 +157,7 @@ inline int encode_lanes(CUtensorMap* map, const void* base,
                         long long n_rows, int d) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  if (const int err = bind_current_device()) return err;
   const cuuint64_t row_bytes = static_cast<cuuint64_t>(d) * elem_bytes;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(n_rows),
@@ -326,21 +346,35 @@ struct Ring {
 
 // The producer warp's whole life: lane 0 streams every stage of every row
 // tile this block owns in its lane (blockIdx.z), in the order the consumer
-// groups walk them.
-__device__ __forceinline__ void produce(const CUtensorMap* map, const Smem& sm,
-                                        int stages, int n_tiles, int kb_n,
-                                        int box_elems) {
+// groups walk them.  The rows may come in two segments, each its own map:
+// tile t < t1 is rows t * TILE_ROWS.. of `map`, tile t >= t1 rows
+// (t - t1) * TILE_ROWS.. of `map2`, so a segment's last tile is zero-filled
+// past its own end and never reads the other segment's rows.
+__device__ __forceinline__ void produce(const CUtensorMap* map,
+                                        const CUtensorMap* map2, int t1,
+                                        const Smem& sm, int stages,
+                                        int n_tiles, int kb_n, int box_elems) {
   if (threadIdx.x % 32 != 0) return;
   Ring r(stages);
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const bool second = t >= t1;
+    const CUtensorMap* m = second ? map2 : map;
+    const int row = (second ? t - t1 : t) * TILE_ROWS;
     for (int kb = 0; kb < kb_n; ++kb) {
       bar_wait(&sm.empty[r.stage], r.phase ^ 1u);
       bar_expect_tx(&sm.full[r.stage], STAGE_BYTES);
-      tma_load_3d(sm.ring + r.stage * STAGE_BYTES, map, &sm.full[r.stage],
-                  kb * box_elems, t * TILE_ROWS, blockIdx.z);
+      tma_load_3d(sm.ring + r.stage * STAGE_BYTES, m, &sm.full[r.stage],
+                  kb * box_elems, row, blockIdx.z);
       r.advance();
     }
   }
+}
+
+// One segment: every tile from `map`.
+__device__ __forceinline__ void produce(const CUtensorMap* map, const Smem& sm,
+                                        int stages, int n_tiles, int kb_n,
+                                        int box_elems) {
+  produce(map, map, n_tiles, sm, stages, n_tiles, kb_n, box_elems);
 }
 
 // A consumer group's place in the ping-pong: group g takes the block's

@@ -20,21 +20,26 @@ from repro_torch.kernels import segsum_gemm as _segsum
 
 
 def scan_scores(q, db, ids, db_norms=None, *, metric="ip", use_kernel=True,
-                fused_conversion=True):
+                fused_conversion=True, db2=None, ids2=None, db2_norms=None):
     """Similarity scores f32[B, N] between queries and database rows; with
     a leading lane axis on every operand (q [G, B, D], db [G, N, D], ids
-    and db_norms [G, N]) f32[G, B, N], lane g scanning only its own rows."""
+    and db_norms [G, N]) f32[G, B, N], lane g scanning only its own rows.
+    `db2` (ids2, db2_norms) is a second segment of rows, scored after db's
+    in the same launch: f32[(G,) B, N1 + N2]."""
     if not fused_conversion:
         # ablation baseline "C": materialise the converted copy first (an
         # extra full-matrix round trip), then an exact product
         q = _ref.round_bf16(q)
         db = _ref.round_bf16(db)
+        db2 = None if db2 is None else _ref.round_bf16(db2)
     if not use_kernel:
         plain = _ref.scan_scores_lanes_ref if q.dim() == 3 else \
             _ref.scan_scores_ref
         return plain(q, db, ids, db_norms, metric=metric,
-                     fused_conversion=fused_conversion)
-    return _scan.scan_scores(q, db, ids, db_norms, metric=metric)
+                     fused_conversion=fused_conversion, db2=db2, ids2=ids2,
+                     db2_norms=db2_norms)
+    return _scan.scan_scores(q, db, ids, db_norms, metric=metric, db2=db2,
+                             ids2=ids2, db2_norms=db2_norms)
 
 
 def scan_scores_q8(q, codes, ids, scales, zeros, db_norms=None, *,
@@ -72,11 +77,14 @@ def segsum_gemm(x, assign, *, n_clusters, use_kernel=True):
 
 def launch_counts() -> dict:
     """Launches of each hand-written kernel since the process started, by
-    variant (``<kernel>.<variant>``; `segsum_gemm` has one variant)."""
+    variant (``<kernel>.<variant>``; `segsum_gemm` has one variant), and
+    ``scan_scores.two_segment``: the `scan_scores` launches (already
+    counted by variant) that read a second segment of rows."""
     out = {}
     for name, mod in (("scan_scores", _scan), ("scan_scores_q8", _scan_q8),
                       ("kmeans_assign", _assign)):
         for variant, n in mod.launches_by_variant.items():
             out[f"{name}.{variant}"] = n.value
+    out["scan_scores.two_segment"] = _scan.launches_two_segment.value
     out["segsum_gemm"] = _segsum.launches.value
     return out

@@ -21,9 +21,17 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 
 def scan_scores_ref(q, db, ids, db_norms=None, *, metric="ip",
-                    fused_conversion=True):
+                    fused_conversion=True, db2=None, ids2=None,
+                    db2_norms=None):
     """Scores f32[B, N]: bf16(q) . bf16(db)^T (l2: norms - 2 q.db); slots
-    with id < 0 score -inf (ip) or +inf (l2)."""
+    with id < 0 score -inf (ip) or +inf (l2).  A second segment of rows
+    `db2` (ids2, db2_norms) is scored after db's: the scan of the two
+    concatenated."""
+    if db2 is not None:
+        db = torch.cat([db, db2])
+        ids = torch.cat([ids, ids2])
+        if db_norms is not None:
+            db_norms = torch.cat([db_norms, db2_norms])
     if fused_conversion:
         q = round_bf16(q)
         db = round_bf16(db)
@@ -41,13 +49,17 @@ def _lane(t, g):
 
 
 def scan_scores_lanes_ref(q, db, ids, db_norms=None, *, metric="ip",
-                          fused_conversion=True):
+                          fused_conversion=True, db2=None, ids2=None,
+                          db2_norms=None):
     """The lane scan f32[G, B, N]: lane g is `scan_scores_ref` of q[g]
-    f32[B, D] against db[g] f32[N, D] (ids[g], db_norms[g]); a loop over
-    the lanes, so each lane is the 2-D plain version's own arithmetic."""
+    f32[B, D] against db[g] f32[N, D] (ids[g], db_norms[g]; a second
+    segment's db2[g], ids2[g], db2_norms[g]); a loop over the lanes, so
+    each lane is the 2-D plain version's own arithmetic."""
     return torch.stack([
         scan_scores_ref(q[g], db[g], ids[g], _lane(db_norms, g),
-                        metric=metric, fused_conversion=fused_conversion)
+                        metric=metric, fused_conversion=fused_conversion,
+                        db2=_lane(db2, g), ids2=_lane(ids2, g),
+                        db2_norms=_lane(db2_norms, g))
         for g in range(q.shape[0])])
 
 

@@ -1188,3 +1188,193 @@ def test_each_kernel_launch_lies_in_its_span(dev):
                   and r.start_ns() <= e.start_ns()
                   <= r.start_ns() + r.duration_ns()]
         assert any(e.correlation_id() in kernels for e in inside), name
+
+
+# ---------------------------------------------------------------------------
+# the full scan over the store in place: rows in two segments
+
+# (g, n1, n2, d): PAPER_1M's list tier (1024 x 1464 slots) and spill tier,
+# a ragged list tier (N1 not a multiple of the 128-row tile) beside a
+# spill under one tile, one under a tile on each side, and lanes
+_SEGMENTS = [(1, 1_499_136, 4096, 1024), (1, 1000, 300, 1024),
+             (1, 15, 7, 256), (3, 1000, 130, 1024), (2, 11_712, 4096, 1024)]
+
+
+def _segments(dev, g, b, n1, n2, d, metric):
+    """q, each segment's (rows, ids, l2 norms) in allocations of its own,
+    and the flat (rows, ids, norms) over their N1 + N2 slots (~10 %
+    holes)."""
+    lead = (g,) if g > 1 else ()
+    q = _randn(dev, *lead, b, d, seed=31)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    segs = []
+    for n, seed in ((n1, 32), (n2, 33)):
+        rows = _randn(dev, *lead, n, d, seed=seed)
+        ids = torch.arange(n, dtype=torch.int32, device=dev).repeat(*lead, 1)
+        ids += seed * 100_000
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.1] = -1
+        segs.append((rows, ids, (rows ** 2).sum(-1) if metric == "l2"
+                     else None))
+    (db, ids, norms), (db2, ids2, norms2) = segs
+    flat = (torch.cat([db, db2], dim=-2), torch.cat([ids, ids2], dim=-1),
+            None if norms is None else torch.cat([norms, norms2], dim=-1))
+    return q, segs, flat
+
+
+def _two_segment(q, segs, metric, **kw):
+    (db, ids, norms), (db2, ids2, norms2) = segs
+    return ss.scan_scores(q, db, ids, norms, metric=metric, db2=db2,
+                          ids2=ids2, db2_norms=norms2, **kw)
+
+
+@pytest.mark.parametrize("shape", _SEGMENTS)
+@pytest.mark.parametrize("b", [2, 8, 64])
+@pytest.mark.parametrize("variant", ["stream", "generic"])
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_two_segment_scan_bit_equals_the_flat_launch(dev, shape, b, variant,
+                                                     metric):
+    """A launch over the two segments gives the bits of a launch over their
+    concatenation, in both variants, and counts as one two-segment
+    launch."""
+    g, n1, n2, d = shape
+    q, segs, flat = _segments(dev, g, b, n1, n2, d, metric)
+    want = ss.scan_scores(q, *flat, metric=metric, _variant=variant)
+    del flat
+    before = (ss.launches_by_variant[variant].value,
+              ss.launches_two_segment.value)
+    got = _two_segment(q, segs, metric, _variant=variant)
+    assert (ss.launches_by_variant[variant].value,
+            ss.launches_two_segment.value) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _scan_grids(fn):
+    """(grid x, y, z) of each scan kernel that fn() launches, read from the
+    profiler's trace."""
+    import json
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        trace = json.load(open(f.name))
+    return [tuple(e["args"]["grid"]) for e in trace["traceEvents"]
+            if e.get("cat") == "kernel" and "scan_scores" in e["name"]]
+
+
+def test_one_segment_launch_keeps_its_grid(dev):
+    """An empty second segment is the one-segment launch (no two-segment
+    count, the same bits), and the persistent grid covers each segment's
+    own tiles: min(the card's width, T1 + T2) blocks."""
+    q, segs, flat = _segments(dev, 1, 8, 1000, 130, 1024, "ip")
+    (db, ids, _), (db2, ids2, _) = segs
+    wide = _randn(dev, 200_000, 1024, seed=35)
+    wide_ids = torch.arange(200_000, dtype=torch.int32, device=dev)
+    (width, *_), = _scan_grids(lambda: ss.scan_scores(q, wide, wide_ids))
+    assert width < 200_000 // 128
+    before = ss.launches_two_segment.value
+    grids = _scan_grids(lambda: (
+        ss.scan_scores(q, db, ids),
+        ss.scan_scores(q, db, ids, db2=db2[:0], ids2=ids2[:0]),
+        ss.scan_scores(q, db, ids, db2=db2, ids2=ids2),
+        ss.scan_scores(q, flat[0], flat[1])))
+    assert ss.launches_two_segment.value == before + 1
+    t1, t2 = -(-1000 // 128), -(-130 // 128)
+    assert [x for x, _, _ in grids] == [min(width, t1), min(width, t1),
+                                        min(width, t1 + t2),
+                                        min(width, -(-1130 // 128))]
+    assert len(set(grids[:2])) == 1
+    assert torch.equal(
+        ss.scan_scores(q, db, ids, db2=db2[:0], ids2=ids2[:0]),
+        ss.scan_scores(q, db, ids))
+
+
+@pytest.mark.parametrize("b", [8, 64])
+def test_full_scan_allocates_no_flat_copy(dev, b):
+    """query_full_scan at PAPER_1M raises the peak of allocated memory by
+    less than a tenth of the store's rows: no [C*L + S, D] temporary."""
+    from repro_torch.configs.ame_paper import PAPER_1M
+    from repro_torch.core import index as ivf
+    c, l = PAPER_1M.n_clusters, PAPER_1M.list_capacity
+    st = ivf.empty_state(PAPER_1M, 4096, device=dev)
+    st.lists.normal_()
+    st.spill.normal_()
+    st.list_ids.copy_(torch.arange(c * l, dtype=torch.int32,
+                                   device=dev).view(c, l))
+    q = _randn(dev, b, PAPER_1M.dim, seed=36)
+    ivf.query_full_scan(st, q, PAPER_1M, 10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ids, _ = ivf.query_full_scan(st, q, PAPER_1M, 10)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < 0.1 * (st.lists.nbytes + st.spill.nbytes), rise
+    assert bool((ids >= 0).all())
+
+
+def test_two_segment_counter_counts_full_scans_only(dev):
+    """``launches.scan_scores.two_segment`` moves by one a full scan and
+    not for a probed query's centroid and slab scans."""
+    from repro_torch.api import MemoryService
+    cfg = EngineConfig(dim=256, n_clusters=128, list_capacity=32, nprobe=8,
+                       k=4, kmeans_iters=3)
+    x = np.random.default_rng(1).standard_normal((2000, 256)).astype(
+        np.float32)
+    key = "launches.scan_scores.two_segment"
+    with MemoryService(maintenance=False) as svc:
+        svc.create_collection("m", cfg)
+        svc.build("m", x)
+        c0, s0 = svc.counters()[key], ss.launches.value
+        svc.query("m", x[:1] + 0.01)                    # probed
+        c1, s1 = svc.counters()[key], ss.launches.value
+        assert (c1, s1) == (c0, s0 + 2)                 # centroids + slab
+        for _ in range(3):
+            svc.query("m", x[:8] + 0.01)                # full scan
+        c2, s2 = svc.counters()[key], ss.launches.value
+        assert (c2, s2) == (c1 + 3, s1 + 3)
+
+
+def _in_a_fresh_thread(fn):
+    """fn() on a new thread, which has done no CUDA work before it."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in out, out["error"]
+    return out["value"]
+
+
+@pytest.mark.parametrize("segments", [1, 2])
+def test_scan_launches_from_a_thread_that_launched_nothing(dev, segments):
+    """A stream launch encodes its tensor maps on the calling thread, which
+    may have no current context yet: a service worker whose first task is
+    a full scan over views of the store launches nothing before the scan.
+    With the output's block in the allocator's cache, the scan is that
+    thread's first CUDA work; it must run, and give the main thread's
+    bits (both scans)."""
+    q, segs, _ = _segments(dev, 1, 8, 3000, 300, 1024, "ip")
+    (db, ids, _), (db2, ids2, _) = segs
+    kw = dict(db2=db2, ids2=ids2) if segments == 2 else {}
+    args = _q8_operands(dev, 8, 3000, 1024, "ip")
+    for fn in (lambda: ss.scan_scores(q, db, ids, **kw),
+               lambda: q8.scan_scores_q8(*args)):
+        want = fn()
+        torch.cuda.synchronize()
+        spare = torch.empty_like(want)
+        del spare                 # cached: the fresh thread allocates nothing
+        assert torch.equal(_in_a_fresh_thread(fn), want)

@@ -46,13 +46,19 @@ def start():
 
 def stop(handle) -> dict:
     """Stop the profiler and reduce its events: busy_s, window_s and the
-    breakdown (device operations and idle gaps, the longest ten of each)."""
+    breakdown (device operations and idle gaps, the longest ten of each),
+    and under `spans` the same events by the program's spans
+    (`lib/spans.py`)."""
+    from portbench.lib import spans     # it imports this module's helpers
     prof, t0 = handle
     window_s = time.perf_counter() - t0
     prof.stop()
     res = prof.profiler.kineto_results
     lo = res.trace_start_ns() if hasattr(res, "trace_start_ns") else None
-    return reduce(res.events(), window_s, lo)
+    events = res.events()
+    out = reduce(events, window_s, lo)
+    out["spans"] = spans.reduce(events, window_s, lo)
+    return out
 
 
 def _is_launch(name: str) -> bool:

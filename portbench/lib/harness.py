@@ -30,16 +30,16 @@ import threading
 import time
 from dataclasses import dataclass, field
 from types import SimpleNamespace
-from typing import Dict, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from portbench.lib import corpus, costs, devtrace, manifest, verdict
 from portbench.lib.ledger import Ledger
+from portbench.lib.readers import COLLECTION, Counters
 
 RESULT_TIMEOUT_S = 120.0
-COLLECTION = "mem"
 POOL = 16384             # query vectors drawn ahead for each session
 CLIENT = devtrace.CLIENT
 
@@ -249,30 +249,6 @@ class Clients:
 
 
 # ---------------------------------------------------------------------------
-# counters
-# ---------------------------------------------------------------------------
-
-def sched_totals(svc) -> Dict[str, Dict[str, float]]:
-    """Per op kind: completed count, total queue wait and total latency
-    (seconds), from the scheduler's aggregates (which never reset)."""
-    st = svc.scheduler.stats()
-    out = {}
-    for kind, v in st.items():
-        if isinstance(v, dict) and "mean_wait_ms" in v:
-            n = v["n"]
-            out[kind] = {"n": n, "wait_s": v["mean_wait_ms"] * n / 1e3,
-                         "lat_s": v["mean_ms"] * n / 1e3}
-    return out
-
-
-def sched_delta(before, after, kind: str):
-    a = after.get(kind, {"n": 0, "wait_s": 0.0, "lat_s": 0.0})
-    b = before.get(kind, {"n": 0, "wait_s": 0.0, "lat_s": 0.0})
-    return (a["n"] - b["n"], a["wait_s"] - b["wait_s"],
-            a["lat_s"] - b["lat_s"])
-
-
-# ---------------------------------------------------------------------------
 # one run
 # ---------------------------------------------------------------------------
 
@@ -300,12 +276,17 @@ def mismatch(got: torch.Tensor, lo: int, hi: int) -> int:
 
 def run(cell, seed: int, seconds: float, trace: bool, *,
         t_process: float, device: str = "cuda",
-        control: Optional[str] = None) -> dict:
+        control: Optional[str] = None, want_ctx: bool = False):
     """One run of `cell` (a `manifest.Cell`).  Returns the result: the
     metrics (end-to-end, or per-layer with `trace`), the checks, the device
-    and, traced, the breakdown.  `control` puts the reference in the
-    program's place at that lower precision for the check (the program
-    still serves the window)."""
+    and, traced, the breakdown.  With `want_ctx`, returns (result, ctx),
+    where `ctx` is what the metric readers read: the window's requests and
+    writes, `MemoryService.counters()` differenced across the window
+    (`counters`, a `readers.Counters`) and the scheduler's share of them
+    per op kind (`delta(kind)`), and, traced, the device trace (`trace`)
+    and its spans table (`spans`, `lib/spans.py`; None untraced).
+    `control` puts the reference in the program's place at that lower
+    precision for the check (the program still serves the window)."""
     from repro_torch.api import MemoryOp, MemoryService
     from repro_torch.configs.base import EngineConfig
 
@@ -362,7 +343,7 @@ def run(cell, seed: int, seconds: float, trace: bool, *,
     handle = {}
 
     def on_start():
-        handle["s0"] = sched_totals(svc)
+        handle["c0"] = svc.counters()
         handle["rb0"] = coll.counters["rebuilds"]
         if trace:
             handle["trace"] = devtrace.start()
@@ -371,7 +352,9 @@ def run(cell, seed: int, seconds: float, trace: bool, *,
     win = clients.run_phase(seconds, 1, on_start)
     t0, t1 = win.t0, win.stop
     time.sleep(max(0.0, t1 - time.perf_counter()))
-    s1 = sched_totals(svc)
+    c1 = svc.counters()
+    counters = Counters({k: v - handle["c0"].get(k, 0)
+                         for k, v in c1.items()})
     tr = None
     if trace:
         tr = devtrace.stop(handle["trace"])
@@ -382,7 +365,7 @@ def run(cell, seed: int, seconds: float, trace: bool, *,
 
     # every acknowledged write read back: the live ids are exactly the range
     lost += mismatch(live_ids(coll), ledger.del_next, ledger.ins_next)
-    rebuilds_window = sched_delta(handle["s0"], s1, "rebuild")[0]
+    rebuilds_window = counters("sched.rebuild.n")
     svc.shutdown()
     del svc, coll, clients
     gc.collect()
@@ -391,9 +374,11 @@ def run(cell, seed: int, seconds: float, trace: bool, *,
 
     ctx = SimpleNamespace(
         cfg=engine, spill=spill, seconds=seconds, t0=t0, t1=t1,
-        requests=win.requests, writes=win.writes, s0=handle["s0"], s1=s1,
-        delta=lambda kind: sched_delta(handle["s0"], s1, kind),
-        trace=tr, build_s=build_s, setup_s=handle["setup_s"],
+        requests=win.requests, writes=win.writes, counters=counters,
+        delta=lambda kind: tuple(counters(f"sched.{kind}.{k}")
+                                 for k in ("n", "wait_s", "lat_s")),
+        trace=tr, spans=tr["spans"] if tr else None, build_s=build_s,
+        setup_s=handle["setup_s"],
         live_rows=ledger.ins_next - ledger.del_next, costs=costs,
         rebuilds=rebuilds_window)
     metrics = {}
@@ -432,7 +417,7 @@ def run(cell, seed: int, seconds: float, trace: bool, *,
                     "build_s": build_s, "errors": win.errors[:5],
                     **checks["info"]}
     out["checks"] = checks["numbers"]
-    return out
+    return (out, ctx) if want_ctx else out
 
 
 def _corpus(n0: int, d: int, centers: torch.Tensor, seed: int):

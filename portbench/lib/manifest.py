@@ -18,6 +18,10 @@ from typing import Callable, List, Optional
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 PACKAGE = "portbench"
+# what every configuration states of its source: the row width and the
+# memory's scale; only the scale may be cut to fit a card
+PUBLISHED = ("engine.dim", "corpus.rows")
+SCALE = ("corpus.rows",)
 
 
 def load_json(path: str) -> dict:
@@ -70,6 +74,44 @@ def cell(name: str, bench: Optional[dict] = None,
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
         root=root)
+
+
+def check_cuts(conf: dict, entry: dict) -> None:
+    """Raise ValueError unless the configuration `conf` keeps its source's
+    widths and lists each cut of scale.
+
+    `conf["published"]` gives the source's widths and scale by dotted key
+    (`engine.dim`, `corpus.rows`).  A key that `reduced` does not name
+    equals its published value; a key that it names is a scale key (a
+    width is never cut) and lies below its published value.  The file's
+    `reduced` is its `configs` entry's (`entry`) in BENCHMARK.json."""
+    published = conf.get("published", {})
+    missing = set(PUBLISHED) - set(published)
+    if missing:
+        raise ValueError(f"`published` lacks {sorted(missing)}")
+    reduced = conf["reduced"]
+    if reduced != entry["reduced"]:
+        raise ValueError(f"the file's reduced {reduced} is not its entry's "
+                         f"{entry['reduced']}")
+    for key in reduced:
+        if key not in SCALE:
+            raise ValueError(f"{key} is not a scale key: only {SCALE} may "
+                             "be cut")
+    for key, value in published.items():
+        got = _dotted(conf, key)
+        if key in reduced and not got < value:
+            raise ValueError(f"{key} = {got} is listed as cut but is not "
+                             f"below its published {value}")
+        if key not in reduced and got != value:
+            raise ValueError(f"{key} = {got} differs from its published "
+                             f"{value} and is not in reduced")
+
+
+def _dotted(conf: dict, key: str):
+    """The value of a dotted key (`engine.dim`) of a configuration."""
+    for part in key.split("."):
+        conf = conf[part]
+    return conf
 
 
 def reader(metric: str, root: str = ROOT) -> Callable:

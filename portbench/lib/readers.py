@@ -1,8 +1,18 @@
 """Helpers that the metric readers under `metrics/` share: what the
-window completed, and the least time of that work (`costs`)."""
+window completed, the least time of that work (`costs`), and the
+program's spans and counters over the window."""
 from __future__ import annotations
 
 FAILED_MS = 1e6          # a failed request's latency: over any limit
+COLLECTION = "mem"       # the one collection the harness serves
+
+
+class Counters(dict):
+    """The window's difference of each key of `MemoryService.counters()`;
+    called with a key, that difference, 0 where the key is absent."""
+
+    def __call__(self, name: str) -> float:
+        return self.get(name, 0)
 
 
 def in_window(ctx, items):
@@ -37,3 +47,13 @@ def idle_pct(ctx):
     if ctx.trace is None or ctx.trace["window_s"] <= 0:
         return None
     return 100.0 * (1.0 - ctx.trace["busy_s"] / ctx.trace["window_s"])
+
+
+def per_span_ms(ctx, name: str, key: str):
+    """Milliseconds of `key` (`host_s` or `device_s`) per range of the
+    program's span `name` in the traced window (`ctx.spans`, `lib/spans.py`);
+    None untraced or where the span saw no range."""
+    if ctx.spans is None:
+        return None
+    s = ctx.spans["spans"].get(name)
+    return 1e3 * s[key] / s["n"] if s and s["n"] else None

@@ -50,11 +50,20 @@ def held(root: str = manifest.ROOT) -> list:
 
 
 def with_held(bench: dict, root: str = manifest.ROOT) -> dict:
-    """`bench` with the held cells' configurations and cells added."""
+    """`bench` with the held cells' configurations, cells and metrics
+    added.  A held metric entry that `bench` names already adds its
+    `workloads` to that entry's; one that `bench` lacks is added whole."""
     bench = copy.deepcopy(bench)
     for h in held(root):
         bench["configs"] += h["configs"]
         bench["workloads"] += h["workloads"]
+        for kind in ("end_to_end", "per_layer"):
+            have = {m["name"]: m for m in bench[kind]}
+            for m in h.get(kind, []):
+                if m["name"] not in have:
+                    bench[kind].append(copy.deepcopy(m))
+                elif "workloads" in have[m["name"]]:
+                    have[m["name"]]["workloads"] += m["workloads"]
     return bench
 
 

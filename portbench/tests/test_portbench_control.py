@@ -29,7 +29,7 @@ def _run(cell, seed, **kw):
                        device="cpu", **kw)
 
 
-@pytest.mark.parametrize("name", ["f32-recall", "int8-hybrid"])
+@pytest.mark.parametrize("name", ["f32-hybrid", "f32-recall", "int8-hybrid"])
 def test_control_fails_where_the_program_passes(name):
     cell = tiny.cell(name, ROOT)
     seed = 2 ** 32 + 99

@@ -74,6 +74,20 @@ def test_half_of_the_batch_left_out(monkeypatch):
     assert {"score_err", "self_miss"} & _failed(r)
 
 
+def test_half_of_the_batch_left_out_under_writes(monkeypatch):
+    real = ivf.query_full_scan
+
+    def half(state, q, cfg, k):
+        m = (q.shape[0] + 1) // 2
+        ids, scores = real(state, q[:m], cfg, k)
+        rep = torch.arange(q.shape[0]) % m
+        return ids[rep], scores[rep]
+    monkeypatch.setattr(ivf, "query_full_scan", half)
+    r = _run("f32-hybrid")
+    assert not r["correct"]
+    assert {"score_err", "self_miss"} & _failed(r)
+
+
 def test_an_answer_altered_where_it_is_produced(monkeypatch):
     real = ivf.query_probed
 
@@ -82,6 +96,19 @@ def test_an_answer_altered_where_it_is_produced(monkeypatch):
         return ids, scores + 0.05
     monkeypatch.setattr(ivf, "query_probed", altered)
     r = _run("int8-hybrid")
+    assert not r["correct"]
+    assert "score_err" in _failed(r)
+
+
+def test_an_answer_altered_where_it_is_produced_in_the_f32_store(
+        monkeypatch):
+    real = ivf.query_probed
+
+    def altered(state, q, cfg, k, nprobe):
+        ids, scores = real(state, q, cfg, k, nprobe)
+        return ids, scores + 0.05
+    monkeypatch.setattr(ivf, "query_probed", altered)
+    r = _run("f32-hybrid")
     assert not r["correct"]
     assert "score_err" in _failed(r)
 

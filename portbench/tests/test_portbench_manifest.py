@@ -89,27 +89,34 @@ def test_setup_s_is_an_end_to_end_metric_of_every_cell():
     assert e2e["setup_s"]["bound"] <= 0.25
 
 
-def _cells_of(m):
-    return m.get("workloads", CELLS)
+def _cells_of(m, cells=CELLS):
+    return m.get("workloads", cells)
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in BENCH["per_layer"]])
+# the held cells' metrics too, as they would stand once moved back
+WITH_HELD = tiny.with_held(BENCH, ROOT)
+
+
+@pytest.mark.parametrize("metric",
+                         [m["name"] for m in WITH_HELD["per_layer"]])
 def test_moves_is_reported_by_each_of_its_cells(metric):
-    m = next(x for x in BENCH["per_layer"] if x["name"] == metric)
-    e2e = {x["name"]: x for x in BENCH["end_to_end"]}
+    m = next(x for x in WITH_HELD["per_layer"] if x["name"] == metric)
+    e2e = {x["name"]: x for x in WITH_HELD["end_to_end"]}
+    cells = [w["name"] for w in WITH_HELD["workloads"]]
     assert m["moves"] in e2e
-    assert set(_cells_of(m)) <= set(_cells_of(e2e[m["moves"]]))
+    assert set(_cells_of(m, cells)) <= set(_cells_of(e2e[m["moves"]],
+                                                     cells))
 
 
-def _limits_and_widths(c):
+def _limits_and_widths(c, bench=BENCH):
     assert c.limits["control"] in ("fp8", "bf16")
     for name, bound in c.limits["numbers"].items():
         assert set(bound) in ({"max"}, {"min"})
         assert math.isfinite(list(bound.values())[0])
-    # every width of the source as published, no cut of scale
-    assert c.config["reduced"] == []
-    assert c.config["engine"]["dim"] == 1024
-    assert c.config["corpus"]["rows"] == 1_000_000
+    # every width of the source as published; a cut of scale is listed in
+    # `reduced`, in the file and in its entry alike
+    entry = next(x for x in bench["configs"] if x["name"] == c.config_name)
+    manifest.check_cuts(c.config, entry)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -125,10 +132,39 @@ def test_every_cell_has_its_files_and_metrics(cell):
 @pytest.mark.parametrize("cell", [w["name"] for h in tiny.held(ROOT)
                                   for w in h["workloads"]])
 def test_a_held_cell_has_its_files_and_stays_out(cell):
-    c = manifest.cell(cell, bench=tiny.with_held(BENCH, ROOT), root=ROOT)
+    bench = tiny.with_held(BENCH, ROOT)
+    c = manifest.cell(cell, bench=bench, root=ROOT)
     assert cell not in CELLS
-    assert c.config_name not in {x["name"] for x in BENCH["configs"]}
-    _limits_and_widths(c)
+    h = next(x for x in tiny.held(ROOT)
+             if cell in {w["name"] for w in x["workloads"]})
+    # what the held file holds stays out, and its metric entries are the
+    # benchmark's own but for the cells they list
+    assert not {x["name"] for x in h["configs"]} & {
+        x["name"] for x in BENCH["configs"]}
+    have = {m["name"]: m for m in METRICS}
+    for m in h.get("end_to_end", []) + h.get("per_layer", []):
+        assert m["workloads"] == [cell]
+        if m["name"] in have:
+            assert {k: v for k, v in m.items() if k != "workloads"} == {
+                k: v for k, v in have[m["name"]].items() if k != "workloads"}
+    assert not any(cell in m.get("workloads", []) for m in METRICS)
+    if h.get("end_to_end"):
+        e2e = {m["name"] for m in c.end_to_end}
+        assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
+    for m in c.end_to_end + c.per_layer:
+        assert callable(manifest.reader(m["name"], ROOT))
+    _limits_and_widths(c, bench)
+
+
+@pytest.mark.parametrize("name", ["hotpotqa-1m-f32.json",
+                                  "hotpotqa-1m-int8.json"])
+def test_the_papers_configurations_are_published_and_uncut(name):
+    # the check holds these two to the paper's 1M rows of BGE-large's 1024
+    # components, nothing cut
+    conf = manifest.load_json(os.path.join(ROOT, "portbench", "configs",
+                                           name))
+    assert conf["published"] == {"engine.dim": 1024, "corpus.rows": 1000000}
+    assert conf["reduced"] == []
 
 
 def test_a_configs_file_is_its_own():

@@ -1,9 +1,12 @@
 """The traced window read by the program's spans: the spans table and the
-``span|op`` gap labels on events made by hand, the readings of a window's
-spans and counters, and the span tool's run of a tiny cell on the CPU."""
+``span|op`` gap labels on events made by hand, the metric readers of a
+window's spans and counters, the window's counters in an untraced run, and
+the span tool's run of a tiny cell on the CPU."""
 import importlib.util
 import os
 import sys
+import time
+import types
 
 import pytest
 import torch
@@ -12,7 +15,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
 
-from portbench.lib import devtrace, spans, tiny  # noqa: E402
+from portbench.lib import (  # noqa: E402
+    devtrace, harness, manifest, spans, tiny)
+from portbench.lib.readers import Counters  # noqa: E402
 
 CUDA = torch.autograd.DeviceType.CUDA
 CPU = torch.autograd.DeviceType.CPU
@@ -108,6 +113,19 @@ def _tool():
     return mod
 
 
+# the five readings of the program's spans and counters, by their readers
+FIVE = ("probed_host_ms", "answer_copy_ms.query", "scan_launches_per_query",
+        "admit_wait_ms.query", "insert_clone_ms")
+
+
+def _ctx(table, delta):
+    """A reader's context with a spans table and a window's counter
+    differences (and scheduler aggregates that saw nothing)."""
+    return types.SimpleNamespace(
+        spans=table, counters=Counters(delta),
+        delta=lambda kind: (0, 0.0, 0.0))
+
+
 def test_each_reading_from_a_window_and_none_from_an_empty_one():
     tool = _tool()
     table = {"spans": {
@@ -121,18 +139,81 @@ def test_each_reading_from_a_window_and_none_from_an_empty_one():
                                    "device_s": 0.008, "idle_s": 0}}}
     delta = {"coll.mem.queries": 30, "launches.scan_scores.stream": 9,
              "launches.scan_scores.generic": 1,
+             "launches.scan_scores_q8.stream": 2,
+             "launches.scan_scores.two_segment": 6,
              "launches.kmeans_assign.wgmma": 7,
              "sched.query.n": 8, "sched.query.admit_wait_s": 0.04,
              "coll.mem.insert_calls": 4, "coll.mem.insert_lock_wait_s": 0.02,
              "coll.mem.rebuilds": 2, "coll.mem.rebuild_lock_hold_s": 0.1}
-    assert tool.readings(table, delta) == pytest.approx({
-        "flat_copy_ms.query": 4.0, "probed_host_ms": 3.0,
-        "scan_launches_per_query": 1 / 3, "answer_copy_ms.query": 0.5,
-        "admit_wait_ms.query": 5.0, "writer_lock_wait_ms.insert": 5.0,
-        "insert_clone_ms": 4.0, "rebuild_lock_hold_ms": 50.0})
-    empty = tool.readings({"spans": {}}, {})
-    assert set(empty) == set(tool.readings(table, delta))
+    want = {"probed_host_ms": 3.0, "answer_copy_ms.query": 0.5,
+            # 12 launches of the variants a 30 vectors; the two-segment
+            # key counts 6 of them again and is left out
+            "scan_launches_per_query": 12 / 30,
+            "admit_wait_ms.query": 5.0, "insert_clone_ms": 4.0}
+    ctx = _ctx(table, delta)
+    got = tool.readings(ctx)
+    assert set(FIVE) <= set(got)
+    for name in FIVE:
+        assert manifest.reader(name, ROOT)(ctx) == pytest.approx(
+            want[name]), name
+        assert got[name] == pytest.approx(want[name]), name
+    empty = tool.readings(_ctx({"spans": {}}, {}))
+    assert set(empty) == set(got)
     assert all(v is None for v in empty.values())
+    untraced = _ctx(None, delta)
+    for name in ("probed_host_ms", "answer_copy_ms.query",
+                 "insert_clone_ms"):
+        assert manifest.reader(name, ROOT)(untraced) is None
+
+
+def test_scan_launches_count_every_variant_but_the_two_segment_key():
+    # a variant the port may add later counts as the ones it has now; the
+    # two-segment key, the other kernels and the segsum launch do not
+    delta = {"coll.mem.queries": 10, "launches.scan_scores.stream": 2,
+             "launches.scan_scores.a_later_variant": 3,
+             "launches.scan_scores_q8.generic": 1,
+             "launches.scan_scores.two_segment": 4,
+             "launches.kmeans_assign.wgmma": 9, "launches.segsum_gemm": 5}
+    read = manifest.reader("scan_launches_per_query", ROOT)
+    assert read(_ctx({"spans": {}}, delta)) == pytest.approx(6 / 10)
+    assert read(_ctx({"spans": {}}, {"launches.scan_scores.stream": 2})) \
+        is None
+
+
+def test_the_readings_are_the_per_layer_metrics_of_spans_and_counters():
+    from portbench.lib.manifest import benchmark
+    program = {m["name"] for m in benchmark(ROOT)["per_layer"]
+               if m["source"] in ("program_span", "program_counter")}
+    assert set(FIVE) <= program
+    assert set(_tool().readings(_ctx({"spans": {}}, {}))) == program
+
+
+def test_the_window_counters_of_an_untraced_run():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        r, ctx = harness.run(tiny.cell("f32-hybrid", ROOT), 2 ** 33 + 78,
+                             1.5, False, t_process=time.perf_counter(),
+                             device="cpu", want_ctx=True)
+    finally:
+        torch.set_num_threads(n)
+    assert r["correct"], r["checks"]
+    assert ctx.spans is None and ctx.trace is None
+    # query tasks the scheduler completed between the window's two reads:
+    # every request answered inside the window, and at most every request
+    # the window sent (none of the warm-up's, which had all come back)
+    n_done = ctx.counters("sched.query.n")
+    answered = sum(q.ok and q.t_done <= ctx.t1 for q in ctx.requests)
+    assert 0 < answered <= n_done <= len(ctx.requests)
+    assert ctx.counters("coll.mem.insert_calls") > 0
+    assert ctx.counters("no.such.counter") == 0
+    # the scheduler's share per op kind and the window's rebuilds come from
+    # the same two snapshots
+    assert ctx.delta("query") == tuple(
+        ctx.counters(f"sched.query.{k}") for k in ("n", "wait_s", "lat_s"))
+    assert ctx.delta("query")[1] > 0 and ctx.delta("no_such_kind") == (0,) * 3
+    assert r["notes"]["rebuilds_in_window"] == ctx.counters("sched.rebuild.n")
+    assert "ctx" not in r
 
 
 def test_the_tool_reads_a_tiny_cell_on_the_cpu():
@@ -144,6 +225,7 @@ def test_the_tool_reads_a_tiny_cell_on_the_cpu():
     finally:
         torch.set_num_threads(n)
     assert out["result"]["correct"], out["result"]["checks"]
+    assert "ctx" not in out["result"]
     t = out["spans"]["spans"]
     for name in ("ame.coll.query.to_host", "ame.index.probed",
                  "ame.index.full_scan.flat_copy", "ame.coll.writer_lock",
@@ -154,5 +236,8 @@ def test_the_tool_reads_a_tiny_cell_on_the_cpu():
     assert c["coll.mem.inserts"] > 0 and c["sched.insert.n"] > 0
     got = out["readings"]
     assert got["probed_host_ms"] > 0 and got["answer_copy_ms.query"] > 0
-    assert got["writer_lock_wait_ms.insert"] >= 0
     assert got["admit_wait_ms.query"] >= 0
+    # the run's per-layer metrics are the same readers over the same run
+    for name, m in out["result"]["metrics"].items():
+        if name in got:
+            assert m["value"] == got[name], name

@@ -4,12 +4,12 @@
         --seconds <s> [--out FILE]
 
 Runs the cell once as `run.py --trace 1` runs it (the same harness, the
-same profiler over the same window) and prints one JSON line: the run's
-result, the window's spans table and ``span|op`` idle gaps
-(`lib/spans.py`), the window's differences of `MemoryService.counters()`
-and the readings they give (`readings`).  The window's edges are the
-harness's own two reads of the scheduler's aggregates, at its start and
-its end.  The benchmark's own runs never run this.
+same profiler over the same window) and prints one JSON line from that
+run's own reader context: the run's result, the window's spans table and
+``span|op`` idle gaps (`lib/spans.py`), the window's differences of
+`MemoryService.counters()`, and the readings of every per-layer metric of
+BENCHMARK.json that the program's spans or counters give, each read by its
+own reader under `metrics/`.  The benchmark's own runs never run this.
 """
 import argparse
 import json
@@ -18,77 +18,29 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COLLECTION = "mem"
+PROGRAM = ("program_span", "program_counter")
 
 
-def _per(spans, name, key):
-    s = spans["spans"].get(name)
-    return 1e3 * s[key] / s["n"] if s and s["n"] else None
-
-
-def _ratio(delta, num, den, scale=1e3):
-    d = delta.get(den, 0)
-    return scale * delta.get(num, 0) / d if d else None
-
-
-def readings(spans: dict, delta: dict) -> dict:
-    """Each reading of the window, or None where its span or counter saw
-    nothing: the spans' device or host milliseconds per range, and the
-    counters' window differences per event."""
-    c = f"coll.{COLLECTION}."
-    vectors = delta.get(c + "queries", 0)
-    scans = sum(v for k, v in delta.items()
-                if k.startswith("launches.scan_scores."))
-    return {
-        "flat_copy_ms.query": _per(spans, "ame.index.full_scan.flat_copy",
-                                   "device_s"),
-        "probed_host_ms": _per(spans, "ame.index.probed", "host_s"),
-        "scan_launches_per_query": scans / vectors if vectors else None,
-        "answer_copy_ms.query": _per(spans, "ame.coll.query.to_host",
-                                     "host_s"),
-        "admit_wait_ms.query": _ratio(delta, "sched.query.admit_wait_s",
-                                      "sched.query.n"),
-        "writer_lock_wait_ms.insert": _ratio(
-            delta, c + "insert_lock_wait_s", c + "insert_calls"),
-        "insert_clone_ms": _per(spans, "ame.index.insert.clone", "device_s"),
-        "rebuild_lock_hold_ms": _ratio(delta, c + "rebuild_lock_hold_s",
-                                       c + "rebuilds"),
-    }
+def readings(ctx) -> dict:
+    """Each per-layer metric of BENCHMARK.json read from the program's
+    spans or counters, by its reader, over the run's context `ctx`; None
+    where its span or counter saw nothing."""
+    from portbench.lib import manifest
+    return {m["name"]: manifest.reader(m["name"])(ctx)
+            for m in manifest.benchmark()["per_layer"]
+            if m["source"] in PROGRAM}
 
 
 def traced(cell, seed: int, seconds: float, *, device: str = "cuda") -> dict:
-    """`harness.run(cell, seed, seconds, trace=True)` with the spans table
-    and the window's counters beside its result."""
-    from portbench.lib import devtrace, harness, spans
+    """`harness.run(cell, seed, seconds, trace=True)`, with its spans
+    table, its window's counters and the readings beside its result."""
+    from portbench.lib import harness
 
-    edges, tables = [], []
-    real_stop, real_totals = devtrace.stop, harness.sched_totals
-
-    def stop(handle):
-        prof, t0 = handle
-        window_s = time.perf_counter() - t0
-        prof.stop()
-        res = prof.profiler.kineto_results
-        lo = res.trace_start_ns() if hasattr(res, "trace_start_ns") else None
-        events = res.events()
-        tables.append(spans.reduce(events, window_s, lo))
-        return devtrace.reduce(events, window_s, lo)
-
-    def sched_totals(svc):
-        edges.append(svc.counters())
-        return real_totals(svc)
-
-    devtrace.stop, harness.sched_totals = stop, sched_totals
-    try:
-        result = harness.run(cell, seed, seconds, True,
-                             t_process=time.perf_counter(), device=device)
-    finally:
-        devtrace.stop, harness.sched_totals = real_stop, real_totals
-    first, last = edges[-2], edges[-1]
-    delta = {k: v - first.get(k, 0) for k, v in last.items()}
-    table = tables[-1]
-    return {"result": result, "spans": table, "counters": delta,
-            "readings": readings(table, delta)}
+    result, ctx = harness.run(cell, seed, seconds, True,
+                              t_process=time.perf_counter(), device=device,
+                              want_ctx=True)
+    return {"result": result, "spans": ctx.spans,
+            "counters": dict(ctx.counters), "readings": readings(ctx)}
 
 
 def main(argv=None) -> int:
